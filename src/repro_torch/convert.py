@@ -1,0 +1,92 @@
+"""Carry state and parameters between the JAX reference and the port.
+
+Works on numpy: the caller turns the reference's state into numpy
+first (``jax.device_get``), so this module imports neither package.
+The reference's objects are read by attribute name only.
+
+Representation differences handled here:
+
+* the ring: the port's ``RingBuffer.store`` has one discard row past
+  the reference's ``buf`` (zero, never read);
+* the dedupe window: the reference keeps uint32 hashes, the port int64
+  values in ``[0, 2^32)``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.data.ringbuffer import RingBuffer
+from repro_torch.stream.executor import StreamMetrics, StreamState
+from repro_torch.stream.ingest import AdmissionState
+
+
+def _t(a, device, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, copy=True), device=device,
+                           dtype=dtype)
+
+
+def state_from_numpy(ref_state, device: str | torch.device = "cpu"
+                     ) -> StreamState:
+    """A reference ``StreamState`` with numpy leaves -> the port's."""
+    buf = np.asarray(ref_state.rb.buf)
+    store = np.concatenate([buf, np.zeros_like(buf[:1])])
+    m = ref_state.metrics
+    return StreamState(
+        rb=RingBuffer(_t(store, device), _t(ref_state.rb.head, device),
+                      _t(ref_state.rb.tail, device)),
+        carry=_t(ref_state.carry, device),
+        carry_valid=_t(ref_state.carry_valid, device),
+        max_ts=_t(ref_state.max_ts, device),
+        metrics=StreamMetrics(*(_t(getattr(m, f), device)
+                                for f in StreamMetrics._fields)),
+        adm=AdmissionState(
+            seen=_t(np.asarray(ref_state.adm.seen, np.uint32)
+                    .astype(np.int64), device),
+            seen_pos=_t(ref_state.adm.seen_pos, device)),
+    )
+
+
+def state_to_numpy(state: StreamState) -> dict:
+    """The port's ``StreamState`` -> nested dict of numpy arrays, keyed
+    by the reference's field names, with the reference's ``buf`` and
+    uint32 ``seen``."""
+    def np_(t):
+        return t.detach().cpu().numpy()
+
+    return {
+        "rb": {"buf": np_(state.rb.buf), "head": np_(state.rb.head),
+               "tail": np_(state.rb.tail)},
+        "carry": np_(state.carry),
+        "carry_valid": np_(state.carry_valid),
+        "max_ts": np_(state.max_ts),
+        "metrics": {f: np_(getattr(state.metrics, f))
+                    for f in StreamMetrics._fields},
+        "adm": {"seen": np_(state.adm.seen).astype(np.uint32),
+                "seen_pos": np_(state.adm.seen_pos)},
+    }
+
+
+def histograms_from_numpy(lat_hist, lineage,
+                          device: str | torch.device = "cpu"
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Latency histogram and lineage bank (int32 counts) -> tensors."""
+    return (_t(lat_hist, device, torch.int32),
+            _t(lineage, device, torch.int32))
+
+
+def histograms_to_numpy(lat_hist: torch.Tensor, lineage: torch.Tensor
+                        ) -> tuple[np.ndarray, np.ndarray]:
+    return lat_hist.cpu().numpy(), lineage.cpu().numpy()
+
+
+def params_from_numpy(params, device: str | torch.device = "cpu"):
+    """Stage parameters (arrays, or dicts/lists/tuples of them) ->
+    tensors on ``device`` with the same structure and dtypes."""
+    if isinstance(params, dict):
+        return {k: params_from_numpy(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(params_from_numpy(v, device) for v in params)
+    if params is None:
+        return None
+    return _t(params, device)

@@ -1,0 +1,35 @@
+"""The CUDA kernels against their plain versions on the card, bitwise
+(NaN matches NaN), through the shared checks of
+``repro_torch.kernels.checks``: the full-width stream tick's block plus
+ragged shapes, NaN rows and empty windows.  Needs a CUDA card and
+``nvcc``; skips without a card.  Imports no JAX, so it runs on the
+machine with the card: ``PYTHONPATH=src python -m pytest -q
+--noconftest tests/test_torch_card.py`` (``tests/conftest.py`` imports
+JAX).
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import checks
+
+#: (t, d, window, stride) of one full-width tick: a 65,536-row
+#: micro-batch behind a 32-row carry, 16 features, W = 64, S = 32
+FULL_BLOCK = (65568, 16, 64, 32)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    return torch.device("cuda")
+
+
+class TestOnCard:
+    """Each CUDA kernel against its plain version on the same card
+    tensors, and against the CPU, bitwise."""
+
+    def test_window_reduce_kernel(self, card):
+        assert checks.check_window_reduce(card, *FULL_BLOCK) == 0.0
+
+    def test_fused_tick_kernel(self, card):
+        assert checks.check_fused_tick(card, *FULL_BLOCK) == 0.0
