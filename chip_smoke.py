@@ -5,12 +5,15 @@
 
 Phases, in order; any failure raises and the exit code is not 0:
 
-1. build the hand-written kernels from ``src/repro_torch/kernels/csrc/``
-   (one ``nvcc`` per source, all at once) and print the card's name and
-   power limit;
+1. build the four hand-written kernels from
+   ``src/repro_torch/kernels/csrc/`` (one ``nvcc`` per source, all at
+   once) and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card,
-   bitwise (NaN matches NaN), at the stream tick's full-width shapes and
-   at ragged small ones, with NaN rows and all-invalid windows;
+   bitwise (NaN matches NaN): window_reduce and fused_tick at the stream
+   tick's full-width shapes and ragged small ones, with NaN rows and
+   all-invalid windows; hilbert at the routing step's 65,536 points and
+   ragged batches at orders 1 to 16; armatch at the AR data plane's two
+   calls and ragged shapes, with every vkind on both sides;
 3. drive the single-device stream tick at full width -- D = 16 features,
    W = 64, S = 32, 65,536 rows a tick, a 2^22-row ring, the two rules
    and the tanh(h @ p) x8 core stand-in of ``benchmarks/streaming.py``
@@ -19,15 +22,22 @@ Phases, in order; any failure raises and the exit code is not 0:
    executor on the CPU, and each path must have launched its kernel;
    then an admission run (dedupe window of 131,072, a finite contract,
    one redelivered tick) must conserve every offered row and dedupe the
-   redelivery whole;
-4. time each path (items/s as all rows over all ticks' wall time,
-   p50/p99 tick ms, with a synchronize per tick) and each kernel at the
+   redelivery whole.  Then the AR data plane at full width: the card is
+   one RP of a 16 x 16 overlay with a 2^20-row DHT shard; each of 64
+   steps posts 65,536 messages (Hilbert index, owner rank, bucketing,
+   store of what this RP receives), matches them against 1,024
+   standing interests, runs 32 associative queries over the shard and
+   one registry lookup; both AR kernels must have launched, and the
+   same composition at a reduced size must give bitwise the same
+   outputs on the card and on the CPU;
+4. time each path (items or posts a second over all steps' wall time,
+   p50/p99 step ms, with a synchronize per step) and each kernel at the
    path's shapes -- the kernel's own device time from a
    ``torch.profiler`` trace, and wall time a call from CUDA events --
    beside its plain version, a one-call PyTorch yardstick where there
    is one, and the least time the card could take;
-5. profile a few ticks of each path with ``torch.profiler``: the
-   device's busy share of the tick and the top device ops.
+5. profile a few ticks of each stream path and a few AR steps with
+   ``torch.profiler``: the device's busy share and the top device ops.
 
 The line before the last is a JSON object of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -51,6 +61,10 @@ ROOT = Path(__file__).resolve().parent
 #: tensor cores (the kernels' adds and compares run there).
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+#: int32 outside the tensor cores, per NVIDIA's Hopper white paper: 64
+#: INT32 lanes an SM a clock x 132 SMs x the 1.98 GHz boost clock (the
+#: hilbert and armatch kernels' shifts, xors, ands and compares)
+PEAK_INT32_OPS_S = 64 * 132 * 1.98e9
 
 
 class Sizes(NamedTuple):
@@ -92,14 +106,27 @@ def _device_events(prof, tag: str) -> list[dict]:
             ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
+def _prime_profiler(device) -> None:
+    """One throw-away ``torch.profiler`` capture.  The process's first
+    capture starts the device tracer and can miss the device ops
+    launched while it does; every later capture sees them all."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(1024, device=device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]):
+        for _ in range(16):
+            x = x + 1
+        torch.cuda.synchronize()
+
+
 def _timed(fn, reps: int, tag: str,
            kernel: str | None = None) -> tuple[float, float]:
     """(device ms, wall ms) a call of ``fn()`` over ``reps`` calls back
     to back.  Device time sums the device ops the profiler saw, or,
-    given ``kernel``, only that kernel's own launches (one a call; the
-    wrapper's other ops are left out).  Wall time is CUDA events around
-    the loop, which the host's launch rate bounds whenever a call's
-    device work is shorter than its launch."""
+    given ``kernel``, is the mean of that kernel's own traced launches
+    (one a call; the wrapper's other ops are left out).  Wall time is
+    CUDA events around the loop, which the host's launch rate bounds
+    whenever a call's device work is shorter than its launch."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -113,13 +140,36 @@ def _timed(fn, reps: int, tag: str,
         stop.record()
         torch.cuda.synchronize()
     events = _device_events(prof, tag)
-    if kernel is not None:
-        events = [e for e in events if kernel in e["name"]]
-        if len(events) != reps:
-            _fail(f"{tag}: {len(events)} {kernel} launches traced, want "
-                  f"{reps}")
-    busy_us = sum(e["dur"] for e in events)
-    return busy_us * 1e-3 / reps, start.elapsed_time(stop) / reps
+    wall_ms = start.elapsed_time(stop) / reps
+    if kernel is None:
+        return sum(e["dur"] for e in events) * 1e-3 / reps, wall_ms
+    events = [e for e in events if kernel in e["name"]]
+    if not 0 < len(events) <= reps:
+        _fail(f"{tag}: {len(events)} {kernel} launches traced, want "
+              f"{reps}")
+    if len(events) < reps:
+        print(f"{tag}: the trace holds {len(events)} of {reps} "
+              f"{kernel} launches; the time is their mean")
+    return sum(e["dur"] for e in events) * 1e-3 / len(events), wall_ms
+
+
+def _wrappers() -> dict:
+    """Each kernel's wrapper; ``<wrapper>.launches`` counts its launches."""
+    from repro_torch.kernels.armatch import armatch
+    from repro_torch.kernels.fused_tick import fused_tick
+    from repro_torch.kernels.hilbert import hilbert_xy2d
+    from repro_torch.kernels.window_reduce import window_reduce
+    return {"window_reduce": window_reduce, "fused_tick": fused_tick,
+            "hilbert": hilbert_xy2d, "armatch": armatch}
+
+
+def zero_launches() -> None:
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: w.launches for name, w in _wrappers().items()}
 
 
 # ---- phase 3: the stream tick at full width ------------------------------
@@ -193,8 +243,6 @@ def drive(ex, state, sz: Sizes, device, ticks, keep=False, snap_at=None):
 
 
 def run_paths(sz: Sizes, device, bitwise, close):
-    from repro_torch.kernels.fused_tick import fused_tick
-    from repro_torch.kernels.window_reduce import window_reduce
     from repro_torch.stream.executor import StepOutput
     from repro_torch.testing import DEVICE_MATH
     results = {}
@@ -203,11 +251,10 @@ def run_paths(sz: Sizes, device, bitwise, close):
         state, _, _, _ = drive(ex, state, sz, device, sz.warmup)
         del ex, state
         ex, state = make_executor(sz, device, fused=fused)
-        window_reduce.launches = fused_tick.launches = 0
+        zero_launches()
         state, secs, outs, snap = drive(ex, state, sz, device, sz.ticks,
                                         keep=True, snap_at=sz.cpu_ticks)
-        launches = {"window_reduce": window_reduce.launches,
-                    "fused_tick": fused_tick.launches}
+        launches = read_launches()
         results[name] = dict(state=state, secs=secs, outs=outs, snap=snap,
                              launches=launches,
                              metrics=state.metrics.as_dict())
@@ -316,7 +363,316 @@ def run_overlap(sz: Sizes, device, bitwise, ticks=6):
         _fail(f"int8 staging lost batches: {m8}")
 
 
+# ---- phase 3, AR: the Associative-Rendezvous data plane -------------------
+
+class ARSizes(NamedTuple):
+    n: int              # messages posted a step
+    shard: int          # rows of the RP's DHT shard (16 batches)
+    interests: int      # standing interests of the notify match
+    queries: int        # associative queries a step
+    steps: int          # measured steps
+    warmup: int = 3
+
+
+#: the repo's AR benches raised to one card: a 16 x 16 RP overlay with
+#: a routing table at granularity 8 (``benchmarks/routing.py``), the
+#: shard of ``benchmarks/store_query.py`` (value_dim 8) at 2^20 rows.
+#: The interest and query counts are this smoke run's choices, sized to
+#: load both kernel shapes; no published AR mix stands behind them.
+AR_FULL = ARSizes(n=65536, shard=1 << 20, interests=1024, queries=32,
+                  steps=64)
+#: the same composition, small enough to run on the CPU too
+AR_SMALL = ARSizes(n=4096, shard=1 << 16, interests=256, queries=4,
+                   steps=2, warmup=0)
+AR_GRID, AR_GRANULARITY, AR_VALUE_DIM, AR_RESULTS = 16, 8, 8, 16
+AR_FUNCTIONS = 64
+
+
+class ARPlane(NamedTuple):
+    table: torch.Tensor         # [4^8] cell -> rank
+    pool: torch.Tensor          # [n, 128] data profiles
+    interests: torch.Tensor     # [interests, 128]
+    queries: torch.Tensor       # [queries, 128]
+    registry: object            # FunctionRegistry of AR_FUNCTIONS profiles
+    fn_interest: np.ndarray     # what the registry is asked for
+    num_ranks: int
+    capacity: int               # messages a rank takes from this source
+
+
+class ARStep(NamedTuple):
+    idx: torch.Tensor
+    ranks: torch.Tensor
+    send: torch.Tensor
+    plan: tuple
+    mine: torch.Tensor
+    notify: torch.Tensor
+    answers: list               # (values, hits, n_hits) per query
+    found: list                 # registry hits, by name
+
+
+def make_ar(sz: ARSizes, device) -> ARPlane:
+    """The overlay, the message pool, the interests, the queries and
+    the function registry, made once with numpy from seed 7: the pool
+    and the interests use all six slot kinds of ``tests/test_kernels.py``
+    over an 8-word vocabulary; queries use the five that an interest can
+    satisfy (a NUM interest slot never matches)."""
+    from repro_torch.core import profiles as P
+    from repro_torch.core.overlay import Overlay
+    from repro_torch.kernels.checks import random_profiles
+    rng = np.random.default_rng(7)
+    overlay = Overlay.from_mesh_shape(AR_GRID, AR_GRID, capacity=4,
+                                      replication=2)
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    return ARPlane(
+        table=dev(overlay.routing_table(AR_GRANULARITY)),
+        pool=dev(random_profiles(rng, sz.n)),
+        interests=dev(random_profiles(rng, sz.interests, max_slots=3)),
+        queries=dev(random_profiles(rng, sz.queries, kinds=(0, 1, 2, 4, 5),
+                                    max_slots=1)),
+        registry=_registry(device),
+        fn_interest=P.ProfileBuilder().add_single("fn0*").build(),
+        num_ranks=AR_GRID * AR_GRID, capacity=sz.n // 64)
+
+
+def _registry(device):
+    """A function registry of AR_FUNCTIONS profiles on ``device``."""
+    from repro_torch.core import profiles as P
+    from repro_torch.core.serverless import FunctionRegistry
+    registry = FunctionRegistry(device)
+    for i in range(AR_FUNCTIONS):
+        registry.store_function(f"fn{i:02d}", P.profile(
+            f"fn{i:02d}", "edge" if i % 2 else "core"), torch.tanh)
+    return registry
+
+
+def ar_feed(sz: ARSizes, step: int, plane: ARPlane):
+    """Step ``step``'s posts, drawn on the pool's device from seed
+    100 + step: a permutation of the pool and [n, 8] payloads."""
+    gen = torch.Generator(plane.pool.device).manual_seed(100 + step)
+    perm = torch.randperm(sz.n, generator=gen, device=plane.pool.device)
+    payload = torch.randn((sz.n, AR_VALUE_DIM), generator=gen,
+                          device=plane.pool.device)
+    return plane.pool[perm], payload
+
+
+def ar_step(plane: ARPlane, shard, keys, payload, me: int):
+    """One RP's step of the data plane, in the reference's order: index,
+    owner rank, bucketing, store what this RP receives, notify, query,
+    find a function."""
+    from repro_torch.core import routing, sfc, store
+    from repro_torch.kernels.armatch import armatch
+    idx = sfc.profile_index(keys)                       # hilbert
+    ranks = routing.rank_of_message(keys, plane.table)  # hilbert again
+    send, plan = routing.route_local(payload, idx, plane.table,
+                                     plane.num_ranks, plane.capacity)
+    mine = (plan.dest == me) & plan.keep
+    shard = store.store(shard, keys, payload, mask=mine)
+    notify = armatch(keys, plane.interests)
+    answers = [store.query_match(shard, q, AR_RESULTS)
+               for q in plane.queries]
+    found = [e.name for e in plane.registry.find(plane.fn_interest)]
+    return shard, ARStep(idx, ranks, send, plan, mine, notify, answers, found)
+
+
+def ar_setup(sz: ARSizes, plane: ARPlane, device, me: int | None = None):
+    """The RP's shard, pre-filled to capacity by 16 stores of n rows
+    (seeds 1000 + i), and ``me``: by default the rank that owns the most
+    of step 0's messages, read once on the host."""
+    from repro_torch.core import routing, store
+    if me is None:
+        keys, _ = ar_feed(sz, 0, plane)
+        owners = routing.rank_of_message(keys, plane.table)
+        me = int(torch.bincount(owners.long(),
+                                minlength=plane.num_ranks).argmax())
+    shard = store.init_store(sz.shard, AR_VALUE_DIM, device=device)
+    for i in range(sz.shard // sz.n):
+        keys, payload = ar_feed(sz, 1000 + i, plane)
+        shard = store.store(shard, keys, payload)
+    return shard, me
+
+
+def run_ar(sz: ARSizes, device) -> dict:
+    """Phase 3's AR run: warm-up steps, then ``sz.steps`` measured
+    steps with the launch counts zeroed just before; fails on a kernel
+    not launched, a notify matrix all 0 or all 1, a query without a hit,
+    a plan that loses messages, or a cursor that did not advance by the
+    kept count."""
+    plane = make_ar(sz, device)
+    shard, me = ar_setup(sz, plane, device)
+    for step in range(sz.warmup):
+        shard, _ = ar_step(plane, shard, *ar_feed(sz, step, plane), me)
+    feed = [ar_feed(sz, sz.warmup + i, plane) for i in range(sz.steps)]
+    cursor0 = shard.cursor.clone()
+    secs, tallies = [], []
+    zero_launches()
+    for keys, payload in feed:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shard, out = ar_step(plane, shard, keys, payload, me)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        tallies.append(torch.stack([
+            out.notify.sum(dtype=torch.int64),
+            (out.plan.counts.sum() + out.plan.overflow.sum()).long(),
+            out.mine.sum(dtype=torch.int64),
+            torch.stack([a[2] for a in out.answers]).min().long()]))
+        found = out.found
+    launches = read_launches()
+    for name in ("hilbert", "armatch"):
+        if launches[name] == 0:
+            _fail(f"AR path launched no {name} kernel")
+    t = torch.stack(tallies).cpu()
+    notify_sum, posted, kept, min_hits = t.T
+    pairs = sz.n * sz.interests
+    if (notify_sum == 0).any() or (notify_sum == pairs).any():
+        _fail(f"notify matrix all 0 or all 1: {notify_sum.tolist()}")
+    if (posted != sz.n).any():
+        _fail(f"plan lost messages: {posted.tolist()} != {sz.n}")
+    if (min_hits == 0).any():
+        _fail(f"a query found no hit: least hits a step {min_hits.tolist()}")
+    advanced = int(shard.cursor - cursor0)
+    if advanced != int(kept.sum()):
+        _fail(f"cursor advanced {advanced}, kept {int(kept.sum())}")
+    if not found:
+        _fail("the registry found no function")
+    return dict(secs=secs, launches=launches, me=me, plane=plane,
+                shard=shard, kept=int(kept.sum()),
+                notify_share=float(notify_sum.sum()) / (pairs * sz.steps),
+                min_hits=int(min_hits.min()), found=len(found))
+
+
+def run_ar_card_vs_cpu(sz: ARSizes, device, bitwise) -> int:
+    """The AR composition on the card and on the CPU from the same
+    inputs (the card's plane, shard and feed, copied): every output and
+    the shard bitwise equal.  Returns the steps compared."""
+    from repro_torch.core.store import ShardStore
+    card = make_ar(sz, device)
+    cpu = card._replace(table=card.table.cpu(), pool=card.pool.cpu(),
+                        interests=card.interests.cpu(),
+                        queries=card.queries.cpu(),
+                        registry=_registry("cpu"))
+    shard, me = ar_setup(sz, card, device)
+    shards = {"card": shard, "cpu": ShardStore(*(t.cpu() for t in shard))}
+    outs = {"card": [], "cpu": []}
+    for step in range(sz.steps):
+        keys, payload = ar_feed(sz, step, card)
+        for name, plane in (("card", card), ("cpu", cpu)):
+            dev = plane.pool.device
+            shards[name], out = ar_step(plane, shards[name], keys.to(dev),
+                                        payload.to(dev), me)
+            outs[name].append(out)
+    for i, (a, b) in enumerate(zip(outs["card"], outs["cpu"])):
+        for f in ("idx", "ranks", "send", "mine", "notify"):
+            bitwise(getattr(a, f), getattr(b, f), f"AR step {i} {f}")
+        for f, x, y in zip(a.plan._fields, a.plan, b.plan):
+            bitwise(x, y, f"AR step {i} plan {f}")
+        for q, (x, y) in enumerate(zip(a.answers, b.answers)):
+            for name, u, v in zip(("values", "hits", "n_hits"), x, y):
+                bitwise(u, v, f"AR step {i} query {q} {name}")
+        if a.found != b.found:
+            _fail(f"AR step {i} registry: {a.found} != {b.found}")
+    for f, x, y in zip(ShardStore._fields, shards["card"].log()
+                       + (shards["card"].cursor,),
+                       shards["cpu"].log() + (shards["cpu"].cursor,)):
+        bitwise(x, y, f"AR shard {f}")
+    return sz.steps
+
+
 # ---- phase 4: kernel timing -----------------------------------------------
+
+#: each kernel's TPU original (file:line of the function that reaches
+#: ``pl.pallas_call``)
+TPU_KERNELS = {
+    "window_reduce": "src/repro/kernels/window_reduce/window_reduce.py:49",
+    "fused_tick": "src/repro/kernels/fused_tick/fused_tick.py:108",
+    "hilbert": "src/repro/kernels/hilbert/hilbert.py:48",
+    "armatch": "src/repro/kernels/armatch/armatch.py:83",
+}
+#: Operation counts for the AR kernels' bounds: the work the function
+#: needs, not the instructions a kernel compiles to.
+#:
+#: One step of the Hilbert loop as the reference writes it
+#: (``repro.core.sfc.xy2d``), the step's constants (s, s*s, s - 1) taken
+#: out and no loop overhead: the two bit tests (an and and a compare
+#: each: 4); d += s*s * ((3*rx) ^ ry) (a multiply, an xor, a multiply by
+#: the power of two s*s, an add: 4); the reflect test (ry == 0) &
+#: (rx == 1) (3; the swap reuses ry == 0); the reflect, two subtractions
+#: and two selects (4); the swap, two selects (2).
+HILBERT_OPS_PER_STEP = 17
+
+
+def armatch_ops(data: torch.Tensor, interests: torch.Tensor) -> int:
+    """int32 operations the match of ``data`` ``[M, 128]`` against
+    ``interests`` ``[N, 128]`` needs on these inputs.  Only used slots
+    are tested, and what depends on one slot alone is decoded once a
+    slot, not once a pair:
+
+    - a (used interest slot, used data slot) pair tests the attribute
+      (two xors, two ands, an or, a compare to zero: 6) and ORs into the
+      interest slot's ``sat`` (1); unless the interest slot is NONE it
+      ANDs in a value test (1) whose own cost follows the interest
+      slot's kind: EXACT two compares and two ands (4), PREFIX two xors,
+      two ands, an or, a compare and an and (7), RANGE two compares and
+      two ands (4), ANY none (the data slot's kind is decoded once).
+      An interest slot of another kind never matches: no pair is tested;
+    - a (data row, used interest slot) pair ANDs that slot's ``sat`` into
+      the result (1); a (data row, interest) pair ANDs in "the interest
+      has a used slot" (1);
+    - decoding: three kind tests a used data slot (EXACT, NUM, not
+      NONE), two a used interest slot (used, kind).
+
+    The kernel tests all 8 x 8 slot pairs of every (row, interest) pair
+    whatever is used, so this is the least work, not the kernel's."""
+    from repro_torch.core import profiles as P
+    per_kind = {P.VK_NONE: 7, P.VK_EXACT: 12, P.VK_PREFIX: 15,
+                P.VK_ANY: 8, P.VK_RANGE: 12}
+    d = data.reshape(-1, P.MAX_SLOTS, P.SLOT_WIDTH)
+    p = interests.reshape(-1, P.MAX_SLOTS, P.SLOT_WIDTH)
+    u_d = int((d[..., P.L_USED] > 0).sum())
+    p_used = p[..., P.L_USED] > 0
+    u_p = int(p_used.sum())
+    kind = p[..., P.L_VKIND]
+    slot_pairs = sum(cost * int((p_used & (kind == k)).sum())
+                     for k, cost in per_kind.items())
+    m, n = d.shape[0], p.shape[0]
+    return u_d * slot_pairs + m * u_p + m * n + 3 * u_d + 2 * u_p
+
+
+def _us(pair):
+    return "none" if pair is None else \
+        f"{pair[0] * 1e3:.2f} us device ({pair[1] * 1e3:.2f} us wall)"
+
+
+def _bound(nbytes: int, ops: int, peak_ops: float) -> tuple[float, str]:
+    """(least ms, what bounds it): bytes over the memory rate against
+    operations over the peak rate of their type."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / peak_ops * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _kernel_row(name: str, rec: dict, nbytes: int, ops: int,
+                peak_ops: float, launches: int, err: float,
+                where: str) -> dict:
+    """One entry of the kernels line, printed as it is made."""
+    if rec["ms"][0] <= 0.0 or rec["plain_ms"][0] <= 0.0:
+        _fail(f"{name}: the profiler saw no device time")
+    bound_ms, bound_by = _bound(nbytes, ops, peak_ops)
+    print(f"kernel {name} a call: {_us(rec['ms'])}, plain "
+          f"{_us(rec['plain_ms'])}, library {_us(rec['library_ms'])}, "
+          f"bound {bound_ms * 1e3:.3f} us ({bound_by}: {nbytes} bytes, "
+          f"{ops} operations), launches {launches} ({where})")
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": TPU_KERNELS[name], "launches": launches,
+            "max_abs_err": err, "ms": rec["ms"][0],
+            "plain_ms": rec["plain_ms"][0], "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": rec["library_ms"] and rec["library_ms"][0]}
+
 
 def time_kernels(sz: Sizes, device, results, errs):
     from repro_torch.core import rules as R
@@ -355,69 +711,124 @@ def time_kernels(sz: Sizes, device, results, errs):
     ft_bytes = 4 * t * l + t + 4 * nw * (sz.d + 5 + 3)
     ft_ops = nw * l * sz.window * 4
     rows = []
-    for name, rec, nbytes, ops, path, src, tpu in (
-            ("window_reduce", wr, wr_bytes, wr_ops, "staged",
-             "src/repro_torch/kernels/csrc/window_reduce.cu",
-             "src/repro/kernels/window_reduce/window_reduce.py:49"),
-            ("fused_tick", ft, ft_bytes, ft_ops, "fused",
-             "src/repro_torch/kernels/csrc/fused_tick.cu",
-             "src/repro/kernels/fused_tick/fused_tick.py:108")):
-        if rec["ms"][0] <= 0.0 or rec["plain_ms"][0] <= 0.0:
-            _fail(f"{name}: the profiler saw no device time")
-        t_bytes = nbytes / PEAK_BYTES_S * 1e3
-        t_ops = ops / PEAK_F32_OPS_S * 1e3
+    for name, rec, nbytes, ops, path in (
+            ("window_reduce", wr, wr_bytes, wr_ops, "staged"),
+            ("fused_tick", ft, ft_bytes, ft_ops, "fused")):
         launches = results[path]["launches"][name]
-        rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": launches, "max_abs_err": errs[name],
-            "ms": rec["ms"][0], "plain_ms": rec["plain_ms"][0],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": rec["library_ms"] and rec["library_ms"][0]})
-
-        def us(pair):
-            return "none" if pair is None else \
-                f"{pair[0] * 1e3:.2f} us device ({pair[1] * 1e3:.2f} us wall)"
-        print(f"kernel {name} a call: {us(rec['ms'])}, plain "
-              f"{us(rec['plain_ms'])}, library {us(rec['library_ms'])}, "
-              f"bound {max(t_bytes, t_ops) * 1e3:.3f} us ({nbytes} bytes), "
-              f"launches {launches} ({launches / sz.ticks:g} a tick on the "
-              f"{path} path)")
+        rows.append(_kernel_row(
+            name, rec, nbytes, ops, PEAK_F32_OPS_S, launches, errs[name],
+            f"{launches / sz.ticks:g} a tick on the {path} path"))
     return rows
+
+
+def time_ar_kernels(sz: ARSizes, device, ar: dict, errs: dict) -> list:
+    """hilbert at the routing step's call (the pool's points, order 16)
+    and armatch at its two calls: the notify match and one query
+    against the shard's log."""
+    from repro_torch.core import sfc
+    from repro_torch.kernels.armatch import armatch, armatch_ref
+    from repro_torch.kernels.hilbert import hilbert_xy2d, hilbert_xy2d_ref
+    plane, steps = ar["plane"], sz.steps
+    x, y = sfc.profile_point(plane.pool)
+    hil = dict(
+        ms=_timed(lambda: hilbert_xy2d(x, y, 16), 200, "hilbert",
+                  kernel="hilbert_xy2d_kernel"),
+        plain_ms=_timed(lambda: hilbert_xy2d_ref(x, y, 16), 20,
+                        "hilbert_plain"),
+        library_ms=None)
+    rows = [_kernel_row(
+        "hilbert", hil, 12 * x.numel(),
+        x.numel() * 16 * HILBERT_OPS_PER_STEP,
+        PEAK_INT32_OPS_S, ar["launches"]["hilbert"], errs["hilbert"],
+        f"{ar['launches']['hilbert'] / steps:g} a step on the AR path")]
+    log_keys = ar["shard"].log()[0]
+    query = plane.queries[:1]
+    shapes = []
+    for tag, data, ints, reps, plain_reps, a_step in (
+            ("notify", plane.pool, plane.interests, 10, 1, 1),
+            ("query", log_keys, query, 50, 3, len(plane.queries))):
+        m, n = data.shape[0], ints.shape[0]
+        rec = dict(
+            ms=_timed(lambda: armatch(data, ints), reps, f"armatch_{tag}",
+                      kernel="armatch_kernel"),
+            plain_ms=_timed(lambda: armatch_ref(data, ints), plain_reps,
+                            f"armatch_{tag}_plain"),
+            library_ms=None)
+        nbytes = 4 * 128 * (m + n) + 4 * m * n
+        ops = armatch_ops(data, ints)
+        bound_ms, bound_by = _bound(nbytes, ops, PEAK_INT32_OPS_S)
+        print(f"armatch {tag} [{m} x {n}]: {_us(rec['ms'])}, plain "
+              f"{_us(rec['plain_ms'])}, bound {bound_ms * 1e3:.3f} us "
+              f"({bound_by}: {nbytes} bytes, {ops} operations, "
+              f"{ops / (m * n):.1f} a pair), {a_step} a step")
+        shapes.append({"call": tag, "shape": [m, n], "ms": rec["ms"][0],
+                       "plain_ms": rec["plain_ms"][0], "bound_ms": bound_ms,
+                       "bound_by": bound_by, "launches_a_step": a_step})
+        if tag == "notify":
+            notify = (rec, nbytes, ops)
+    row = _kernel_row("armatch", *notify, PEAK_INT32_OPS_S,
+                      ar["launches"]["armatch"], errs["armatch"],
+                      f"{ar['launches']['armatch'] / steps:g} a step on the "
+                      "AR path; the row's times are the notify call's")
+    row["shapes"] = shapes
+    rows.append(row)
+    return rows
+
+
+def _profile(tag: str, steps: int, unit: str, fn) -> None:
+    """``torch.profiler`` over ``steps`` calls of ``fn``: the device's
+    busy share of the wall time and the top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            fn(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = _device_events(prof, tag)
+    busy = sum(e["dur"] for e in dev) * 1e-6
+    by_name: dict[str, float] = {}
+    for e in dev:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"profile {tag}: {steps} {unit}s in {wall * 1e3:.3f} ms "
+          f"(profiler on), device busy {busy * 1e3:.3f} ms = "
+          f"{busy / wall:.4f} of the wall time, {len(dev) / steps:.1f} "
+          f"device ops a {unit}; top by device time: "
+          + "; ".join(f"{n[:60]} {d / steps:.1f} us/{unit}"
+                      for n, d in top))
 
 
 def profile_ticks(sz: Sizes, device, ticks=8) -> None:
     """Where a tick's time goes: ``torch.profiler`` over ``ticks`` ticks
     of each path, device time summed from the trace's device ops."""
-    from torch.profiler import ProfilerActivity, profile
     for name, fused in (("staged", False), ("fused", True)):
         ex, state = make_executor(sz, device, fused=fused)
         state, *_ = drive(ex, state, sz, device, sz.warmup)
         feed = [tick_batch(sz, i, device) for i in range(ticks)]
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for items, ts in feed:
-                state, _ = ex.step(state, items, ts)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        dev = _device_events(prof, f"tick_{name}")
-        busy = sum(e["dur"] for e in dev) * 1e-6
-        by_name: dict[str, float] = {}
-        for e in dev:
-            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        print(f"profile {name}: {ticks} ticks in {wall * 1e3:.3f} ms "
-              f"(profiler on), device busy {busy * 1e3:.3f} ms = "
-              f"{busy / wall:.4f} of the wall time, {len(dev) / ticks:.1f} "
-              f"device ops a tick; top by device time: "
-              + "; ".join(f"{n[:60]} {d / ticks:.1f} us/tick"
-                          for n, d in top))
-        del ex, state
+        box = [state]
+
+        def tick(i):
+            box[0], _ = ex.step(box[0], *feed[i])
+        _profile(f"tick_{name}", ticks, "tick", tick)
+        del ex, state, box
 
 
-def run(sz: Sizes = FULL, device="cuda") -> dict:
+def profile_ar(sz: ARSizes, ar: dict, steps=8) -> None:
+    """Where an AR step's time goes, over ``steps`` more steps."""
+    plane = ar["plane"]
+    feed = [ar_feed(sz, 2000 + i, plane) for i in range(steps)]
+    box = [ar["shard"]]
+
+    def step(i):
+        box[0], _ = ar_step(plane, box[0], *feed[i], ar["me"])
+    _profile("ar", steps, "step", step)
+
+
+def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
+        ar_small: ARSizes = AR_SMALL, device="cuda") -> dict:
     from repro_torch.kernels import build, checks
     from repro_torch.testing import assert_bitwise, assert_close
     # float32 matmuls in full precision on the card, so the core stage
@@ -433,7 +844,10 @@ def run(sz: Sizes = FULL, device="cuda") -> dict:
 
     block = (sz.batch + sz.window - sz.stride, sz.d, sz.window, sz.stride)
     errs = {"window_reduce": checks.check_window_reduce(device, *block),
-            "fused_tick": checks.check_fused_tick(device, *block)}
+            "fused_tick": checks.check_fused_tick(device, *block),
+            "hilbert": checks.check_hilbert(device, ar_sz.n),
+            "armatch": checks.check_armatch(device, (
+                (ar_sz.n, ar_sz.interests), (ar_sz.shard, 1)))}
     print(f"phase 2 kernels: bitwise equal to their plain versions "
           f"(max abs err {errs})")
 
@@ -444,6 +858,14 @@ def run(sz: Sizes = FULL, device="cuda") -> dict:
           f"card == CPU over {sz.cpu_ticks}, overlapped ingest == direct; "
           "metrics "
           f"{results['staged']['metrics']}; admission {adm}")
+    ar = run_ar(ar_sz, device)
+    compared = run_ar_card_vs_cpu(ar_small, device, assert_bitwise)
+    print(f"phase 3 AR path: {ar_sz.steps} steps of {ar_sz.n} posts as RP "
+          f"{ar['me']} of {AR_GRID * AR_GRID}, shard {ar_sz.shard} rows, "
+          f"{ar['kept']} stored, notify matches {ar['notify_share']:.4f} of "
+          f"the pairs, least query hits {ar['min_hits']}, registry hits "
+          f"{ar['found']}; card == CPU bitwise over {compared} steps at "
+          f"{ar_small.n} posts, shard {ar_small.shard}")
 
     for name in ("staged", "fused"):
         secs = results[name]["secs"]
@@ -452,8 +874,16 @@ def run(sz: Sizes = FULL, device="cuda") -> dict:
               f"items/s (all rows over all ticks), tick p50 {q[0] * 1e3:.3f} ms, p99 "
               f"{q[1] * 1e3:.3f} ms over {len(secs)} ticks, launches "
               f"{results[name]['launches']}")
-    kernels = {"kernels": time_kernels(sz, device, results, errs)}
+    q = np.quantile(np.asarray(ar["secs"]), [0.5, 0.99])
+    print(f"path ar: {ar_sz.n * len(ar['secs']) / sum(ar['secs']):.0f} "
+          f"posts/s (all posts over all steps), step p50 {q[0] * 1e3:.3f} ms, "
+          f"p99 {q[1] * 1e3:.3f} ms over {len(ar['secs'])} steps, launches "
+          f"{ar['launches']}")
+    _prime_profiler(device)
+    kernels = {"kernels": time_kernels(sz, device, results, errs)
+               + time_ar_kernels(ar_sz, device, ar, errs)}
     profile_ticks(sz, device)
+    profile_ar(ar_sz, ar)
     return kernels
 
 

@@ -9,24 +9,28 @@ Representation differences handled here:
 * the ring: the port's ``RingBuffer.store`` has one discard row past
   the reference's ``buf`` (zero, never read);
 * the dedupe window: the reference keeps uint32 hashes, the port int64
-  values in ``[0, 2^32)``.
+  values in ``[0, 2^32)``;
+* the DHT shard: the port's ``ShardStore`` tensors have one discard row
+  past the reference's capacity (stamp -1, never read).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+from repro_torch.core.store import ShardStore
 from repro_torch.data.ringbuffer import RingBuffer
 from repro_torch.stream.executor import StreamMetrics, StreamState
 from repro_torch.stream.ingest import AdmissionState
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
-    return torch.as_tensor(np.array(a, copy=True), device=device,
-                           dtype=dtype)
+    return torch.as_tensor(np.array(a, copy=True),
+                           device=resolve_device(device), dtype=dtype)
 
 
-def state_from_numpy(ref_state, device: str | torch.device = "cpu"
+def state_from_numpy(ref_state, device: str | torch.device | None = None
                      ) -> StreamState:
     """A reference ``StreamState`` with numpy leaves -> the port's."""
     buf = np.asarray(ref_state.rb.buf)
@@ -68,7 +72,7 @@ def state_to_numpy(state: StreamState) -> dict:
 
 
 def histograms_from_numpy(lat_hist, lineage,
-                          device: str | torch.device = "cpu"
+                          device: str | torch.device | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Latency histogram and lineage bank (int32 counts) -> tensors."""
     return (_t(lat_hist, device, torch.int32),
@@ -80,7 +84,7 @@ def histograms_to_numpy(lat_hist: torch.Tensor, lineage: torch.Tensor
     return lat_hist.cpu().numpy(), lineage.cpu().numpy()
 
 
-def params_from_numpy(params, device: str | torch.device = "cpu"):
+def params_from_numpy(params, device: str | torch.device | None = None):
     """Stage parameters (arrays, or dicts/lists/tuples of them) ->
     tensors on ``device`` with the same structure and dtypes."""
     if isinstance(params, dict):
@@ -90,3 +94,25 @@ def params_from_numpy(params, device: str | torch.device = "cpu"):
     if params is None:
         return None
     return _t(params, device)
+
+
+def store_from_numpy(ref_store, device: str | torch.device | None = None
+                     ) -> ShardStore:
+    """A reference ``ShardStore`` with numpy leaves -> the port's, with
+    the discard row appended."""
+    keys, values = np.asarray(ref_store.keys), np.asarray(ref_store.values)
+    return ShardStore(
+        keys=_t(np.concatenate([keys, np.zeros_like(keys[:1])]), device),
+        values=_t(np.concatenate([values, np.zeros_like(values[:1])]),
+                  device),
+        stamps=_t(np.concatenate([np.asarray(ref_store.stamps, np.int32),
+                                  [-1]]).astype(np.int32), device),
+        cursor=_t(ref_store.cursor, device, torch.int32))
+
+
+def store_to_numpy(st: ShardStore) -> dict:
+    """The port's ``ShardStore`` -> dict of numpy arrays keyed by the
+    reference's field names, without the discard row."""
+    keys, values, stamps = st.log()
+    return {"keys": keys.cpu().numpy(), "values": values.cpu().numpy(),
+            "stamps": stamps.cpu().numpy(), "cursor": st.cursor.cpu().numpy()}

@@ -1,16 +1,22 @@
-"""Dispatch-plan machinery for the capacity-bounded core tier.
+"""Dispatch plans: the capacity-bounded core tier and the content-
+routing data plane (paper §IV-B).
 
-Port of the part of ``repro.core.routing`` that
-``DataDrivenPipeline._apply_stage`` needs: first-come-first-kept
-bucketing (:func:`make_plan`), the scatter/gather between a batch and
-its buckets, and :func:`compact_apply`.  The SFC routing, all-to-all
-and escalation helpers of that module belong to a later slice.
+Port of ``repro.core.routing``: first-come-first-kept bucketing
+(:func:`make_plan`), the scatter/gather between a batch and its
+buckets, :func:`compact_apply` (the pipeline's core stage), and the
+single-rank half of the AR data plane, :func:`route_local` and
+:func:`rank_of_message` (sfc index -> owner rank -> buckets).  The
+exchange between ranks (``all_to_all_route``, ``route_and_deliver``)
+and the fleet's escalation helpers (``escalation_plan``,
+``escalation_recv_slots``) belong to the fleet slice.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.core import sfc
 
 
 class DispatchPlan(NamedTuple):
@@ -84,3 +90,37 @@ def compact_apply(fn, items: torch.Tensor, keep: torch.Tensor,
     pad_feats[0] = feats_c
     return (gather_from_buckets(pad_out, plan),
             gather_from_buckets(pad_feats, plan), plan.keep & keep)
+
+
+# ---------------------------------------------------------------------------
+# AR data plane, one rank's side
+# ---------------------------------------------------------------------------
+
+def _owner(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Curve indices (int32 bit patterns of 32-bit ids) -> owner ranks:
+    the top ``log2(len(table))`` bits pick the table cell."""
+    g2 = table.shape[0].bit_length() - 1       # = 2*granularity bits
+    if table.shape[0] != 1 << g2:
+        raise ValueError(f"routing table of {table.shape[0]} cells is not "
+                         "a power of two")
+    cell = sfc._u32(idx) >> (32 - g2)
+    return table[cell]
+
+
+def route_local(payload: torch.Tensor, idx: torch.Tensor,
+                table: torch.Tensor, num_ranks: int, capacity: int
+                ) -> tuple[torch.Tensor, DispatchPlan]:
+    """Bucket a local batch of messages by owner rank.
+
+    payload: [N, D] message payloads; idx: [N] SFC curve indices (int32
+    bit patterns, 2*order bits); table: [4^granularity] cell->rank.
+    Returns ([num_ranks, capacity, D] send buffer, plan).
+    """
+    plan = make_plan(_owner(idx, table), num_ranks, capacity)
+    return scatter_to_buckets(payload, plan, num_ranks, capacity), plan
+
+
+def rank_of_message(profile_batch: torch.Tensor,
+                    table: torch.Tensor) -> torch.Tensor:
+    """Convenience: encoded profiles [N, 128] -> owner ranks [N]."""
+    return _owner(sfc.profile_index(profile_batch), table)

@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import resolve_device
+
 
 class RingBuffer(NamedTuple):
     store: torch.Tensor    # [capacity + 1, D]: the ring plus one discard row
@@ -34,7 +36,9 @@ class RingBuffer(NamedTuple):
 
 
 def create(capacity: int, item_shape: tuple, dtype=torch.float32,
-           device: str | torch.device = "cpu") -> RingBuffer:
+           device: str | torch.device | None = None) -> RingBuffer:
+    """An empty ring on ``device`` (``None``: the CUDA card)."""
+    device = resolve_device(device)
     return RingBuffer(
         store=torch.zeros((capacity + 1,) + tuple(item_shape), dtype=dtype,
                           device=device),

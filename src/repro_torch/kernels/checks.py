@@ -1,19 +1,29 @@
 """Each hand-written kernel held against its plain version, bitwise.
 
 One copy of the comparisons that ``chip_smoke.py`` (phase 2) and
-``tests/test_torch_card.py`` run on the card.  Each check takes the
-full-width block ``(t, d, window, stride)`` of a tick and adds ragged
-small shapes; every block carries NaN rows and a run of invalid rows
-long enough to empty whole windows.  On a CUDA device each kernel
-call is also held against the same call on the CPU, and must raise
-its wrapper's launch count by one.  Both checks return the largest
-finite absolute difference seen (0.0 when bitwise equal).
+``tests/test_torch_card.py`` run on the card.  The stream-tick checks
+take the full-width block ``(t, d, window, stride)`` of a tick and add
+ragged small shapes; every block carries NaN rows and a run of invalid
+rows long enough to empty whole windows.  The AR checks take the
+routing step's batch (hilbert) and the data plane's two match shapes
+(armatch) and add ragged ones.  On a CUDA device each kernel call is
+also held against the same call on the CPU, and must raise its
+wrapper's launch count by one.  Every check returns the largest finite
+absolute difference it saw between a kernel and what it is held
+against (0.0 when bitwise equal).
+
+:func:`random_profiles` makes encoded AR profiles in bulk with numpy,
+for these checks, the tests and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.core import profiles as P
+from repro_torch.kernels.armatch import armatch, armatch_ref
 from repro_torch.kernels.fused_tick import fused_tick, fused_tick_ref
+from repro_torch.kernels.hilbert import hilbert_xy2d, hilbert_xy2d_ref
 from repro_torch.kernels.window_reduce import (sliding_reduce,
                                                sliding_reduce_ref,
                                                window_reduce)
@@ -38,6 +48,14 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     if not both.any():
         return 0.0
     return float((a - b).abs()[both].max())
+
+
+def max_int_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest absolute difference of two integer tensors, taken
+    in int64 (float32 would round away a difference of 1 near 2^31)."""
+    if a.numel() == 0:
+        return 0.0
+    return float((a.long() - b.long().to(a.device)).abs().max())
 
 
 def block(gen, t, d, device, nan_rows=3, dead=(10, 80)):
@@ -123,4 +141,140 @@ def check_fused_tick(device, t, d, window, stride) -> float:
     if len(fired) < 4:
         raise AssertionError(f"fused_tick: consequences {sorted(fired)}, "
                              "table untested")
+    return err
+
+
+# ---- the AR kernels -------------------------------------------------------
+
+#: the keyword vocabulary of ``tests/test_kernels.py``'s profiles
+_ATTRS = [P.pack_keyword(f"attr{i}") for i in range(8)]
+_VALUES = [P.pack_keyword(f"value{i}") for i in range(8)]
+
+
+def random_profiles(rng: np.random.Generator, n: int, *,
+                    kinds=range(6), max_slots: int = P.MAX_SLOTS,
+                    wildcard: float = 0.0, bad_vkind: float = 0.0,
+                    zero_rows: float = 0.0) -> np.ndarray:
+    """[n, 128] int32 encoded profiles, built slot-wise with numpy in
+    the shapes ``ProfileBuilder`` gives (``tests/test_kernels.py:35-53``)
+    over an 8-word attribute vocabulary: 1 to ``max_slots`` slots, each
+    of a kind drawn from ``kinds`` -- 0 single attribute (a third of
+    them prefixes ``a*`` .. ``attrK*``), 1 EXACT pair, 2 PREFIX pair, 3
+    NUM in [-100, 100), 4 RANGE from [-50, 50) spanning up to 100, 5
+    ANY.  Optionally a share of wildcard ``*`` attributes, of slots with
+    a vkind outside the codes (-1, 6, 7, 100), and of all-zero rows."""
+    kinds = np.asarray(list(kinds))
+    shape = (n, P.MAX_SLOTS)
+    out = np.zeros(shape + (P.SLOT_WIDTH,), np.int32)
+    used = np.arange(P.MAX_SLOTS)[None, :] < rng.integers(
+        1, max_slots + 1, n)[:, None]
+    kind = kinds[rng.integers(0, len(kinds), shape)]
+    attr = np.asarray(_ATTRS, np.int32)[rng.integers(0, 8, shape)]
+    out[..., P.L_ATTR_A], out[..., P.L_ATTR_B] = attr[..., 0], attr[..., 1]
+    out[..., P.L_AMASK_A], out[..., P.L_AMASK_B] = P.FULL_MASK
+    # prefix attributes: the first 1..5 bytes of the keyword
+    pfx = (kind == 0) & (rng.random(shape) < 1 / 3)
+    plen = rng.integers(1, 6, shape)
+    masks = np.asarray([P.prefix_masks(k) for k in range(9)], np.int32)
+    for lane, j in ((P.L_ATTR_A, 0), (P.L_ATTR_B, 1)):
+        m = masks[plen, j]
+        out[..., lane] = np.where(pfx, out[..., lane] & m, out[..., lane])
+        out[..., lane + 2] = np.where(pfx, m, out[..., lane + 2])
+    wild = rng.random(shape) < wildcard
+    for lane in (P.L_ATTR_A, P.L_ATTR_B, P.L_AMASK_A, P.L_AMASK_B):
+        out[..., lane] = np.where(wild, 0, out[..., lane])
+    vk = np.asarray([P.VK_NONE, P.VK_EXACT, P.VK_PREFIX, P.VK_NUM,
+                     P.VK_RANGE, P.VK_ANY], np.int32)[kind]
+    value = np.asarray(_VALUES, np.int32)[rng.integers(0, 8, shape)]
+    vplen = rng.integers(1, 7, shape)
+    num = rng.integers(-100, 100, shape)
+    lo = rng.integers(-50, 50, shape)
+    hi = lo + rng.integers(0, 100, shape)
+    for lane, j in ((P.L_V_A, 0), (P.L_V_B, 1)):
+        m = masks[vplen, j]
+        out[..., lane] = np.select(
+            [kind == 1, kind == 2, kind == 3, kind == 4],
+            [value[..., j], value[..., j] & m, num if j == 0 else 0,
+             lo if j == 0 else hi], 0)
+        out[..., lane + 2] = np.where(kind == 2, m, 0)
+    bad = rng.random(shape) < bad_vkind
+    vk = np.where(bad, np.asarray([-1, 6, 7, 100], np.int32)[
+        rng.integers(0, 4, shape)], vk)
+    out[..., P.L_VKIND] = vk
+    out[..., P.L_USED] = 1
+    out[~used] = 0
+    out[rng.random(n) < zero_rows] = 0
+    return out.reshape(n, P.PROFILE_WIDTH)
+
+
+#: (n, order) besides the routing step's batch: every order the data
+#: plane uses, single points and ragged tails
+HILBERT_RAGGED = ((1, 1), (2, 2), (255, 8), (257, 12), (1000, 16),
+                  (65535, 16))
+#: (m, n) besides the data plane's two shapes
+ARMATCH_RAGGED = ((1, 1), (7, 13), (130, 129), (300, 50))
+
+
+def check_hilbert(device, n: int) -> float:
+    """The ``hilbert`` kernel against ``hilbert_xy2d_ref`` at ``n``
+    points (order 16, the routing step's call), at ragged batches and
+    every order of :data:`HILBERT_RAGGED`, and at an n-d shape."""
+    dev = torch.device(device)
+    gen = torch.Generator(dev).manual_seed(4)
+    err = 0.0
+    cases = [((n,), 16), *(((k,), o) for k, o in HILBERT_RAGGED),
+             ((4, 33), 8), ((3, 5, 7), 12)]
+    for shape, order in cases:
+        hi = 1 << order
+        x = torch.randint(0, hi, shape, generator=gen, device=dev,
+                          dtype=torch.int32)
+        y = torch.randint(0, hi, shape, generator=gen, device=dev,
+                          dtype=torch.int32)
+        k = _counted(lambda: hilbert_xy2d(x, y, order), hilbert_xy2d, x,
+                     f"hilbert {shape} order {order}")
+        p = hilbert_xy2d_ref(x, y, order)
+        assert_bitwise(k, p, f"hilbert kernel {shape} order {order}")
+        err = max(err, max_int_err(k, p))
+        if dev.type == "cuda":
+            c = hilbert_xy2d(x.cpu(), y.cpu(), order)
+            assert_bitwise(k, c, f"hilbert {shape} order {order} card vs CPU")
+            err = max(err, max_int_err(k, c))
+    return err
+
+
+def check_armatch(device, shapes=()) -> float:
+    """The ``armatch`` kernel against ``armatch_ref`` at each ``(m, n)``
+    of ``shapes`` (the data plane's) and :data:`ARMATCH_RAGGED`, on
+    profiles with every vkind on both sides (and vkinds outside the
+    codes), prefix and wildcard attributes, negative RANGE bounds and
+    all-zero rows.  On the card the kernel is also held against the CPU
+    (past 2^24 pairs, on as many leading rows)."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(5)
+    err = 0.0
+    for m, n in (*shapes, *ARMATCH_RAGGED):
+        mixed = dict(wildcard=0.05, bad_vkind=0.02, zero_rows=0.05)
+        data = torch.from_numpy(random_profiles(rng, m, **mixed)).to(dev)
+        # short interests, so that a good share of pairs match; a lone
+        # interest (a query) has one slot of a kind that can match
+        short = dict(max_slots=1, kinds=(0, 1, 2, 4, 5)) if n == 1 \
+            else dict(max_slots=3)
+        ints = torch.from_numpy(random_profiles(rng, n, **short,
+                                                **mixed)).to(dev)
+        k = _counted(lambda: armatch(data, ints), armatch, data,
+                     f"armatch {m}x{n}")
+        p = armatch_ref(data, ints)
+        assert_bitwise(k, p, f"armatch kernel {m}x{n}")
+        err = max(err, max_int_err(k, p))
+        if dev.type == "cuda":
+            # the CPU takes about a minute for the notify match's 2^26
+            # pairs, so there it holds the first rows only
+            rows = m if m * n <= 1 << 24 else (1 << 24) // n
+            c = armatch(data[:rows].cpu(), ints.cpu())
+            assert_bitwise(k[:rows], c,
+                           f"armatch {m}x{n} card vs CPU, {rows} rows")
+            err = max(err, max_int_err(k[:rows], c))
+        if m * n >= 4096 and not 0 < int(k.sum()) < m * n:
+            raise AssertionError(f"armatch {m}x{n}: {int(k.sum())} matches, "
+                                 "the inputs test nothing")
     return err

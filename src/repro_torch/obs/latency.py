@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch import device_constant
+from repro_torch import device_constant, resolve_device
 
 #: Log-spaced bucket upper edges in seconds: 1 us .. 100 s, 121 edges
 #: (122 buckets with the overflow bucket).
@@ -36,9 +36,12 @@ def _edges(edges: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def histogram_init(edges: np.ndarray = DEFAULT_EDGES,
-                   device: str | torch.device = "cpu") -> torch.Tensor:
-    """Zeroed counts: one bucket per edge plus the overflow bucket."""
-    return torch.zeros((len(edges) + 1,), dtype=torch.int32, device=device)
+                   device: str | torch.device | None = None
+                   ) -> torch.Tensor:
+    """Zeroed counts: one bucket per edge plus the overflow bucket, on
+    ``device`` (``None``: the CUDA card)."""
+    return torch.zeros((len(edges) + 1,), dtype=torch.int32,
+                       device=resolve_device(device))
 
 
 def histogram_update(counts: torch.Tensor, value: torch.Tensor,
@@ -72,10 +75,11 @@ def histogram_merge(a, b):
 
 
 def lineage_init(edges: np.ndarray = DEFAULT_EDGES,
-                 device: str | torch.device = "cpu") -> torch.Tensor:
-    """Zeroed per-stage lineage bank ``[len(LINEAGE_STAGES), buckets]``."""
+                 device: str | torch.device | None = None) -> torch.Tensor:
+    """Zeroed per-stage lineage bank ``[len(LINEAGE_STAGES), buckets]``
+    on ``device`` (``None``: the CUDA card)."""
     return torch.zeros((len(LINEAGE_STAGES), len(edges) + 1),
-                       dtype=torch.int32, device=device)
+                       dtype=torch.int32, device=resolve_device(device))
 
 
 def lineage_update(bank: torch.Tensor, samples: dict,

@@ -19,15 +19,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 
 class IngestStager:
     """One batch of lead: ``stage`` returns ``None`` while priming,
     ``flush`` drains the final in-flight batch."""
 
     def __init__(self, int8: bool = False,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device | None = None):
         self.int8 = int8
-        self.device = torch.device(device)
+        self.device = resolve_device(device)     # None: the CUDA card
         self._pending = None
         self._stream = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None

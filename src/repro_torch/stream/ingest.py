@@ -26,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch import device_constant
+from repro_torch import device_constant, resolve_device
 from repro_torch.kernels.dedupe_window import (dedupe_window, row_hash,
                                                seen_record)
 
@@ -110,8 +110,11 @@ class AdmissionGate(NamedTuple):
 
 
 def admission_init(plan: AdmissionPlan,
-                   device: str | torch.device = "cpu") -> AdmissionState:
-    """Fresh (empty) dedupe window for ``plan``."""
+                   device: str | torch.device | None = None
+                   ) -> AdmissionState:
+    """Fresh (empty) dedupe window for ``plan`` on ``device``
+    (``None``: the CUDA card)."""
+    device = resolve_device(device)
     return AdmissionState(
         seen=torch.zeros((plan.dedupe_window,), dtype=torch.int64,
                          device=device),

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain versions on the card, bitwise
 (NaN matches NaN), through the shared checks of
 ``repro_torch.kernels.checks``: the full-width stream tick's block plus
-ragged shapes, NaN rows and empty windows.  Needs a CUDA card and
+ragged shapes, NaN rows and empty windows; the AR data plane's routing
+batch (hilbert) and its two match shapes (armatch) plus ragged ones.
+Needs a CUDA card and
 ``nvcc``; skips without a card.  Imports no JAX, so it runs on the
 machine with the card: ``PYTHONPATH=src python -m pytest -q
 --noconftest tests/test_torch_card.py`` (``tests/conftest.py`` imports
@@ -15,6 +17,11 @@ from repro_torch.kernels import checks
 #: (t, d, window, stride) of one full-width tick: a 65,536-row
 #: micro-batch behind a 32-row carry, 16 features, W = 64, S = 32
 FULL_BLOCK = (65568, 16, 64, 32)
+#: messages posted a step on the AR data plane
+AR_POSTS = 65536
+#: (m, n) of its two matches: the posts against 1,024 standing
+#: interests, and one query against a 2^20-row DHT shard
+AR_MATCHES = ((65536, 1024), (1 << 20, 1))
 
 
 @pytest.fixture
@@ -33,3 +40,9 @@ class TestOnCard:
 
     def test_fused_tick_kernel(self, card):
         assert checks.check_fused_tick(card, *FULL_BLOCK) == 0.0
+
+    def test_hilbert_kernel(self, card):
+        assert checks.check_hilbert(card, AR_POSTS) == 0.0
+
+    def test_armatch_kernel(self, card):
+        assert checks.check_armatch(card, AR_MATCHES) == 0.0

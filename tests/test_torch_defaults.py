@@ -1,0 +1,41 @@
+"""Entry points of the port run on the CUDA card unless the caller asks
+for the CPU: every public constructor called without ``device`` lands
+on the card, and without a card it raises -- nothing falls back to the
+CPU.  The test decides at run time which of the two holds."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert
+from repro_torch.core import profiles, serverless, store
+from repro_torch.data import ringbuffer
+from repro_torch.obs import latency
+from repro_torch.runtime.overlap import IngestStager
+from repro_torch.stream import ingest
+
+CONSTRUCTORS = {
+    "ringbuffer.create": lambda: ringbuffer.create(4, (2,)).store,
+    "latency.histogram_init": lambda: latency.histogram_init(),
+    "latency.lineage_init": lambda: latency.lineage_init(),
+    "ingest.admission_init":
+        lambda: ingest.admission_init(ingest.AdmissionPlan(8)).seen,
+    "IngestStager": lambda: torch.empty(0, device=IngestStager().device),
+    "store.init_store": lambda: store.init_store(4, 2).keys,
+    "profiles.batch_profiles":
+        lambda: profiles.batch_profiles([profiles.profile("a")]),
+    "FunctionRegistry":
+        lambda: torch.empty(0, device=serverless.FunctionRegistry().device),
+    "convert.histograms_from_numpy":
+        lambda: convert.histograms_from_numpy(np.zeros(3), np.zeros(3))[0],
+    "convert.params_from_numpy":
+        lambda: convert.params_from_numpy(np.zeros(3)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONSTRUCTORS))
+def test_constructor_defaults_to_the_card(name):
+    if torch.cuda.is_available():
+        assert CONSTRUCTORS[name]().is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            CONSTRUCTORS[name]()

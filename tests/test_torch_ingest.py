@@ -109,7 +109,8 @@ def test_admission_gate_and_record_equal_reference(contract):
     rng = np.random.default_rng(5)
     plans = [mod.AdmissionPlan(8, contract and mod.DataContract(**contract))
              for mod in (JI, TI)]
-    adm_j, adm_t = JI.admission_init(plans[0]), TI.admission_init(plans[1])
+    adm_j = JI.admission_init(plans[0])
+    adm_t = TI.admission_init(plans[1], device="cpu")
     prev = None
     for tick in range(4):
         items = rng.standard_normal((12, 3)).astype(np.float32)

@@ -13,7 +13,8 @@ from repro_torch.testing import assert_bitwise
 
 def _run(cap, width, ops):
     """Apply ``ops`` (("enq", rows[, mask]) | ("deq", n)) to both rings."""
-    jr, tr = J.create(cap, (width,)), T.create(cap, (width,))
+    jr = J.create(cap, (width,))
+    tr = T.create(cap, (width,), device="cpu")
     for k, op in enumerate(ops):
         if op[0] == "enq":
             rows = np.asarray(op[1], np.float32).reshape(-1, width)

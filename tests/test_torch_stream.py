@@ -216,7 +216,8 @@ def test_lineage_with_explicit_now_equals_jax():
     js, ts_ = jx.init_state(D), tx.init_state(D)
     jbank = jlat.lineage_init()
     tbank = convert.histograms_from_numpy(
-        np.asarray(jlat.histogram_init()), np.asarray(jbank))[1]
+        np.asarray(jlat.histogram_init()), np.asarray(jbank),
+        device="cpu")[1]
     for i, (items, ts) in enumerate(_feed(seed=9, steps=5)):
         now = 0.25 + 0.0137 * i
         ji = JX.ingest_and_window(jx.cfg, jx.engine, js, jnp.asarray(items),
