@@ -5,15 +5,18 @@
 
 Phases, in order; any failure raises and the exit code is not 0:
 
-1. build the four hand-written kernels from
+1. build the five hand-written kernels from
    ``src/repro_torch/kernels/csrc/`` (one ``nvcc`` per source, all at
    once) and print the card's name and power limit;
-2. hold each kernel against its plain PyTorch version on the card,
-   bitwise (NaN matches NaN): window_reduce and fused_tick at the stream
-   tick's full-width shapes and ragged small ones, with NaN rows and
-   all-invalid windows; hilbert at the routing step's 65,536 points and
-   ragged batches at orders 1 to 16; armatch at the AR data plane's two
-   calls and ragged shapes, with every vkind on both sides;
+2. hold each kernel against its plain PyTorch version on the card and
+   against the CPU: window_reduce and fused_tick bitwise (NaN matches
+   NaN) at the stream tick's full-width shapes and ragged small ones,
+   with NaN rows and all-invalid windows; hilbert bitwise at the routing
+   step's 65,536 points and ragged batches at orders 1 to 16; armatch
+   bitwise at the AR data plane's two calls and ragged shapes, with
+   every vkind on both sides; decode_attn within 1e-5 (float32) and
+   2.5e-2 (bfloat16) at the Yi-6B serve step's full cache, the
+   reference's five test shapes, a strided cache and a length-0 row;
 3. drive the single-device stream tick at full width -- D = 16 features,
    W = 64, S = 32, 65,536 rows a tick, a 2^22-row ring, the two rules
    and the tanh(h @ p) x8 core stand-in of ``benchmarks/streaming.py``
@@ -29,15 +32,24 @@ Phases, in order; any failure raises and the exit code is not 0:
    standing interests, runs 32 associative queries over the shard and
    one registry lookup; both AR kernels must have launched, and the
    same composition at a reduced size must give bitwise the same
-   outputs on the card and on the CPU;
-4. time each path (items or posts a second over all steps' wall time,
-   p50/p99 step ms, with a synchronize per step) and each kernel at the
-   path's shapes -- the kernel's own device time from a
+   outputs on the card and on the CPU.  Then serving: Yi-6B at full
+   width and depth (32 layers, d_model 4,096, GQA 32/4 heads of 128,
+   float32 params, bfloat16 compute, seeded random weights) resolved
+   through the AR function registry, 16 requests of 1,024 prompt ids
+   decoded teacher-forced and 64 ids generated greedily; every layer of
+   every step must have launched decode_attn, the logits must be
+   finite, and one more step from the final caches through the kernel
+   and through the plain path must agree; the same composition at 2
+   layers in float32 must give the same ids on the card and the CPU;
+4. time each path (items, posts or tokens a second over all steps' wall
+   time, p50/p99 step ms, with a synchronize per step) and each kernel
+   at the path's shapes -- the kernel's own device time from a
    ``torch.profiler`` trace, and wall time a call from CUDA events --
    beside its plain version, a one-call PyTorch yardstick where there
    is one, and the least time the card could take;
-5. profile a few ticks of each stream path and a few AR steps with
-   ``torch.profiler``: the device's busy share and the top device ops.
+5. profile a few ticks of each stream path, a few AR steps and a few
+   decode steps with ``torch.profiler``: the device's busy share and
+   the top device ops.
 
 The line before the last is a JSON object of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -65,6 +77,8 @@ PEAK_F32_OPS_S = 67e12
 #: INT32 lanes an SM a clock x 132 SMs x the 1.98 GHz boost clock (the
 #: hilbert and armatch kernels' shifts, xors, ands and compares)
 PEAK_INT32_OPS_S = 64 * 132 * 1.98e9
+#: bf16 on the tensor cores, dense (decode attention's bf16 products)
+PEAK_BF16_OPS_S = 989e12
 
 
 class Sizes(NamedTuple):
@@ -156,11 +170,13 @@ def _timed(fn, reps: int, tag: str,
 def _wrappers() -> dict:
     """Each kernel's wrapper; ``<wrapper>.launches`` counts its launches."""
     from repro_torch.kernels.armatch import armatch
+    from repro_torch.kernels.decode_attn import decode_attention
     from repro_torch.kernels.fused_tick import fused_tick
     from repro_torch.kernels.hilbert import hilbert_xy2d
     from repro_torch.kernels.window_reduce import window_reduce
     return {"window_reduce": window_reduce, "fused_tick": fused_tick,
-            "hilbert": hilbert_xy2d, "armatch": armatch}
+            "hilbert": hilbert_xy2d, "armatch": armatch,
+            "decode_attn": decode_attention}
 
 
 def zero_launches() -> None:
@@ -581,6 +597,130 @@ def run_ar_card_vs_cpu(sz: ARSizes, device, bitwise) -> int:
     return sz.steps
 
 
+# ---- phase 3, serve: batched decode of Yi-6B behind the AR registry -------
+
+class ServeSizes(NamedTuple):
+    requests: int       # sequences decoded together
+    prompt_len: int     # prompt ids decoded teacher-forced
+    tokens: int         # ids generated greedily after the prompt
+    layers: int | None = None   # None: the configuration's depth
+    compute: str = "bfloat16"   # compute_dtype (params stay float32)
+
+
+#: Yi-6B at full width and depth (``src/repro/configs/yi_6b.py``, the
+#: default ``--arch`` of ``launch/serve.py``): 16 requests, 1,024-id
+#: prompts, 64 generated ids, so the cache holds 1,088 rows a request
+SERVE_FULL = ServeSizes(requests=16, prompt_len=1024, tokens=64)
+#: the same composition at Yi-6B's widths, cut to 2 layers and float32
+#: compute, small enough for the CPU
+SERVE_SMALL = ServeSizes(requests=4, prompt_len=32, tokens=8, layers=2,
+                         compute="float32")
+#: the kernel path against the plain (``use_kernel=False``) path at one
+#: late step of the full-width run, both in bfloat16: the attention
+#: outputs may differ by a bf16 ulp (2^-8 relative) in every one of 32
+#: layers, and the logits carry those differences through the rest of
+#: the stack; held as the largest difference over the largest logit
+SERVE_KERNEL_VS_PLAIN = 5e-2
+#: the reduced composition, card against CPU, float32: the logits'
+#: largest difference over the largest logit
+SERVE_CARD_VS_CPU = 1e-4
+
+
+def serve_config(sz: ServeSizes):
+    """Yi-6B cut to ``sz``'s depth and compute dtype."""
+    import dataclasses
+    from repro_torch import configs
+    cfg = configs.get_config("yi_6b")
+    return dataclasses.replace(
+        cfg, n_layers=sz.layers or cfg.n_layers,
+        compute_dtype=getattr(torch, sz.compute))
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def run_serve(sz: ServeSizes, device) -> dict:
+    """Phase 3's serve run: the port's entry point (``serve.run``) with
+    the launch counts zeroed just before; fails unless every layer of
+    every step launched the decode kernel, the registry's lookup launched
+    armatch, every step's logits were finite and every id is in the
+    vocabulary.  Then, from the final caches, one more step through the
+    kernel and through the plain path must agree within
+    :data:`SERVE_KERNEL_VS_PLAIN`."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = serve_config(sz)
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    zero_launches()
+    res = serve.run(cfg, sz.requests, sz.prompt_len, sz.tokens,
+                    device=device, model=model)
+    launches = read_launches()
+    steps = sz.prompt_len + sz.tokens
+    if launches["decode_attn"] != cfg.n_layers * steps:
+        _fail(f"serve: {launches['decode_attn']} decode_attn launches, want "
+              f"{cfg.n_layers} layers x {steps} steps")
+    if launches["armatch"] == 0:
+        _fail("serve: the registry's lookup launched no armatch kernel")
+    if not res.finite:
+        _fail("serve: non-finite logits")
+    if res.tokens.shape != (sz.requests, sz.tokens) or \
+            not ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all():
+        _fail(f"serve: tokens {res.tokens.shape} outside [0, {cfg.vocab})")
+    late = late_step(cfg, res)
+    if late > SERVE_KERNEL_VS_PLAIN:
+        _fail(f"serve: kernel vs plain path at step {steps + 1}: {late} of "
+              f"the largest logit > {SERVE_KERNEL_VS_PLAIN}")
+    return dict(cfg=cfg, res=res, launches=launches, late=late,
+                init_s=init_s, steps=steps)
+
+
+def late_step(cfg, res) -> float:
+    """One more decode step from ``res``'s caches, through the kernel and
+    through ``use_kernel=False`` (each on its own copy of the caches):
+    the largest logit difference over the largest logit."""
+    from repro_torch.models import transformer as T
+    tok = torch.argmax(res.logits, dim=-1).to(torch.int32)[:, None]
+    out = {}
+    with torch.inference_mode():
+        for use_kernel in (True, False):
+            caches = [{k: v.clone() for k, v in c.items()}
+                      for c in res.caches]
+            out[use_kernel], _, _ = T.decode_step(
+                cfg, res.model, tok, caches, res.lengths,
+                use_kernel=use_kernel)
+            del caches
+    return _rel(out[True], out[False])
+
+
+def run_serve_card_vs_cpu(sz: ServeSizes, device) -> dict:
+    """The serve composition on the card and on the CPU with the same
+    weights (drawn on the card, copied): the same ids, and final logits
+    within :data:`SERVE_CARD_VS_CPU` of the largest."""
+    import copy
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = serve_config(sz)
+    model = T.init_params(cfg, seed=1, device=device)
+    runs = {}
+    for name, dev, m in (("card", device, model),
+                         ("cpu", "cpu", copy.deepcopy(model).cpu())):
+        runs[name] = serve.run(cfg, sz.requests, sz.prompt_len, sz.tokens,
+                               device=dev, model=m)
+    card, cpu = runs["card"], runs["cpu"]
+    if not (card.tokens == cpu.tokens).all():
+        _fail(f"serve card vs CPU: tokens differ\n{card.tokens}\n"
+              f"{cpu.tokens}")
+    rel = _rel(card.logits, cpu.logits)
+    if rel > SERVE_CARD_VS_CPU:
+        _fail(f"serve card vs CPU: logits differ by {rel} of the largest")
+    return dict(rel=rel, steps=len(card.secs))
+
+
 # ---- phase 4: kernel timing -----------------------------------------------
 
 #: each kernel's TPU original (file:line of the function that reaches
@@ -590,6 +730,7 @@ TPU_KERNELS = {
     "fused_tick": "src/repro/kernels/fused_tick/fused_tick.py:108",
     "hilbert": "src/repro/kernels/hilbert/hilbert.py:48",
     "armatch": "src/repro/kernels/armatch/armatch.py:83",
+    "decode_attn": "src/repro/kernels/decode_attn/decode_attn.py:68",
 }
 #: Operation counts for the AR kernels' bounds: the work the function
 #: needs, not the instructions a kernel compiles to.
@@ -775,6 +916,55 @@ def time_ar_kernels(sz: ARSizes, device, ar: dict, errs: dict) -> list:
     return rows
 
 
+def time_serve_kernel(sv: dict, errs: dict) -> dict:
+    """decode_attn at the serve step's call with the full cache (every
+    request at 1,088 rows), beside its plain version and, as the
+    one-call yardstick, ``F.scaled_dot_product_attention`` with the
+    length mask and ``enable_gqa`` on the same cache views (checked to
+    give the same answer within the bf16 tolerance)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.decode_attn import decode_attention, \
+        decode_attn_ref
+    cfg, res = sv["cfg"], sv["res"]
+    kc, vc = res.caches[-1]["k"], res.caches[-1]["v"]
+    b, s, hkv, d = kc.shape
+    h, g = cfg.n_heads, cfg.n_heads // hkv
+    gen = torch.Generator(kc.device).manual_seed(9)
+    q = torch.randn((b, h, d), generator=gen, device=kc.device).to(kc.dtype)
+    lengths = torch.full((b,), s, dtype=torch.int32, device=kc.device)
+    mask = (torch.arange(s, device=kc.device)[None, :]
+            < lengths[:, None])[:, None, None, :]       # [B, 1, 1, S]
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+    def plain():
+        return decode_attn_ref(q.reshape(b, hkv, g, d), kc.transpose(1, 2),
+                               vc.transpose(1, 2), lengths,
+                               scale=1.0 / d ** 0.5).reshape(b, h, d)
+    tol = checks.DECODE_ATTN_TOL[kc.dtype]
+    checks.max_err_within(library(), plain(), tol, "SDPA yardstick vs plain")
+    with torch.inference_mode():
+        rec = dict(
+            ms=_timed(lambda: decode_attention(q, kc, vc, lengths,
+                                               num_kv_heads=hkv), 200,
+                      "decode_attn", kernel="decode_attn_kernel"),
+            plain_ms=_timed(plain, 20, "decode_attn_plain"),
+            library_ms=_timed(library, 50, "decode_attn_sdpa"))
+    el = kc.element_size()
+    nbytes = 2 * b * s * hkv * d * el + 2 * b * h * d * el + 4 * b
+    ops = 4 * b * h * s * d
+    steps = sv["steps"]
+    return _kernel_row(
+        "decode_attn", rec, nbytes, ops, PEAK_BF16_OPS_S,
+        sv["launches"]["decode_attn"], errs["decode_attn"],
+        f"{sv['launches']['decode_attn'] / steps:g} a step on the serve "
+        f"path, {cfg.n_layers} layers")
+
+
 def _profile(tag: str, steps: int, unit: str, fn) -> None:
     """``torch.profiler`` over ``steps`` calls of ``fn``: the device's
     busy share of the wall time and the top device ops."""
@@ -827,12 +1017,28 @@ def profile_ar(sz: ARSizes, ar: dict, steps=8) -> None:
     _profile("ar", steps, "step", step)
 
 
+def profile_serve(sv: dict, steps=8) -> None:
+    """Where a decode step's time goes, over ``steps`` more steps from
+    the run's final state (the ring cache wraps to its first row)."""
+    from repro_torch.launch import steps as steps_mod
+    cfg, res = sv["cfg"], sv["res"]
+    step = steps_mod.build_serve_step(cfg)
+    box = [res.logits, res.lengths]
+
+    def one(i):
+        tok = torch.argmax(box[0], dim=-1).to(torch.int32)[:, None]
+        box[0], _, box[1] = step(res.model, tok, res.caches, box[1])
+    _profile("serve", steps, "step", one)
+
+
 def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
-        ar_small: ARSizes = AR_SMALL, device="cuda") -> dict:
+        ar_small: ARSizes = AR_SMALL, serve_sz: ServeSizes = SERVE_FULL,
+        serve_small: ServeSizes = SERVE_SMALL, device="cuda") -> dict:
     from repro_torch.kernels import build, checks
     from repro_torch.testing import assert_bitwise, assert_close
     # float32 matmuls in full precision on the card, so the core stage
-    # is compared with the CPU at a float32 tolerance, not TF32's
+    # and the float32 serve run are compared with the CPU at a float32
+    # tolerance, not TF32's
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -843,13 +1049,18 @@ def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
     print(f"card: {_card_line()}")
 
     block = (sz.batch + sz.window - sz.stride, sz.d, sz.window, sz.stride)
+    scfg = serve_config(serve_sz)
     errs = {"window_reduce": checks.check_window_reduce(device, *block),
             "fused_tick": checks.check_fused_tick(device, *block),
             "hilbert": checks.check_hilbert(device, ar_sz.n),
             "armatch": checks.check_armatch(device, (
-                (ar_sz.n, ar_sz.interests), (ar_sz.shard, 1)))}
-    print(f"phase 2 kernels: bitwise equal to their plain versions "
-          f"(max abs err {errs})")
+                (ar_sz.n, ar_sz.interests), (ar_sz.shard, 1))),
+            "decode_attn": checks.check_decode_attn(device, (
+                serve_sz.requests, scfg.n_heads, scfg.n_kv_heads,
+                scfg.d_head, serve_sz.prompt_len + serve_sz.tokens))}
+    print(f"phase 2 kernels: bitwise equal to their plain versions, "
+          f"decode_attn within {checks.DECODE_ATTN_TOL} (max abs err "
+          f"{errs})")
 
     results = run_paths(sz, device, assert_bitwise, assert_close)
     adm = run_admission(sz, device)
@@ -866,6 +1077,18 @@ def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
           f"the pairs, least query hits {ar['min_hits']}, registry hits "
           f"{ar['found']}; card == CPU bitwise over {compared} steps at "
           f"{ar_small.n} posts, shard {ar_small.shard}")
+    sv = run_serve(serve_sz, device)
+    small = run_serve_card_vs_cpu(serve_small, device)
+    res = sv["res"]
+    print(f"phase 3 serve path: {sv['cfg'].name} ({sv['cfg'].n_layers} "
+          f"layers, d_model {sv['cfg'].d_model}, compute "
+          f"{serve_sz.compute}), {serve_sz.requests} requests resolved as "
+          f"{res.resolved}, {serve_sz.prompt_len} prompt ids teacher-forced "
+          f"+ {serve_sz.tokens} generated; init {sv['init_s']:.2f} s; "
+          f"logits finite, ids in the vocabulary; kernel vs plain path at "
+          f"the next step {sv['late']:.3e} of the largest logit; card == CPU "
+          f"ids over {small['steps']} steps at {serve_small.layers} layers, "
+          f"logits within {small['rel']:.3e}; first ids {res.tokens[0, :8]}")
 
     for name in ("staged", "fused"):
         secs = results[name]["secs"]
@@ -879,11 +1102,20 @@ def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
           f"posts/s (all posts over all steps), step p50 {q[0] * 1e3:.3f} ms, "
           f"p99 {q[1] * 1e3:.3f} ms over {len(ar['secs'])} steps, launches "
           f"{ar['launches']}")
+    secs = np.asarray(res.secs)
+    q = np.quantile(secs, [0.5, 0.99])
+    print(f"path serve: {serve_sz.requests * len(secs) / secs.sum():.1f} "
+          f"tokens/s (all tokens, prompt and generated, over all steps), "
+          f"decode step p50 {q[0] * 1e3:.3f} ms, p99 {q[1] * 1e3:.3f} ms "
+          f"over {len(secs)} steps, launches {sv['launches']}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     _prime_profiler(device)
     kernels = {"kernels": time_kernels(sz, device, results, errs)
-               + time_ar_kernels(ar_sz, device, ar, errs)}
+               + time_ar_kernels(ar_sz, device, ar, errs)
+               + [time_serve_kernel(sv, errs)]}
     profile_ticks(sz, device)
     profile_ar(ar_sz, ar)
+    profile_serve(sv)
     return kernels
 
 

@@ -1,0 +1,54 @@
+"""Architecture registry: the reference's 10 assigned configs, of which
+the six dense ones are ported, each with its reduced smoke twin.
+
+Port of ``repro.configs.registry``.  Each ported config is a copy of
+the reference's file (``repro/configs/<name>.py``), its dtypes as
+``torch.dtype``.  The four others -- MoE, RWKV6, RG-LRU -- raise in
+``get_config`` and ``smoke_config``: their layers are ROADMAP item 13.
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = [
+    "qwen2_vl_7b", "yi_34b", "qwen2_72b", "nemotron_4_15b", "yi_6b",
+    "rwkv6_7b", "mixtral_8x7b", "kimi_k2_1t_a32b", "musicgen_large",
+    "recurrentgemma_2b",
+]
+#: the dense architectures, which the port runs
+PORTED = ["yi_6b", "yi_34b", "qwen2_72b", "nemotron_4_15b", "qwen2_vl_7b",
+          "musicgen_large"]
+
+# shape set shared by all LM archs (assignment):
+SHAPES = {
+    "train_4k":    {"seq_len": 4096,   "global_batch": 256, "kind": "train"},
+    "prefill_32k": {"seq_len": 32768,  "global_batch": 32,  "kind": "prefill"},
+    "decode_32k":  {"seq_len": 32768,  "global_batch": 128, "kind": "decode"},
+    "long_500k":   {"seq_len": 524288, "global_batch": 1,   "kind": "decode"},
+}
+
+
+def _module(arch_id: str):
+    arch_id = arch_id.replace("-", "_")
+    if arch_id not in ARCH_IDS:
+        raise KeyError(f"unknown architecture {arch_id!r}")
+    if arch_id not in PORTED:
+        raise NotImplementedError(
+            f"{arch_id} is not ported yet: its MoE / RWKV6 / RG-LRU layers "
+            "are ROADMAP item 13")
+    return importlib.import_module(f"repro_torch.configs.{arch_id}")
+
+
+def get_config(arch_id: str):
+    return _module(arch_id).config()
+
+
+def smoke_config(arch_id: str):
+    return _module(arch_id).smoke()
+
+
+def shape_applicable(cfg, shape_name: str) -> bool:
+    """long_500k needs sub-quadratic attention."""
+    if shape_name == "long_500k":
+        return cfg.subquadratic
+    return True

@@ -11,7 +11,12 @@ Representation differences handled here:
 * the dedupe window: the reference keeps uint32 hashes, the port int64
   values in ``[0, 2^32)``;
 * the DHT shard: the port's ``ShardStore`` tensors have one discard row
-  past the reference's capacity (stamp -1, never read).
+  past the reference's capacity (stamp -1, never read);
+* the model: the reference stacks the layers of a kind along a leading
+  ``repeat`` dim (``stacks``, one ``{pos<i>: ...}`` group a stack), the
+  port keeps one ``DecoderLayer`` a layer; the KV caches likewise
+  (``[repeat, B, S, Hkv, D]`` a stack against ``[B, S, Hkv, D]`` a
+  layer).
 """
 from __future__ import annotations
 
@@ -21,13 +26,18 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.store import ShardStore
 from repro_torch.data.ringbuffer import RingBuffer
+from repro_torch.models import transformer as T
 from repro_torch.stream.executor import StreamMetrics, StreamState
 from repro_torch.stream.ingest import AdmissionState
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
-    return torch.as_tensor(np.array(a, copy=True),
-                           device=resolve_device(device), dtype=dtype)
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":      # ml_dtypes' type, from a JAX array
+        return torch.as_tensor(a.astype(np.float32),
+                               device=resolve_device(device)).to(
+                                   dtype or torch.bfloat16)
+    return torch.as_tensor(a, device=resolve_device(device), dtype=dtype)
 
 
 def state_from_numpy(ref_state, device: str | torch.device | None = None
@@ -116,3 +126,62 @@ def store_to_numpy(st: ShardStore) -> dict:
     keys, values, stamps = st.log()
     return {"keys": keys.cpu().numpy(), "values": values.cpu().numpy(),
             "stamps": stamps.cpu().numpy(), "cursor": st.cursor.cpu().numpy()}
+
+
+def _layer_slices(cfg):
+    """(stack index, repeat index, group key) of each layer, in order."""
+    for si, (kinds, repeat) in enumerate(cfg.stacks()):
+        for r in range(repeat):
+            for i in range(len(kinds)):
+                yield si, r, f"pos{i}"
+
+
+def model_from_numpy(cfg, tree, device: str | torch.device | None = None
+                     ) -> T.Transformer:
+    """The reference's ``init_params`` tree (numpy leaves, layers stacked
+    a stack) -> the port's ``Transformer`` on ``device``, its layers cast
+    to ``cfg.compute_dtype`` as the model casts them."""
+    dev = resolve_device(device)
+
+    def tens(a):
+        return _t(a, dev)
+
+    def group(g):
+        return {k: group(v) if isinstance(v, dict) else tens(v)
+                for k, v in g.items()}
+
+    layers = [T.DecoderLayer(cfg, group(_index(tree["stacks"][si][key], r)))
+              for si, r, key in _layer_slices(cfg)]
+    unembed = None if cfg.tie_embeddings else tens(tree["unembed"])
+    return T.Transformer(cfg, tens(tree["embed"]), group(tree["final_norm"]),
+                         unembed, layers)
+
+
+def _index(g, r):
+    return {k: _index(v, r) if isinstance(v, dict) else np.asarray(v)[r]
+            for k, v in g.items()}
+
+
+def caches_from_numpy(cfg, caches, device: str | torch.device | None = None
+                      ) -> list[dict]:
+    """The reference's decode caches (one ``{pos<i>: {attn: {k, v}}}`` a
+    stack, ``[repeat, B, S, Hkv, D]``) -> the port's per-layer ``{k, v}``."""
+    return [{n: _t(np.asarray(caches[si][key]["attn"][n])[r], device)
+             for n in ("k", "v")} for si, r, key in _layer_slices(cfg)]
+
+
+def caches_to_numpy(cfg, caches: list[dict]) -> list[dict]:
+    """The port's per-layer caches -> the reference's stacked layout, as
+    numpy arrays (bfloat16 as float32: numpy has no bfloat16)."""
+    out, it = [], iter(caches)
+    for kinds, repeat in cfg.stacks():
+        layers = [[next(it) for _ in kinds] for _ in range(repeat)]
+        out.append({f"pos{i}": {"attn": {
+            n: np.stack([_np(rep[i][n]) for rep in layers])
+            for n in ("k", "v")}} for i in range(len(kinds))})
+    return out
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -33,7 +33,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-SOURCES = ("window_reduce", "fused_tick", "hilbert", "armatch")
+SOURCES = ("window_reduce", "fused_tick", "hilbert", "armatch",
+           "decode_attn")
 
 builds = 0
 _libs: dict[str, ctypes.CDLL] = {}

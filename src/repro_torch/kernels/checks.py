@@ -1,4 +1,5 @@
-"""Each hand-written kernel held against its plain version, bitwise.
+"""Each hand-written kernel held against its plain version: bitwise,
+but for ``decode_attn``, which is held to a stated tolerance.
 
 One copy of the comparisons that ``chip_smoke.py`` (phase 2) and
 ``tests/test_torch_card.py`` run on the card.  The stream-tick checks
@@ -6,11 +7,12 @@ take the full-width block ``(t, d, window, stride)`` of a tick and add
 ragged small shapes; every block carries NaN rows and a run of invalid
 rows long enough to empty whole windows.  The AR checks take the
 routing step's batch (hilbert) and the data plane's two match shapes
-(armatch) and add ragged ones.  On a CUDA device each kernel call is
-also held against the same call on the CPU, and must raise its
-wrapper's launch count by one.  Every check returns the largest finite
-absolute difference it saw between a kernel and what it is held
-against (0.0 when bitwise equal).
+(armatch) and add ragged ones.  The decode check takes the serve
+step's cache shape and the reference's test shapes.  On a CUDA device
+each kernel call is also held against the same call on the CPU, and
+must raise its wrapper's launch count by one.  Every check returns the
+largest finite absolute difference it saw between a kernel and what it
+is held against (0.0 when bitwise equal).
 
 :func:`random_profiles` makes encoded AR profiles in bulk with numpy,
 for these checks, the tests and ``chip_smoke.py``.
@@ -22,6 +24,7 @@ import torch
 
 from repro_torch.core import profiles as P
 from repro_torch.kernels.armatch import armatch, armatch_ref
+from repro_torch.kernels.decode_attn import decode_attention, decode_attn_ref
 from repro_torch.kernels.fused_tick import fused_tick, fused_tick_ref
 from repro_torch.kernels.hilbert import hilbert_xy2d, hilbert_xy2d_ref
 from repro_torch.kernels.window_reduce import (sliding_reduce,
@@ -277,4 +280,75 @@ def check_armatch(device, shapes=()) -> float:
         if m * n >= 4096 and not 0 < int(k.sum()) < m * n:
             raise AssertionError(f"armatch {m}x{n}: {int(k.sum())} matches, "
                                  "the inputs test nothing")
+    return err
+
+
+# ---- the serving kernel ---------------------------------------------------
+
+#: (b, h, hkv, d, s) of ``tests/test_kernels.py``'s decode cases: GQA,
+#: MHA with odd heads, MQA, a long cache, a ragged S
+DECODE_ATTN_SHAPES = ((2, 8, 4, 64, 1024), (1, 7, 7, 128, 512),
+                      (3, 10, 1, 64, 768), (2, 32, 8, 128, 2048),
+                      (1, 4, 2, 32, 100))
+#: float32: the kernel and the plain version sum in other orders;
+#: bfloat16: the reference's own tolerance (outputs rounded to bf16,
+#: whose ulp near 1 is 7.8e-3)
+DECODE_ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.5e-2}
+
+
+def max_err_within(a, b, tol: float, what: str) -> float:
+    """The largest absolute difference of ``a`` and ``b``; raises if a
+    value of ``a`` is not finite or differs by more than ``tol`` absolute
+    plus ``tol`` relative."""
+    a, b = a.float().cpu(), b.float().cpu()
+    if not torch.isfinite(a).all():
+        raise AssertionError(f"{what}: non-finite output")
+    bad = (a - b).abs() > tol + tol * b.abs()
+    if bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} of {a.numel()} "
+                             f"values differ by more than {tol} (max "
+                             f"{float((a - b).abs().max())})")
+    return float((a - b).abs().max())
+
+
+def check_decode_attn(device, full) -> float:
+    """The ``decode_attn`` kernel against ``decode_attn_ref`` on the same
+    tensors, and against the CPU, in float32 and bfloat16 at ``full``
+    ``(b, h, hkv, d, s)`` (the serve step's cache, every row full but a
+    length-0 one), at :data:`DECODE_ATTN_SHAPES` with random lengths, and
+    on a strided cache view, within :data:`DECODE_ATTN_TOL`."""
+    dev = torch.device(device)
+    gen = torch.Generator(dev).manual_seed(6)
+    err = 0.0
+    cases = [(full, "full"), *((s, "ragged") for s in DECODE_ATTN_SHAPES),
+             ((3, 8, 2, 32, 70), "strided")]
+    for dtype, tol in DECODE_ATTN_TOL.items():
+        for (b, h, hkv, d, s), kind in cases:
+            q = torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
+            width = d + 16 if kind == "strided" else d
+            k, v = (torch.randn((b, s, hkv, width), generator=gen,
+                                device=dev).to(dtype)[..., :d]
+                    for _ in range(2))
+            lengths = torch.randint(1, s + 1, (b,), generator=gen,
+                                    device=dev, dtype=torch.int32)
+            if kind == "full":
+                lengths.fill_(s)
+            lengths[0] = 0 if kind != "ragged" else lengths[0]
+            what = f"decode_attn {dtype} {(b, h, hkv, d, s)} {kind}"
+            out = _counted(lambda: decode_attention(q, k, v, lengths,
+                                                    num_kv_heads=hkv),
+                           decode_attention, q, what)
+            g = h // hkv
+            plain = decode_attn_ref(q.reshape(b, hkv, g, d), k.transpose(1, 2),
+                                    v.transpose(1, 2), lengths,
+                                    scale=1.0 / d ** 0.5).reshape(b, h, d)
+            if out.dtype != dtype or out.shape != (b, h, d):
+                raise AssertionError(f"{what}: {out.dtype} {out.shape}")
+            if kind != "ragged" and bool((out[0] != 0).any()):
+                raise AssertionError(f"{what}: a length-0 row is not zero")
+            err = max(err, max_err_within(out, plain, tol, f"{what} kernel"))
+            if dev.type == "cuda":
+                cpu = decode_attention(q.cpu(), k.cpu(), v.cpu(),
+                                       lengths.cpu(), num_kv_heads=hkv)
+                err = max(err, max_err_within(out, cpu, tol, f"{what} card vs CPU"))
     return err

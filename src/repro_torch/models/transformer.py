@@ -1,0 +1,314 @@
+"""The decoder stack, ported from ``repro.models.transformer`` for the
+dense architectures.
+
+An architecture is an ``ArchConfig``: a layer pattern, an FFN kind,
+attention geometry and embedding geometry (dtypes are ``torch.dtype``).
+The model is a ``Transformer`` module: the embedding, the final norm,
+the unembedding and one ``DecoderLayer`` a layer, driven by a Python
+loop (the reference scans stacked layers with ``lax.scan``).
+
+Casts.  The reference casts every layer's parameters to
+``compute_dtype`` on each call (``_cast_params``); the port casts them
+once, when the model is built, to the same values.  As in the
+reference, ``embed`` stays in ``param_dtype`` and is gathered before the
+cast, ``final_norm`` stays uncast, and ``unembed`` is cast to the
+activations' dtype (``compute_dtype``), here once.
+
+Entry points: ``forward``, ``prefill`` and ``decode_step``.  Only the
+``attn+dense`` layer kind is ported: the ``rwkv``, ``rec`` and ``+moe``
+kinds, and ``loss_fn``, wait for ROADMAP item 13.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import positional as pos_mod
+
+_NOT_PORTED = ("layer kind {!r} is not ported yet: the MoE, RWKV6 and "
+               "RG-LRU layers are ROADMAP item 13")
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 128
+    pattern: tuple = ("attn",)          # cycled layer kinds
+    ffn: str = "swiglu"                 # dense ffn kind or "moe"
+    moe: Any = None                     # MoEConfig (not ported)
+    first_k_dense: int = 0              # leading dense-FFN layers (Kimi)
+    qkv_bias: bool = False
+    window: int | None = None
+    rope: str = "rope"                  # "rope" | "mrope" | "none"
+    rope_theta: float = 10000.0
+    mrope_sections: tuple = (16, 24, 24)
+    pos_emb: str = "none"               # "none" | "sinusoidal"
+    norm: str = "rmsnorm"
+    norm_eps: float = 1e-6
+    rwkv: Any = None                    # RWKVConfig (not ported)
+    rglru: Any = None                   # RGLRUConfig (not ported)
+    vlm: bool = False                   # expects vision_embeds in the batch
+    modality: str = "text"              # doc tag: text | vision | audio
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+    tie_embeddings: bool = False
+    chunk_q: int = 512
+    # long-context capability tag: full attention archs skip long_500k
+    subquadratic: bool = False
+
+    # ---- derived ----
+    def attn_cfg(self) -> A.AttnConfig:
+        return A.AttnConfig(self.n_heads, self.n_kv_heads, self.d_head,
+                            self.qkv_bias, self.window, self.rope,
+                            self.rope_theta, self.mrope_sections, self.chunk_q)
+
+    def layer_kinds(self) -> list[str]:
+        """Each layer's kind: ``attn+dense``, ``attn+moe``, ``rwkv``, ``rec``."""
+        kinds = []
+        for i in range(self.n_layers):
+            k = self.pattern[i % len(self.pattern)]
+            if k == "attn":
+                f = "dense" if (self.ffn != "moe" or i < self.first_k_dense) \
+                    else "moe"
+                kinds.append(f"attn+{f}")
+            else:
+                kinds.append(k)
+        return kinds
+
+    def stacks(self) -> list[tuple[tuple[str, ...], int]]:
+        """Layer plan as (kinds-per-group, repeat) with heterogeneous
+        prefixes (first_k_dense) and pattern tails split off: the
+        reference's stacking, which ``convert`` reads."""
+        kinds = self.layer_kinds()
+        out: list[tuple[tuple[str, ...], int]] = []
+        g = len(self.pattern)
+        i = 0
+        while i < len(kinds):
+            # greedily take maximal repeats of the next group of size g
+            group = tuple(kinds[i:i + g])
+            r = 1
+            while kinds[i + r * g: i + (r + 1) * g] == list(group):
+                r += 1
+            out.append((group, r))
+            i += r * g
+        return out
+
+
+def _check_dense(cfg: ArchConfig) -> None:
+    for kind in cfg.layer_kinds():
+        if kind != "attn+dense":
+            raise NotImplementedError(_NOT_PORTED.format(kind))
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+
+def _cast(params: dict, dtype: torch.dtype) -> dict:
+    return {k: v.to(dtype) if v.is_floating_point() else v
+            for k, v in params.items()}
+
+
+class DecoderLayer(nn.Module):
+    """One ``attn+dense`` layer, pre-norm residual, its parameters cast
+    to ``cfg.compute_dtype`` once, here."""
+
+    def __init__(self, cfg: ArchConfig, params: dict) -> None:
+        super().__init__()
+        dt = cfg.compute_dtype
+        self.cfg = cfg
+        self.norm1 = L.frozen(_cast(params["norm1"], dt))
+        self.norm2 = L.frozen(_cast(params["norm2"], dt))
+        self.attn = A.Attention(cfg.attn_cfg(), _cast(params["attn"], dt))
+        self.ffn = L.FFN(cfg.ffn, _cast(params["ffn"], dt))
+
+    def forward(self, x, positions, cache: dict | None = None, lengths=None,
+                *, use_kernel: bool = True):
+        """(x, cache): the cache is the layer's KV (forward) or the
+        decode cache updated in place (``cache`` given)."""
+        cfg = self.cfg
+        h = L.apply_norm(cfg.norm, x, self.norm1, cfg.norm_eps)
+        if cache is not None:
+            a_out, new_cache = self.attn.decode(h, cache, lengths,
+                                                use_kernel=use_kernel)
+        else:
+            a_out, new_cache = self.attn(h, positions)
+        x = x + a_out
+        h = L.apply_norm(cfg.norm, x, self.norm2, cfg.norm_eps)
+        return x + self.ffn(h), new_cache
+
+
+class Transformer(nn.Module):
+    """The decoder stack: ``embed`` ``[V, D]`` and ``final_norm`` in
+    ``param_dtype``, ``unembed`` ``[D, V]`` (``None`` when tied to the
+    embedding) cast to ``compute_dtype``, and the ``DecoderLayer``s."""
+
+    def __init__(self, cfg: ArchConfig, embed: torch.Tensor,
+                 final_norm: dict, unembed: torch.Tensor | None,
+                 layers: list[DecoderLayer]) -> None:
+        super().__init__()
+        _check_dense(cfg)
+        if len(layers) != cfg.n_layers:
+            raise ValueError(f"{cfg.name}: {len(layers)} layers, want "
+                             f"{cfg.n_layers}")
+        self.cfg = cfg
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.final_norm = L.frozen(final_norm)
+        if cfg.tie_embeddings:
+            # a cast copy of a parameter, not one of its own
+            self.register_buffer("unembed", embed.t().to(cfg.compute_dtype),
+                                 persistent=False)
+        else:
+            self.unembed = nn.Parameter(unembed.to(cfg.compute_dtype),
+                                        requires_grad=False)
+        self.layers = nn.ModuleList(layers)
+
+
+def init_params(cfg: ArchConfig, *, seed: int = 0,
+                device: str | torch.device | None = None) -> Transformer:
+    """A model with random weights drawn from a ``torch.Generator`` seeded
+    with ``seed`` on ``device`` (``None``: the card; ``"meta"`` gives the
+    shapes and allocates nothing): the reference's shapes and scales
+    (N(0, 0.02) embeddings, N(0, 1/d_in) dense weights, unit norms, zero
+    biases), not its numbers."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator("cpu" if dev.type == "meta" else dev)
+    gen.manual_seed(seed)
+    dt = cfg.param_dtype
+    d = cfg.d_model
+    embed = torch.randn((cfg.vocab, d), generator=gen, dtype=torch.float32,
+                        device=dev) * 0.02
+    unembed = None if cfg.tie_embeddings \
+        else L.dense_init(gen, d, cfg.vocab, dt, dev)
+    layers = []
+    for _ in range(cfg.n_layers):
+        # each layer is cast as it is drawn, so that a full-width model
+        # never holds all of its float32 layer weights at once
+        layers.append(DecoderLayer(cfg, {
+            "norm1": L.init_norm(cfg.norm, d, dt, dev),
+            "norm2": L.init_norm(cfg.norm, d, dt, dev),
+            "attn": A.init_attn(gen, d, cfg.attn_cfg(), dt, dev),
+            "ffn": L.ffn_init(cfg.ffn, gen, d, cfg.d_ff, dt, dev)}))
+    return Transformer(cfg, embed.to(dt), L.init_norm(cfg.norm, d, dt, dev),
+                       unembed, layers)
+
+
+def param_count(cfg: ArchConfig, model: Transformer) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# Caches and embedding
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg: ArchConfig, batch: int, seq_len: int,
+                device: str | torch.device | None = None) -> list[dict]:
+    """One empty ``{k, v}`` ring cache a layer, ``[B, S, Hkv, dh]`` in
+    ``compute_dtype`` (S capped at the window)."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    return [A.init_cache(cfg.attn_cfg(), batch, seq_len, cfg.compute_dtype,
+                         dev) for _ in range(cfg.n_layers)]
+
+
+def _embed(cfg: ArchConfig, model: Transformer, batch: dict,
+           positions: torch.Tensor | None = None):
+    tokens = batch["tokens"]
+    x = model.embed[tokens].to(cfg.compute_dtype)
+    b, t = tokens.shape
+    if cfg.vlm and "vision_embeds" in batch:
+        vm = batch["vision_mask"][..., None]
+        x = torch.where(vm, batch["vision_embeds"].to(x.dtype), x)
+    if positions is None:
+        base = torch.arange(t, dtype=torch.int32,
+                            device=tokens.device)[None].expand(b, t)
+        if cfg.rope == "mrope":
+            positions = batch.get("mrope_positions")
+            if positions is None:
+                positions = base[None].expand(3, b, t)
+        else:
+            positions = base
+    if cfg.pos_emb == "sinusoidal":
+        pe = pos_mod.sinusoidal_embedding(
+            positions if positions.dim() == 2 else positions[0], cfg.d_model)
+        x = x + pe.to(x.dtype)
+    return x, positions
+
+
+def _logits(cfg: ArchConfig, model: Transformer, x: torch.Tensor):
+    x = L.apply_norm(cfg.norm, x, model.final_norm, cfg.norm_eps)
+    return x @ model.unembed
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+def forward(cfg: ArchConfig, model: Transformer, batch: dict, *,
+            want_caches: bool = False):
+    """Full-sequence forward.  Returns (logits [B, T, V], aux_loss,
+    per-layer caches or None); aux_loss is 0 (no MoE layer is ported)."""
+    x, positions = _embed(cfg, model, batch)
+    caches = [] if want_caches else None
+    for layer in model.layers:
+        x, c = layer(x, positions)
+        if want_caches:
+            caches.append(c)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(cfg, model, x), aux, caches
+
+
+def prefill(cfg: ArchConfig, model: Transformer, batch: dict,
+            pad_cache_to: int | None = None):
+    """Prefill: logits of the last position + caches for decode.
+
+    ``pad_cache_to``: total cache capacity for subsequent decode steps.
+    The caches are laid out in decode ring order (slot = t mod
+    capacity)."""
+    logits, _, caches = forward(cfg, model, batch, want_caches=True)
+    t = batch["tokens"].shape[1]
+    if pad_cache_to is not None:
+        cap = pad_cache_to if cfg.window is None \
+            else min(pad_cache_to, cfg.window)
+
+        def fix(a: torch.Tensor) -> torch.Tensor:      # [B, T, Hkv, dh]
+            if cap >= t:             # zero-pad; slots t.. stay free
+                pad = a.new_zeros((a.shape[0], cap - t) + a.shape[2:])
+                return torch.cat([a, pad], dim=1)
+            # window < t: keep the last ``cap`` tokens in ring order
+            base = t - cap
+            slots = torch.arange(cap, device=a.device)
+            return a[:, base + ((slots - base) % cap)]
+
+        caches = [{k: fix(v) for k, v in c.items()} for c in caches]
+    return logits[:, -1, :], caches
+
+
+def decode_step(cfg: ArchConfig, model: Transformer, tokens: torch.Tensor,
+                caches: list, lengths: torch.Tensor, *,
+                use_kernel: bool = True):
+    """One decode step.  tokens: [B, 1]; lengths: [B] int32 tokens so
+    far.  Writes the new K/V rows into ``caches`` in place.  Returns
+    (logits [B, V], caches, lengths + 1).  ``use_kernel=False`` attends
+    by the reference's jnp branch in every layer."""
+    if cfg.rope == "mrope":
+        positions = lengths[None, :, None].expand((3,) + tokens.shape)
+    else:
+        positions = lengths[:, None]
+    x, _ = _embed(cfg, model, {"tokens": tokens}, positions=positions)
+    for layer, cache in zip(model.layers, caches):
+        x, _ = layer(x, positions, cache, lengths, use_kernel=use_kernel)
+    return _logits(cfg, model, x)[:, 0, :], caches, lengths + 1

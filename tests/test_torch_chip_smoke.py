@@ -84,3 +84,63 @@ def test_armatch_ops_counts_each_used_slot_pair(smoke):
                     want += cost.get(int(ps[P.L_VKIND]), 0)
     assert smoke.armatch_ops(torch.from_numpy(data),
                              torch.from_numpy(ints)) == want
+
+
+def _serve_sizes(smoke, monkeypatch, **kw):
+    """Tiny serve sizes, and Yi-6B's smoke widths in place of its own."""
+    from repro_torch import configs
+    monkeypatch.setattr(configs, "get_config", configs.smoke_config)
+    return smoke.ServeSizes(**{**dict(requests=2, prompt_len=4, tokens=3,
+                                      compute="float32"), **kw})
+
+
+def test_serve_phase_runs_and_checks_itself(smoke, monkeypatch):
+    """Yi-6B's smoke widths through ``serve.run``: the launch count the
+    card would give, finite logits, ids in the vocabulary, and the late
+    step through both attention paths."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    sz = _serve_sizes(smoke, monkeypatch)
+    cfg = smoke.serve_config(sz)
+    steps = sz.prompt_len + sz.tokens
+    real = smoke.read_launches
+
+    def as_on_card():
+        counts = real()
+        counts.update(decode_attn=cfg.n_layers * steps, armatch=1)
+        return counts
+    monkeypatch.setattr(smoke, "read_launches", as_on_card)
+    sv = smoke.run_serve(sz, "cpu")
+    assert cfg.d_model == 64 and cfg.compute_dtype == torch.float32
+    assert sv["steps"] == steps and len(sv["res"].secs) == steps
+    assert sv["res"].tokens.shape == (2, 3)
+    assert sv["res"].resolved == "decode:yi-6b-smoke"
+    assert 0 <= sv["late"] < 1e-5        # float32: the two paths agree
+
+
+def test_serve_phase_fails_without_kernel_launches(smoke, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    with pytest.raises(RuntimeError, match="decode_attn launches"):
+        smoke.run_serve(_serve_sizes(smoke, monkeypatch), "cpu")
+
+
+def test_serve_card_vs_cpu_compares_ids_and_logits(smoke, monkeypatch):
+    out = smoke.run_serve_card_vs_cpu(
+        _serve_sizes(smoke, monkeypatch, layers=1), "cpu")
+    assert out == {"rel": 0.0, "steps": 7}
+
+
+def test_serve_sizes_are_yi_6b_at_full_width(smoke):
+    """The full-width serve run is Yi-6B at its published widths and
+    depth, 16 requests, a 1,088-row cache; the reduced run keeps the
+    widths."""
+    mod = smoke
+    full = mod.serve_config(mod.SERVE_FULL)
+    assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
+            full.d_head, full.d_ff, full.vocab) == \
+        (32, 4096, 32, 4, 128, 11008, 64000)
+    assert full.compute_dtype == torch.bfloat16
+    assert full.param_dtype == torch.float32
+    assert mod.SERVE_FULL.prompt_len + mod.SERVE_FULL.tokens == 1088
+    small = mod.serve_config(mod.SERVE_SMALL)
+    assert (small.n_layers, small.d_model, small.compute_dtype) == \
+        (2, 4096, torch.float32)

@@ -8,7 +8,10 @@ import torch
 
 from repro_torch import convert
 from repro_torch.core import profiles, serverless, store
+from repro_torch.configs import smoke_config
 from repro_torch.data import ringbuffer
+from repro_torch.launch import serve
+from repro_torch.models import transformer
 from repro_torch.obs import latency
 from repro_torch.runtime.overlap import IngestStager
 from repro_torch.stream import ingest
@@ -29,6 +32,15 @@ CONSTRUCTORS = {
         lambda: convert.histograms_from_numpy(np.zeros(3), np.zeros(3))[0],
     "convert.params_from_numpy":
         lambda: convert.params_from_numpy(np.zeros(3)),
+    "transformer.init_params":
+        lambda: transformer.init_params(smoke_config("yi_6b")).embed,
+    "transformer.init_caches":
+        lambda: transformer.init_caches(smoke_config("yi_6b"), 2, 4)[0]["k"],
+    "convert.caches_from_numpy":
+        lambda: convert.caches_from_numpy(smoke_config("yi_6b"), [{"pos0": {
+            "attn": {"k": np.zeros((2, 1, 4, 2, 16), np.float32),
+                     "v": np.zeros((2, 1, 4, 2, 16), np.float32)}}}])[0]["k"],
+    "serve.run": lambda: serve.run(smoke_config("yi_6b"), 2, 2, 2).logits,
 }
 
 
