@@ -15,8 +15,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    step's 65,536 points and ragged batches at orders 1 to 16; armatch
    bitwise at the AR data plane's two calls and ragged shapes, with
    every vkind on both sides; decode_attn within 1e-5 (float32) and
-   2.5e-2 (bfloat16) at the Yi-6B serve step's full cache, the
-   reference's five test shapes, a strided cache and a length-0 row;
+   2.5e-2 (bfloat16) at the Yi-6B serve step's full cache, with lengths
+   on its split edges, the reference's five test shapes, the configs'
+   other head shapes (G 1, 6, 7; D 16, 64, 128), a strided cache, an
+   unaligned one (the generic instance) and length-0 rows, each call
+   launching the instance its plan names;
 3. drive the single-device stream tick at full width -- D = 16 features,
    W = 64, S = 32, 65,536 rows a tick, a 2^22-row ring, the two rules
    and the tanh(h @ p) x8 core stand-in of ``benchmarks/streaming.py``
@@ -37,16 +40,19 @@ Phases, in order; any failure raises and the exit code is not 0:
    float32 params, bfloat16 compute, seeded random weights) resolved
    through the AR function registry, 16 requests of 1,024 prompt ids
    decoded teacher-forced and 64 ids generated greedily; every layer of
-   every step must have launched decode_attn, the logits must be
+   every step must have launched decode_attn (none of them its generic
+   instance), the logits must be
    finite, and one more step from the final caches through the kernel
    and through the plain path must agree; the same composition at 2
    layers in float32 must give the same ids on the card and the CPU;
 4. time each path (items, posts or tokens a second over all steps' wall
    time, p50/p99 step ms, with a synchronize per step) and each kernel
-   at the path's shapes -- the kernel's own device time from a
-   ``torch.profiler`` trace, and wall time a call from CUDA events --
-   beside its plain version, a one-call PyTorch yardstick where there
-   is one, and the least time the card could take;
+   at the path's shapes -- the device time of the kernels a call
+   launches, from a ``torch.profiler`` trace, and wall time a call from
+   CUDA events -- beside its plain version, a one-call PyTorch yardstick
+   where there is one, and the least time the card could take;
+   decode_attn also after a read that empties L2, as a decode step's
+   layer finds its cache;
 5. profile a few ticks of each stream path, a few AR steps and a few
    decode steps with ``torch.profiler``: the device's busy share and
    the top device ops.
@@ -133,12 +139,34 @@ def _prime_profiler(device) -> None:
         torch.cuda.synchronize()
 
 
-def _timed(fn, reps: int, tag: str,
-           kernel: str | None = None) -> tuple[float, float]:
+def _base_name(event_name: str) -> str:
+    """The unqualified function name of a traced kernel:
+    ``decode_attn_bf16_kernel`` of ``void (anonymous
+    namespace)::decode_attn_bf16_kernel<128, 1>((anonymous
+    namespace)::Args)``."""
+    name = event_name.replace("(anonymous namespace)::", "")
+    cut = min((i for i in (name.find("<"), name.find("(")) if i >= 0),
+              default=len(name))
+    words = name[:cut].split()
+    return words[-1].split("::")[-1] if words else ""
+
+
+#: the cold-cache flush's own kernel (an argmax over a 192 MB buffer,
+#: an op no timed function runs), left out of every device sum
+FLUSH_OP = "ArgMaxOps"
+
+
+def _timed(fn, reps: int, tag: str, kernel: str | None = None,
+           flush=None) -> tuple[float, float]:
     """(device ms, wall ms) a call of ``fn()`` over ``reps`` calls back
     to back.  Device time sums the device ops the profiler saw, or,
-    given ``kernel``, is the mean of that kernel's own traced launches
-    (one a call; the wrapper's other ops are left out).  Wall time is
+    given ``kernel``, the traced kernels whose function name starts with
+    it, one a call (the wrapper's other ops are left out): the trace
+    must hold exactly ``reps`` of them.  With
+    ``flush``, ``flush()`` runs before each call (a read of more bytes
+    than L2 holds, so the call finds its inputs in device memory, as a
+    decode step's layer does) and its own kernel is left out of the
+    sums; wall time is then not measured (0).  Otherwise wall time is
     CUDA events around the loop, which the host's launch rate bounds
     whenever a call's device work is shorter than its launch."""
     from torch.profiler import ProfilerActivity, profile
@@ -150,21 +178,21 @@ def _timed(fn, reps: int, tag: str,
                              ProfilerActivity.CUDA]) as prof:
         start.record()
         for _ in range(reps):
+            if flush is not None:
+                flush()
             fn()
         stop.record()
         torch.cuda.synchronize()
-    events = _device_events(prof, tag)
-    wall_ms = start.elapsed_time(stop) / reps
-    if kernel is None:
-        return sum(e["dur"] for e in events) * 1e-3 / reps, wall_ms
-    events = [e for e in events if kernel in e["name"]]
-    if not 0 < len(events) <= reps:
-        _fail(f"{tag}: {len(events)} {kernel} launches traced, want "
-              f"{reps}")
-    if len(events) < reps:
-        print(f"{tag}: the trace holds {len(events)} of {reps} "
-              f"{kernel} launches; the time is their mean")
-    return sum(e["dur"] for e in events) * 1e-3 / len(events), wall_ms
+    events = [e for e in _device_events(prof, tag)
+              if FLUSH_OP not in e["name"]]
+    wall_ms = 0.0 if flush is not None else start.elapsed_time(stop) / reps
+    if kernel is not None:
+        events = [e for e in events
+                  if _base_name(e["name"]).startswith(kernel)]
+        if len(events) != reps:
+            _fail(f"{tag}: {len(events)} {kernel}* kernels traced, want "
+                  f"{reps}")
+    return sum(e["dur"] for e in events) * 1e-3 / reps, wall_ms
 
 
 def _wrappers() -> dict:
@@ -182,6 +210,7 @@ def _wrappers() -> dict:
 def zero_launches() -> None:
     for w in _wrappers().values():
         w.launches = 0
+    _wrappers()["decode_attn"].generic_launches = 0
 
 
 def read_launches() -> dict:
@@ -660,10 +689,14 @@ def run_serve(sz: ServeSizes, device) -> dict:
     res = serve.run(cfg, sz.requests, sz.prompt_len, sz.tokens,
                     device=device, model=model)
     launches = read_launches()
+    generic = _wrappers()["decode_attn"].generic_launches
     steps = sz.prompt_len + sz.tokens
     if launches["decode_attn"] != cfg.n_layers * steps:
         _fail(f"serve: {launches['decode_attn']} decode_attn launches, want "
               f"{cfg.n_layers} layers x {steps} steps")
+    if generic:
+        _fail(f"serve: {generic} of the decode_attn launches took the "
+              "generic instance")
     if launches["armatch"] == 0:
         _fail("serve: the registry's lookup launched no armatch kernel")
     if not res.finite:
@@ -926,6 +959,7 @@ def time_serve_kernel(sv: dict, errs: dict) -> dict:
     from repro_torch.kernels import checks
     from repro_torch.kernels.decode_attn import decode_attention, \
         decode_attn_ref
+    from repro_torch.kernels.decode_attn.ops import plan_for
     cfg, res = sv["cfg"], sv["res"]
     kc, vc = res.caches[-1]["k"], res.caches[-1]["v"]
     b, s, hkv, d = kc.shape
@@ -947,27 +981,57 @@ def time_serve_kernel(sv: dict, errs: dict) -> dict:
                                scale=1.0 / d ** 0.5).reshape(b, h, d)
     tol = checks.DECODE_ATTN_TOL[kc.dtype]
     checks.max_err_within(library(), plain(), tol, "SDPA yardstick vs plain")
+    how = plan_for(q, kc, vc, hkv)
+    junk = torch.ones(48 << 20, device=kc.device)     # 192 MB, > L2
+
+    def kernel():
+        return decode_attention(q, kc, vc, lengths, num_kv_heads=hkv)
+    # every instance's kernel is named decode_attn_*, one launch a call
+    one = dict(kernel="decode_attn_")
     with torch.inference_mode():
         rec = dict(
-            ms=_timed(lambda: decode_attention(q, kc, vc, lengths,
-                                               num_kv_heads=hkv), 200,
-                      "decode_attn", kernel="decode_attn_kernel"),
+            ms=_timed(kernel, 200, "decode_attn", **one),
             plain_ms=_timed(plain, 20, "decode_attn_plain"),
             library_ms=_timed(library, 50, "decode_attn_sdpa"))
+        cold = dict(
+            ms=_timed(kernel, 50, "decode_attn_cold", **one,
+                      flush=junk.argmax),
+            plain_ms=_timed(plain, 10, "decode_attn_plain_cold",
+                            flush=junk.argmax),
+            library_ms=_timed(library, 50, "decode_attn_sdpa_cold",
+                              flush=junk.argmax))
+    del junk
     el = kc.element_size()
     nbytes = 2 * b * s * hkv * d * el + 2 * b * h * d * el + 4 * b
     ops = 4 * b * h * s * d
     steps = sv["steps"]
-    return _kernel_row(
+    row = _kernel_row(
         "decode_attn", rec, nbytes, ops, PEAK_BF16_OPS_S,
         sv["launches"]["decode_attn"], errs["decode_attn"],
         f"{sv['launches']['decode_attn'] / steps:g} a step on the serve "
         f"path, {cfg.n_layers} layers")
+    for name, r in (("back to back (L2 warm)", rec),
+                    ("after a 192 MB read (L2 cold)", cold)):
+        print(f"decode_attn {name}: instance {how.instance}, n_split "
+              f"{how.n_split}, scratch 0 bytes in device memory (the splits "
+              f"fold in the cluster's shared memory); kernel "
+              f"{r['ms'][0] * 1e3:.3f} us = {nbytes / r['ms'][0] / 1e6:.1f} "
+              f"GB/s, {row['bound_ms'] / r['ms'][0]:.4f} of the "
+              f"{row['bound_ms'] * 1e3:.3f} us bound; SDPA "
+              f"{r['library_ms'][0] * 1e3:.3f} us; plain "
+              f"{r['plain_ms'][0] * 1e3:.3f} us")
+    row.update(instance=how.instance, n_split=how.n_split,
+               cold_ms=cold["ms"][0], cold_plain_ms=cold["plain_ms"][0],
+               cold_library_ms=cold["library_ms"][0])
+    return row
 
 
-def _profile(tag: str, steps: int, unit: str, fn) -> None:
+def _profile(tag: str, steps: int, unit: str, fn,
+             kernel: str | None = None) -> None:
     """``torch.profiler`` over ``steps`` calls of ``fn``: the device's
-    busy share of the wall time and the top device ops."""
+    busy share of the wall time and the top device ops; given
+    ``kernel``, also the device time of the kernels whose function name
+    starts with it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -983,10 +1047,15 @@ def _profile(tag: str, steps: int, unit: str, fn) -> None:
     for e in dev:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    own = ""
+    if kernel is not None:
+        mine = sum(d for n, d in by_name.items()
+                   if _base_name(n).startswith(kernel))
+        own = f"; {kernel}* {mine / steps:.1f} us/{unit} device"
     print(f"profile {tag}: {steps} {unit}s in {wall * 1e3:.3f} ms "
           f"(profiler on), device busy {busy * 1e3:.3f} ms = "
           f"{busy / wall:.4f} of the wall time, {len(dev) / steps:.1f} "
-          f"device ops a {unit}; top by device time: "
+          f"device ops a {unit}{own}; top by device time: "
           + "; ".join(f"{n[:60]} {d / steps:.1f} us/{unit}"
                       for n, d in top))
 
@@ -1028,7 +1097,7 @@ def profile_serve(sv: dict, steps=8) -> None:
     def one(i):
         tok = torch.argmax(box[0], dim=-1).to(torch.int32)[:, None]
         box[0], _, box[1] = step(res.model, tok, res.caches, box[1])
-    _profile("serve", steps, "step", one)
+    _profile("serve", steps, "step", one, kernel="decode_attn_")
 
 
 def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,

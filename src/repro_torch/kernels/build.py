@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into its own shared library, which is loaded with ``ctypes``
 (no PyTorch headers: a build takes seconds, not minutes).  Libraries
 land in ``build/repro_torch_kernels/`` at the root of the checkout,
-named by a hash of their source and flags, so an edited source is
-rebuilt and an unchanged one is not.
+named by a hash of their source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source or header is rebuilt and an
+unchanged one is not.
 
 Nothing here runs at import: the CPU tests import every module on a
 machine with no ``nvcc``.  ``build_all()`` starts one ``nvcc`` per
@@ -50,8 +51,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

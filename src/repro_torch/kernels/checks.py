@@ -8,7 +8,8 @@ ragged small shapes; every block carries NaN rows and a run of invalid
 rows long enough to empty whole windows.  The AR checks take the
 routing step's batch (hilbert) and the data plane's two match shapes
 (armatch) and add ragged ones.  The decode check takes the serve
-step's cache shape and the reference's test shapes.  On a CUDA device
+step's cache shape, with lengths on the split edges, the reference's
+test shapes and the configurations' other head shapes.  On a CUDA device
 each kernel call is also held against the same call on the CPU, and
 must raise its wrapper's launch count by one.  Every check returns the
 largest finite absolute difference it saw between a kernel and what it
@@ -25,6 +26,8 @@ import torch
 from repro_torch.core import profiles as P
 from repro_torch.kernels.armatch import armatch, armatch_ref
 from repro_torch.kernels.decode_attn import decode_attention, decode_attn_ref
+from repro_torch.kernels.decode_attn.ops import (SUB_ROWS, plan_for,
+                                                 split_starts, warps)
 from repro_torch.kernels.fused_tick import fused_tick, fused_tick_ref
 from repro_torch.kernels.hilbert import hilbert_xy2d, hilbert_xy2d_ref
 from repro_torch.kernels.window_reduce import (sliding_reduce,
@@ -290,10 +293,32 @@ def check_armatch(device, shapes=()) -> float:
 DECODE_ATTN_SHAPES = ((2, 8, 4, 64, 1024), (1, 7, 7, 128, 512),
                       (3, 10, 1, 64, 768), (2, 32, 8, 128, 2048),
                       (1, 4, 2, 32, 100))
+#: (b, h, hkv, d, s) of the configurations' other head shapes, G 1, 6
+#: and 7 at D 128 and 64, the smoke configs' D 16, and D 256 (the bf16
+#: instance with 4 warps; float32 takes the generic one); S ragged
+#: around the split size
+DECODE_ATTN_HEADS = ((2, 4, 4, 128, 600), (2, 12, 2, 128, 530),
+                     (2, 14, 2, 128, 300), (2, 8, 8, 64, 700),
+                     (3, 12, 2, 64, 513), (2, 7, 1, 64, 257),
+                     (3, 16, 2, 16, 700), (1, 8, 2, 256, 300))
 #: float32: the kernel and the plain version sum in other orders;
 #: bfloat16: the reference's own tolerance (outputs rounded to bf16,
 #: whose ulp near 1 is 7.8e-3)
 DECODE_ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.5e-2}
+
+
+def split_edge_lengths(b: int, s: int, n_split: int,
+                       unit: int) -> torch.Tensor:
+    """[b] int32 lengths on the kernel's split edges: 0, 1, the whole
+    cache and one row less, then each split's first row less one, itself
+    and one more (:func:`split_starts`), then a unit's edges; in turn,
+    clamped to [0, s]."""
+    starts = split_starts(s, n_split, unit)[1:-1]
+    edges = [0, 1, s, s - 1, *(x for st in starts
+                                for x in (st - 1, st, st + 1)),
+             unit - 1, unit, unit + 1]
+    return torch.tensor([min(max(edges[i % len(edges)], 0), s)
+                         for i in range(b)], dtype=torch.int32)
 
 
 def max_err_within(a, b, tol: float, what: str) -> float:
@@ -313,31 +338,51 @@ def max_err_within(a, b, tol: float, what: str) -> float:
 
 def check_decode_attn(device, full) -> float:
     """The ``decode_attn`` kernel against ``decode_attn_ref`` on the same
-    tensors, and against the CPU, in float32 and bfloat16 at ``full``
-    ``(b, h, hkv, d, s)`` (the serve step's cache, every row full but a
-    length-0 one), at :data:`DECODE_ATTN_SHAPES` with random lengths, and
-    on a strided cache view, within :data:`DECODE_ATTN_TOL`."""
+    tensors, and against the CPU, in float32 and bfloat16, within
+    :data:`DECODE_ATTN_TOL`: at ``full`` ``(b, h, hkv, d, s)`` (the serve
+    step's cache) with every row full but a length-0 one, and with
+    :func:`split_edge_lengths`; at :data:`DECODE_ATTN_SHAPES` and
+    :data:`DECODE_ATTN_HEADS` with random lengths; on a strided cache
+    view that keeps 16-byte rows, and on one that does not.  Each call
+    must launch the instance that :func:`plan_for` names: the generic
+    one for the unaligned view and float32 at D 256, a fast one
+    elsewhere."""
     dev = torch.device(device)
     gen = torch.Generator(dev).manual_seed(6)
     err = 0.0
-    cases = [(full, "full"), *((s, "ragged") for s in DECODE_ATTN_SHAPES),
-             ((3, 8, 2, 32, 70), "strided")]
+    cases = [(full, "full"), (full, "edges"),
+             *((s, "ragged") for s in DECODE_ATTN_SHAPES + DECODE_ATTN_HEADS),
+             ((3, 8, 2, 32, 70), "strided"), ((3, 8, 2, 32, 70), "unaligned")]
     for dtype, tol in DECODE_ATTN_TOL.items():
         for (b, h, hkv, d, s), kind in cases:
             q = torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
-            width = d + 16 if kind == "strided" else d
+            width = {"strided": d + 16, "unaligned": d + 1}.get(kind, d)
             k, v = (torch.randn((b, s, hkv, width), generator=gen,
                                 device=dev).to(dtype)[..., :d]
                     for _ in range(2))
             lengths = torch.randint(1, s + 1, (b,), generator=gen,
                                     device=dev, dtype=torch.int32)
+            how = plan_for(q, k, v, hkv)
             if kind == "full":
                 lengths.fill_(s)
+            elif kind == "edges":
+                lengths = split_edge_lengths(
+                    b, s, how.n_split, SUB_ROWS * warps(dtype, d)).to(dev)
             lengths[0] = 0 if kind != "ragged" else lengths[0]
             what = f"decode_attn {dtype} {(b, h, hkv, d, s)} {kind}"
+            wide_f32 = dtype == torch.float32 and d > 128
+            if (how.instance == "generic") != (kind == "unaligned"
+                                               or wide_f32):
+                raise AssertionError(f"{what}: planned {how}")
+            generic = decode_attention.generic_launches
             out = _counted(lambda: decode_attention(q, k, v, lengths,
                                                     num_kv_heads=hkv),
                            decode_attention, q, what)
+            want = int(q.is_cuda and how.instance == "generic")
+            rose = decode_attention.generic_launches - generic
+            if rose != want:
+                raise AssertionError(f"{what}: planned {how.instance}, "
+                                     f"generic launches rose by {rose}")
             g = h // hkv
             plain = decode_attn_ref(q.reshape(b, hkv, g, d), k.transpose(1, 2),
                                     v.transpose(1, 2), lengths,
@@ -350,5 +395,6 @@ def check_decode_attn(device, full) -> float:
             if dev.type == "cuda":
                 cpu = decode_attention(q.cpu(), k.cpu(), v.cpu(),
                                        lengths.cpu(), num_kv_heads=hkv)
-                err = max(err, max_err_within(out, cpu, tol, f"{what} card vs CPU"))
+                err = max(err, max_err_within(out, cpu, tol,
+                                              f"{what} card vs CPU"))
     return err

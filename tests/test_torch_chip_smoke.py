@@ -144,3 +144,21 @@ def test_serve_sizes_are_yi_6b_at_full_width(smoke):
     small = mod.serve_config(mod.SERVE_SMALL)
     assert (small.n_layers, small.d_model, small.compute_dtype) == \
         (2, 4096, torch.float32)
+
+
+@pytest.mark.parametrize("event,want", [
+    ("void (anonymous namespace)::decode_attn_bf16_kernel<128, 1>("
+     "(anonymous namespace)::Args)", "decode_attn_bf16_kernel"),
+    ("void (anonymous namespace)::window_reduce_kernel(float const*, "
+     "float*, int)", "window_reduce_kernel"),
+    ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float, "
+     "at::native::ArgMaxOps<float>, unsigned int, long, 4> >("
+     "at::native::ReduceOp<float, at::native::ArgMaxOps<float>, unsigned "
+     "int, long, 4>)", "reduce_kernel"),
+    ("nvjet_tst_128x64_64x8_1x2_h_bz_TNT", "nvjet_tst_128x64_64x8_1x2_h_bz_TNT"),
+])
+def test_timed_matches_kernels_by_function_name(smoke, event, want):
+    """``_timed`` picks a call's kernels by the start of their function
+    name, read out of the trace's demangled names."""
+    assert smoke._base_name(event) == want
+    assert smoke._base_name(event).startswith(want[:8])

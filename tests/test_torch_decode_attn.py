@@ -127,7 +127,7 @@ def test_check_decode_attn_runs_on_the_cpu_and_catches_errors(monkeypatch):
         out = decode_attention(q, k, v, lengths, num_kv_heads=num_kv_heads)
         out[-1, 0, 0] += 0.1
         return out
-    off.launches = 0
+    off.launches = off.generic_launches = 0
     monkeypatch.setattr(checks, "decode_attention", off)
     with pytest.raises(AssertionError, match="differ by more than"):
         checks.check_decode_attn("cpu", (2, 8, 2, 32, 64))
@@ -135,7 +135,109 @@ def test_check_decode_attn_runs_on_the_cpu_and_catches_errors(monkeypatch):
     def nonzero(q, k, v, lengths, *, num_kv_heads):
         return decode_attention(q, k, v, lengths.clamp(min=1),
                                 num_kv_heads=num_kv_heads)
-    nonzero.launches = 0
+    nonzero.launches = nonzero.generic_launches = 0
     monkeypatch.setattr(checks, "decode_attention", nonzero)
     with pytest.raises(AssertionError, match="length-0 row"):
         checks.check_decode_attn("cpu", (2, 8, 2, 32, 64))
+
+
+# ---- the kernel's launch plan (a pure function of shapes, strides and
+# dtype; the card runs what it names) ---------------------------------------
+
+def _strides(b, s, hkv, width):
+    return (s * hkv * width, hkv * width, width)
+
+
+@pytest.mark.parametrize("case,args,want", [
+    ("yi_6b serve", (16, 32, 4, 128, 1088, torch.bfloat16), ("bf16_d128", 2)),
+    ("musicgen G 1, 512 blocks", (16, 32, 32, 64, 1088, torch.bfloat16),
+     ("bf16_d64", 1)),
+    ("yi_6b float32, short cache", (4, 32, 4, 128, 40, torch.float32),
+     ("f32_d128", 1)),
+    ("smoke D 16", (2, 4, 2, 16, 7, torch.bfloat16), ("bf16_d16", 1)),
+    ("one unit", (1, 8, 1, 64, 64, torch.bfloat16), ("bf16_d64", 1)),
+    ("a unit and one row", (1, 8, 1, 64, 65, torch.float32), ("f32_d64", 2)),
+    ("G 16, D 256", (1, 16, 1, 256, 300, torch.bfloat16), ("bf16_d256", 4)),
+    ("a long cache, one head", (1, 8, 1, 128, 4096, torch.bfloat16),
+     ("bf16_d128", 8)),
+    ("a full wave of heads", (512, 8, 1, 128, 4096, torch.bfloat16),
+     ("bf16_d128", 1)),
+    ("G 17", (1, 17, 1, 64, 300, torch.bfloat16), ("generic", 1)),
+    ("D 48", (1, 8, 2, 48, 300, torch.bfloat16), ("generic", 1)),
+    ("float32 D 256", (1, 8, 2, 256, 300, torch.float32), ("generic", 1)),
+])
+def test_plan_picks_the_instance(case, args, want):
+    from repro_torch.kernels.decode_attn.ops import Plan, plan
+    b, h, hkv, d, s, dtype = args
+    st = _strides(b, s, hkv, d)
+    assert plan(b, h, hkv, d, s, st, st, dtype) == Plan(*want)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plan_takes_the_generic_instance_for_unaligned_caches(dtype):
+    """A view whose rows are not 16 bytes apart, or whose base is not
+    16-byte aligned, goes to the generic instance; a padded view whose
+    rows stay aligned keeps the fast one."""
+    from repro_torch.kernels.decode_attn.ops import plan, plan_for
+    tdt = DTYPES[dtype][1]
+    q = torch.zeros((3, 8, 32), dtype=tdt)
+    for width, instance in ((33, "generic"), (48, None)):
+        wide = torch.zeros((3, 70, 2, width), dtype=tdt)
+        got = plan_for(q, wide[..., :32], wide[..., :32], 2)
+        assert got.instance == (instance or plan(
+            3, 8, 2, 32, 70, _strides(3, 70, 2, 32),
+            _strides(3, 70, 2, 32), tdt).instance)
+    st = _strides(3, 70, 2, 32)
+    assert plan(3, 8, 2, 32, 70, st, st, tdt, aligned=False).instance \
+        == "generic"
+    flat = torch.zeros(3 * 70 * 2 * 32 + 1, dtype=tdt)
+    shifted = flat[1:].view(3, 70, 2, 32)          # base one element off
+    assert plan_for(q, shifted, shifted, 2).instance == "generic"
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "yi_34b", "qwen2_72b",
+                                  "nemotron_4_15b", "qwen2_vl_7b",
+                                  "musicgen_large"])
+def test_plan_gives_every_dense_config_a_fast_instance(arch):
+    """The serve path's head shapes at every ported configuration, with
+    the cache ``init_cache`` makes, take a fast instance in bf16."""
+    from repro_torch import configs
+    from repro_torch.kernels.decode_attn.ops import plan
+    cfg = configs.get_config(arch)
+    b, s = 16, 1088
+    st = _strides(b, s, cfg.n_kv_heads, cfg.d_head)
+    got = plan(b, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, s, st, st,
+               torch.bfloat16)
+    assert got.instance == f"bf16_d{cfg.d_head}"
+    units = -(-s // (16 * 8))
+    assert got.n_split == max(1, min(units, 8, 132 // (b * cfg.n_kv_heads)))
+
+
+def test_plan_never_reads_lengths():
+    """The plan's inputs are shapes, strides, dtype and alignment: no
+    lengths, so the wrapper never reads a device value back."""
+    import inspect
+    from repro_torch.kernels.decode_attn import ops
+    for fn in (ops.plan, ops.plan_for):
+        assert "lengths" not in inspect.signature(fn).parameters
+
+
+def test_splits_share_the_units_evenly():
+    from repro_torch.kernels.decode_attn.ops import split_starts
+    assert split_starts(1088, 2, 128) == [0, 512, 1088]
+    assert split_starts(1088, 6, 64) == [0, 128, 320, 512, 704, 896, 1088]
+    assert split_starts(65, 2, 64) == [0, 64, 65]
+    for s, n, unit in ((1088, 8, 128), (300, 5, 64), (4096, 3, 128),
+                       (100, 1, 64)):
+        starts = split_starts(s, n, unit)
+        assert starts[0] == 0 and starts[-1] == s
+        assert all(a < b for a, b in zip(starts, starts[1:]))   # none empty
+        sizes = [b - a for a, b in zip(starts[:-1], starts[1:-1])]
+        assert max(sizes, default=0) - min(sizes, default=0) <= unit
+
+
+def test_split_edge_lengths_hit_the_split_edges():
+    from repro_torch.kernels.checks import split_edge_lengths
+    got = split_edge_lengths(16, 1088, 2, 128).tolist()
+    assert got[:10] == [0, 1, 1088, 1087, 511, 512, 513, 127, 128, 129]
+    assert split_edge_lengths(3, 64, 1, 64).tolist() == [0, 1, 64]
