@@ -14,12 +14,14 @@ Phases, in order; any failure raises and the exit code is not 0:
    with NaN rows and all-invalid windows; hilbert bitwise at the routing
    step's 65,536 points and ragged batches at orders 1 to 16; armatch
    bitwise at the AR data plane's two calls and ragged shapes, with
-   every vkind on both sides; decode_attn within 1e-5 (float32) and
-   2.5e-2 (bfloat16) at the Yi-6B serve step's full cache, with lengths
-   on its split edges, the reference's five test shapes, the configs'
-   other head shapes (G 1, 6, 7; D 16, 64, 128), a strided cache, an
-   unaligned one (the generic instance) and length-0 rows, each call
-   launching the instance its plan names;
+   every vkind on both sides, the instance its plan names against the
+   simple instance (and the wide one against the narrow one);
+   decode_attn within 1e-5 (float32) and 2.5e-2 (bfloat16) at the
+   Yi-6B serve step's full cache, with lengths on its split edges, the
+   reference's five test shapes, the configs' other head shapes (G 1,
+   6, 7; D 16, 64, 128), a strided cache, an unaligned one (the
+   generic instance) and length-0 rows, each call launching the
+   instance its plan names;
 3. drive the single-device stream tick at full width -- D = 16 features,
    W = 64, S = 32, 65,536 rows a tick, a 2^22-row ring, the two rules
    and the tanh(h @ p) x8 core stand-in of ``benchmarks/streaming.py``
@@ -33,9 +35,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    steps posts 65,536 messages (Hilbert index, owner rank, bucketing,
    store of what this RP receives), matches them against 1,024
    standing interests, runs 32 associative queries over the shard and
-   one registry lookup; both AR kernels must have launched, and the
-   same composition at a reduced size must give bitwise the same
-   outputs on the card and on the CPU.  Then serving: Yi-6B at full
+   one registry lookup; both AR kernels must have launched (armatch
+   never its simple instance), and the same composition at a reduced
+   size must give bitwise the same outputs on the card and on the
+   CPU.  Then serving: Yi-6B at full
    width and depth (32 layers, d_model 4,096, GQA 32/4 heads of 128,
    float32 params, bfloat16 compute, seeded random weights) resolved
    through the AR function registry, 16 requests of 1,024 prompt ids
@@ -52,7 +55,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    CUDA events -- beside its plain version, a one-call PyTorch yardstick
    where there is one, and the least time the card could take;
    decode_attn also after a read that empties L2, as a decode step's
-   layer finds its cache;
+   layer finds its cache; armatch beside its simple instance;
 5. profile a few ticks of each stream path, a few AR steps and a few
    decode steps with ``torch.profiler``: the device's busy share and
    the top device ops.
@@ -154,6 +157,18 @@ def _base_name(event_name: str) -> str:
 #: the cold-cache flush's own kernel (an argmax over a 192 MB buffer,
 #: an op no timed function runs), left out of every device sum
 FLUSH_OP = "ArgMaxOps"
+#: seconds a capture waits after its tracer starts and before it stops:
+#: without it, a capture that follows one of thousands of ops has traced
+#: 8 of 10 kernels launched at once (H100, armatch's simple instance)
+SETTLE_S = 0.05
+
+
+def _settle() -> None:
+    """A synchronized throw-away op (an argmax, left out of the sums
+    like the flush), then a pause, so that the device tracer is up."""
+    torch.zeros(1, device="cuda").argmax()
+    torch.cuda.synchronize()
+    time.sleep(SETTLE_S)
 
 
 def _timed(fn, reps: int, tag: str, kernel: str | None = None,
@@ -176,6 +191,7 @@ def _timed(fn, reps: int, tag: str, kernel: str | None = None,
         torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _settle()
         start.record()
         for _ in range(reps):
             if flush is not None:
@@ -183,6 +199,7 @@ def _timed(fn, reps: int, tag: str, kernel: str | None = None,
             fn()
         stop.record()
         torch.cuda.synchronize()
+        time.sleep(SETTLE_S)
     events = [e for e in _device_events(prof, tag)
               if FLUSH_OP not in e["name"]]
     wall_ms = 0.0 if flush is not None else start.elapsed_time(stop) / reps
@@ -211,6 +228,7 @@ def zero_launches() -> None:
     for w in _wrappers().values():
         w.launches = 0
     _wrappers()["decode_attn"].generic_launches = 0
+    _wrappers()["armatch"].simple_launches = 0
 
 
 def read_launches() -> dict:
@@ -569,6 +587,9 @@ def run_ar(sz: ARSizes, device) -> dict:
     for name in ("hilbert", "armatch"):
         if launches[name] == 0:
             _fail(f"AR path launched no {name} kernel")
+    simple = _wrappers()["armatch"].simple_launches
+    if simple:
+        _fail(f"AR path launched the simple armatch instance {simple} times")
     t = torch.stack(tallies).cpu()
     notify_sum, posted, kept, min_hits = t.T
     pairs = sz.n * sz.interests
@@ -898,9 +919,11 @@ def time_kernels(sz: Sizes, device, results, errs):
 def time_ar_kernels(sz: ARSizes, device, ar: dict, errs: dict) -> list:
     """hilbert at the routing step's call (the pool's points, order 16)
     and armatch at its two calls: the notify match and one query
-    against the shard's log."""
+    against the shard's log, each through the instance its plan names,
+    beside the simple instance in the same run."""
     from repro_torch.core import sfc
     from repro_torch.kernels.armatch import armatch, armatch_ref
+    from repro_torch.kernels.armatch.ops import plan as armatch_plan
     from repro_torch.kernels.hilbert import hilbert_xy2d, hilbert_xy2d_ref
     plane, steps = ar["plane"], sz.steps
     x, y = sfc.profile_point(plane.pool)
@@ -922,20 +945,28 @@ def time_ar_kernels(sz: ARSizes, device, ar: dict, errs: dict) -> list:
             ("notify", plane.pool, plane.interests, 10, 1, 1),
             ("query", log_keys, query, 50, 3, len(plane.queries))):
         m, n = data.shape[0], ints.shape[0]
-        rec = dict(
-            ms=_timed(lambda: armatch(data, ints), reps, f"armatch_{tag}",
-                      kernel="armatch_kernel"),
-            plain_ms=_timed(lambda: armatch_ref(data, ints), plain_reps,
-                            f"armatch_{tag}_plain"),
-            library_ms=None)
+        rec = dict(ms=_timed(lambda: armatch(data, ints), reps,
+                             f"armatch_{tag}", kernel="armatch_kernel"),
+                   library_ms=None)
+        simple_ms = _timed(lambda: armatch(data, ints, instance="simple"),
+                           reps, f"armatch_{tag}_simple",
+                           kernel="armatch_kernel_simple")
+        rec["plain_ms"] = _timed(lambda: armatch_ref(data, ints), plain_reps,
+                                 f"armatch_{tag}_plain")
         nbytes = 4 * 128 * (m + n) + 4 * m * n
         ops = armatch_ops(data, ints)
         bound_ms, bound_by = _bound(nbytes, ops, PEAK_INT32_OPS_S)
-        print(f"armatch {tag} [{m} x {n}]: {_us(rec['ms'])}, plain "
-              f"{_us(rec['plain_ms'])}, bound {bound_ms * 1e3:.3f} us "
-              f"({bound_by}: {nbytes} bytes, {ops} operations, "
-              f"{ops / (m * n):.1f} a pair), {a_step} a step")
-        shapes.append({"call": tag, "shape": [m, n], "ms": rec["ms"][0],
+        ms, how = rec["ms"][0], armatch_plan(m, n)
+        rate = (f"{nbytes / ms / 1e6:.1f} GB/s" if bound_by == "bytes"
+                else f"{ops / ms / 1e6:.1f} Gop/s")
+        print(f"armatch {tag} [{m} x {n}]: instance {how}, {_us(rec['ms'])}"
+              f" = {rate}, {bound_ms / ms:.4f} of the bound "
+              f"{bound_ms * 1e3:.3f} us ({bound_by}: {nbytes} bytes, {ops} "
+              f"operations, {ops / (m * n):.1f} a pair); simple instance "
+              f"{_us(simple_ms)} ({simple_ms[0] / ms:.2f}x); plain "
+              f"{_us(rec['plain_ms'])}; {a_step} a step")
+        shapes.append({"call": tag, "shape": [m, n], "instance": how,
+                       "ms": ms, "simple_ms": simple_ms[0],
                        "plain_ms": rec["plain_ms"][0], "bound_ms": bound_ms,
                        "bound_by": bound_by, "launches_a_step": a_step})
         if tag == "notify":
@@ -1076,14 +1107,15 @@ def profile_ticks(sz: Sizes, device, ticks=8) -> None:
 
 
 def profile_ar(sz: ARSizes, ar: dict, steps=8) -> None:
-    """Where an AR step's time goes, over ``steps`` more steps."""
+    """Where an AR step's time goes, over ``steps`` more steps, and
+    armatch's device time a step."""
     plane = ar["plane"]
     feed = [ar_feed(sz, 2000 + i, plane) for i in range(steps)]
     box = [ar["shard"]]
 
     def step(i):
         box[0], _ = ar_step(plane, box[0], *feed[i], ar["me"])
-    _profile("ar", steps, "step", step)
+    _profile("ar", steps, "step", step, kernel="armatch_kernel")
 
 
 def profile_serve(sv: dict, steps=8) -> None:

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.core import profiles as P
 from repro_torch.kernels.armatch import armatch, armatch_ref
+from repro_torch.kernels.armatch.ops import plan as armatch_plan
 from repro_torch.kernels.decode_attn import decode_attention, decode_attn_ref
 from repro_torch.kernels.decode_attn.ops import (SUB_ROWS, plan_for,
                                                  split_starts, warps)
@@ -159,11 +160,13 @@ _VALUES = [P.pack_keyword(f"value{i}") for i in range(8)]
 
 def random_profiles(rng: np.random.Generator, n: int, *,
                     kinds=range(6), max_slots: int = P.MAX_SLOTS,
-                    wildcard: float = 0.0, bad_vkind: float = 0.0,
+                    min_slots: int = 1, wildcard: float = 0.0,
+                    bad_vkind: float = 0.0,
                     zero_rows: float = 0.0) -> np.ndarray:
     """[n, 128] int32 encoded profiles, built slot-wise with numpy in
     the shapes ``ProfileBuilder`` gives (``tests/test_kernels.py:35-53``)
-    over an 8-word attribute vocabulary: 1 to ``max_slots`` slots, each
+    over an 8-word attribute vocabulary: ``min_slots`` to ``max_slots``
+    slots, each
     of a kind drawn from ``kinds`` -- 0 single attribute (a third of
     them prefixes ``a*`` .. ``attrK*``), 1 EXACT pair, 2 PREFIX pair, 3
     NUM in [-100, 100), 4 RANGE from [-50, 50) spanning up to 100, 5
@@ -173,7 +176,7 @@ def random_profiles(rng: np.random.Generator, n: int, *,
     shape = (n, P.MAX_SLOTS)
     out = np.zeros(shape + (P.SLOT_WIDTH,), np.int32)
     used = np.arange(P.MAX_SLOTS)[None, :] < rng.integers(
-        1, max_slots + 1, n)[:, None]
+        min_slots, max_slots + 1, n)[:, None]
     kind = kinds[rng.integers(0, len(kinds), shape)]
     attr = np.asarray(_ATTRS, np.int32)[rng.integers(0, 8, shape)]
     out[..., P.L_ATTR_A], out[..., P.L_ATTR_B] = attr[..., 0], attr[..., 1]
@@ -217,8 +220,16 @@ def random_profiles(rng: np.random.Generator, n: int, *,
 #: plane uses, single points and ragged tails
 HILBERT_RAGGED = ((1, 1), (2, 2), (255, 8), (257, 12), (1000, 16),
                   (65535, 16))
-#: (m, n) besides the data plane's two shapes
-ARMATCH_RAGGED = ((1, 1), (7, 13), (130, 129), (300, 50))
+#: (m, n) besides the data plane's two shapes: ragged tiles, both sides
+#: of the narrow instance's limit (N 32 and 33, and M 257 and 64, whose
+#: row tiles end early), and ragged interest blocks of the wide one
+ARMATCH_RAGGED = ((1, 1), (7, 13), (130, 129), (300, 50), (1000, 32),
+                  (1000, 33), (257, 1), (64, 1), (129, 130))
+#: (m, n) where both sides use all 8 slots, and half the interests are
+#: copies of data rows (whose slot kinds match themselves), so that an
+#: interest's compacted slot loop runs to its end: the narrow and the
+#: wide instance
+ARMATCH_EIGHT = ((300, 8), (200, 40))
 
 
 def check_hilbert(device, n: int) -> float:
@@ -248,41 +259,67 @@ def check_hilbert(device, n: int) -> float:
     return err
 
 
+def _armatch_inputs(rng, m: int, n: int, kind: str):
+    """[m, 128] data and [n, 128] interests for :func:`check_armatch`."""
+    mixed = dict(wildcard=0.05, bad_vkind=0.02, zero_rows=0.05)
+    if kind == "eight":
+        data = random_profiles(rng, m, kinds=(0, 1, 5), min_slots=8,
+                               **mixed)
+        copies = data[rng.permutation(m)[:n // 2]]
+        return data, np.concatenate([copies, random_profiles(
+            rng, n - len(copies), min_slots=8, **mixed)])
+    data = random_profiles(rng, m, **mixed)
+    # short interests, so that a good share of pairs match; a lone
+    # interest (a query) has one slot of a kind that can match
+    short = dict(max_slots=1, kinds=(0, 1, 2, 4, 5)) if n == 1 \
+        else dict(max_slots=3)
+    return data, random_profiles(rng, n, **short, **mixed)
+
+
 def check_armatch(device, shapes=()) -> float:
     """The ``armatch`` kernel against ``armatch_ref`` at each ``(m, n)``
-    of ``shapes`` (the data plane's) and :data:`ARMATCH_RAGGED`, on
-    profiles with every vkind on both sides (and vkinds outside the
-    codes), prefix and wildcard attributes, negative RANGE bounds and
-    all-zero rows.  On the card the kernel is also held against the CPU
-    (past 2^24 pairs, on as many leading rows)."""
+    of ``shapes`` (the data plane's), :data:`ARMATCH_RAGGED` and
+    :data:`ARMATCH_EIGHT`, on profiles with every vkind on both sides
+    (and vkinds outside the codes), prefix and wildcard attributes,
+    negative RANGE bounds and all-zero rows.  On the card the instance
+    :func:`plan` names is also held against the simple instance, against
+    the wide one where it planned the narrow one, and against the CPU
+    (past 2^24 pairs, on as many leading rows); each call launches once,
+    and only the call that names it the simple instance."""
     dev = torch.device(device)
     rng = np.random.default_rng(5)
     err = 0.0
-    for m, n in (*shapes, *ARMATCH_RAGGED):
-        mixed = dict(wildcard=0.05, bad_vkind=0.02, zero_rows=0.05)
-        data = torch.from_numpy(random_profiles(rng, m, **mixed)).to(dev)
-        # short interests, so that a good share of pairs match; a lone
-        # interest (a query) has one slot of a kind that can match
-        short = dict(max_slots=1, kinds=(0, 1, 2, 4, 5)) if n == 1 \
-            else dict(max_slots=3)
-        ints = torch.from_numpy(random_profiles(rng, n, **short,
-                                                **mixed)).to(dev)
-        k = _counted(lambda: armatch(data, ints), armatch, data,
-                     f"armatch {m}x{n}")
+    cases = [*((m, n, "mixed") for m, n in (*shapes, *ARMATCH_RAGGED)),
+             *((m, n, "eight") for m, n in ARMATCH_EIGHT)]
+    for m, n, kind in cases:
+        data, ints = (torch.from_numpy(a).to(dev)
+                      for a in _armatch_inputs(rng, m, n, kind))
+        what = f"armatch {m}x{n} {kind}"
+        simple = getattr(armatch, "simple_launches", 0)
+        k = _counted(lambda: armatch(data, ints), armatch, data, what)
         p = armatch_ref(data, ints)
-        assert_bitwise(k, p, f"armatch kernel {m}x{n}")
+        assert_bitwise(k, p, f"{what}: kernel")
         err = max(err, max_int_err(k, p))
         if dev.type == "cuda":
+            how = armatch_plan(m, n)
+            others = ("simple", "wide") if how == "narrow" else ("simple",)
+            for other in others:
+                o = _counted(lambda: armatch(data, ints, instance=other),
+                             armatch, data, f"{what} {other}")
+                assert_bitwise(o, k, f"{what}: {other} vs {how} instance")
+            if armatch.simple_launches != simple + 1:
+                raise AssertionError(f"{what}: the simple instance launched "
+                                     f"{armatch.simple_launches - simple} "
+                                     "times, want once (by name)")
             # the CPU takes about a minute for the notify match's 2^26
             # pairs, so there it holds the first rows only
             rows = m if m * n <= 1 << 24 else (1 << 24) // n
             c = armatch(data[:rows].cpu(), ints.cpu())
-            assert_bitwise(k[:rows], c,
-                           f"armatch {m}x{n} card vs CPU, {rows} rows")
+            assert_bitwise(k[:rows], c, f"{what}: card vs CPU, {rows} rows")
             err = max(err, max_int_err(k[:rows], c))
         if m * n >= 4096 and not 0 < int(k.sum()) < m * n:
-            raise AssertionError(f"armatch {m}x{n}: {int(k.sum())} matches, "
-                                 "the inputs test nothing")
+            raise AssertionError(f"{what}: {int(k.sum())} matches, the "
+                                 "inputs test nothing")
     return err
 
 
