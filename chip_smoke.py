@@ -10,9 +10,13 @@ Phases, in order; any failure raises and the exit code is not 0:
    once) and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card and
    against the CPU: window_reduce and fused_tick bitwise (NaN matches
-   NaN) at the stream tick's full-width shapes and ragged small ones,
-   with NaN rows and all-invalid windows; hilbert bitwise at the routing
-   step's 65,536 points and ragged batches at orders 1 to 16; armatch
+   NaN) at the stream tick's full-width shapes (window_reduce's
+   ``[T x 16]`` block and ``[T x 1]`` column, fused_tick's ``[T x 18]``
+   block), an unaligned view of each (a column, ``seq[1:]``) and ragged
+   small ones, with NaN rows and all-invalid windows, the instance the
+   plan names (span) against the simple one too; hilbert bitwise at the
+   routing step's 65,536 points and ragged batches at orders 1 to 16;
+   armatch
    bitwise at the AR data plane's two calls and ragged shapes, with
    every vkind on both sides, the instance its plan names against the
    simple instance (and the wide one against the narrow one);
@@ -27,7 +31,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    and the tanh(h @ p) x8 core stand-in of ``benchmarks/streaming.py``
    -- for 64 ticks on the staged path and 64 on the fused path; staged
    and fused must agree bitwise, the first ticks must match the same
-   executor on the CPU, and each path must have launched its kernel;
+   executor on the CPU, and each path must have launched its kernel
+   (never a simple instance);
    then an admission run (dedupe window of 131,072, a finite contract,
    one redelivered tick) must conserve every offered row and dedupe the
    redelivery whole.  Then the AR data plane at full width: the card is
@@ -55,7 +60,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    CUDA events -- beside its plain version, a one-call PyTorch yardstick
    where there is one, and the least time the card could take;
    decode_attn also after a read that empties L2, as a decode step's
-   layer finds its cache; armatch beside its simple instance;
+   layer finds its cache; window_reduce at each of the staged tick's
+   five calls, fused_tick, and armatch beside their simple instances;
 5. profile a few ticks of each stream path, a few AR steps and a few
    decode steps with ``torch.profiler``: the device's busy share and
    the top device ops.
@@ -224,11 +230,21 @@ def _wrappers() -> dict:
             "decode_attn": decode_attention}
 
 
+#: the wrappers whose first-port kernel stays as a ``simple`` instance,
+#: reached only by name and counted by ``<wrapper>.simple_launches``
+SIMPLE = ("window_reduce", "fused_tick", "armatch")
+
+
 def zero_launches() -> None:
     for w in _wrappers().values():
         w.launches = 0
     _wrappers()["decode_attn"].generic_launches = 0
-    _wrappers()["armatch"].simple_launches = 0
+    for name in SIMPLE:
+        _wrappers()[name].simple_launches = 0
+
+
+def read_simple() -> dict:
+    return {name: _wrappers()[name].simple_launches for name in SIMPLE}
 
 
 def read_launches() -> dict:
@@ -317,11 +333,13 @@ def run_paths(sz: Sizes, device, bitwise, close):
         zero_launches()
         state, secs, outs, snap = drive(ex, state, sz, device, sz.ticks,
                                         keep=True, snap_at=sz.cpu_ticks)
-        launches = read_launches()
+        launches, simple = read_launches(), read_simple()
         results[name] = dict(state=state, secs=secs, outs=outs, snap=snap,
                              launches=launches,
                              metrics=state.metrics.as_dict())
         del ex
+        if any(simple.values()):
+            _fail(f"{name} tick path launched a simple instance: {simple}")
     st, fu = results["staged"], results["fused"]
     if st["launches"]["window_reduce"] == 0:
         _fail("staged path launched no window_reduce kernel")
@@ -838,7 +856,7 @@ def armatch_ops(data: torch.Tensor, interests: torch.Tensor) -> int:
 
 def _us(pair):
     return "none" if pair is None else \
-        f"{pair[0] * 1e3:.2f} us device ({pair[1] * 1e3:.2f} us wall)"
+        f"{pair[0] * 1e3:.4f} us device ({pair[1] * 1e3:.4f} us wall)"
 
 
 def _bound(nbytes: int, ops: int, peak_ops: float) -> tuple[float, str]:
@@ -869,50 +887,98 @@ def _kernel_row(name: str, rec: dict, nbytes: int, ops: int,
             "library_ms": rec["library_ms"] and rec["library_ms"][0]}
 
 
+def _tick_shape(kernel: str, tag: str, fn, nbytes: int, a_tick: int,
+                reps: int = 200) -> dict:
+    """One stream-tick kernel call timed through its planned (span) and
+    its simple instance in the same run, printed beside its byte bound."""
+    ms = _timed(lambda: fn(None), reps, f"{kernel}_{tag}",
+                kernel=f"{kernel}_kernel_span")
+    simple = _timed(lambda: fn("simple"), reps, f"{kernel}_{tag}_simple",
+                    kernel=f"{kernel}_kernel_simple")
+    bound_ms, bound_by = _bound(nbytes, 0, PEAK_F32_OPS_S)
+    print(f"{kernel} {tag}: span instance {_us(ms)} = "
+          f"{nbytes / ms[0] / 1e6:.1f} GB/s, {bound_ms / ms[0]:.4f} of the "
+          f"bound {bound_ms * 1e3:.4f} us ({bound_by}: {nbytes} bytes); "
+          f"simple instance {_us(simple)} ({simple[0] / ms[0]:.2f}x); "
+          f"{a_tick} a tick")
+    return {"call": tag, "instance": "span", "ms": ms[0],
+            "wall_ms": ms[1], "simple_ms": simple[0], "bound_ms": bound_ms,
+            "bound_by": bound_by, "launches_a_tick": a_tick}
+
+
 def time_kernels(sz: Sizes, device, results, errs):
+    """window_reduce at each of the staged tick's five calls and
+    fused_tick at the fused tick's call, each through the instance its
+    plan names beside the simple instance in the same run; the kernels
+    line's times are the ``[T x D]`` call's (window_reduce) and the
+    fused call's, beside the plain version and, for window_reduce,
+    ``avg_pool1d`` on the same block."""
     from repro_torch.core import rules as R
     from repro_torch.kernels.fused_tick import fused_tick, fused_tick_ref
     from repro_torch.kernels.window_reduce import (sliding_reduce,
                                                    sliding_reduce_ref)
     t = sz.batch + sz.window - sz.stride        # carry + one micro-batch
     nw = sz.batch // sz.stride
+    w, s = sz.window, sz.stride
     gen = torch.Generator(device).manual_seed(3)
-    # window_reduce at the staged tick's mean-aggregate call: [T, D]
+    # window_reduce at the staged tick's calls: the mean aggregate over
+    # the [T, D] features, the signal column's sum, max and min
+    # (window_features) and the wall column's min (the lineage birth)
     xp = torch.randn((t, sz.d), generator=gen, device=device)
+    sig = torch.randn((t, 1), generator=gen, device=device)
+    wall = torch.rand((t, 1), generator=gen, device=device) * 1e3
+    calls = ((f"[{t} x {sz.d}] sum (mean)", xp, "sum"),
+             (f"[{t} x 1] sum (signal)", sig, "sum"),
+             (f"[{t} x 1] max (signal)", sig, "max"),
+             (f"[{t} x 1] min (signal)", sig, "min"),
+             (f"[{t} x 1] min (wall)", wall, "min"))
+    a_tick = results["staged"]["launches"]["window_reduce"] // sz.ticks \
+        // len(calls)
+    shapes = []
+    for tag, x, op in calls:
+        shapes.append(_tick_shape(
+            "window_reduce", tag,
+            lambda how, x=x, op=op: sliding_reduce(x, w, s, nw, op,
+                                                   instance=how),
+            4 * (t * x.shape[1] + nw * x.shape[1]), a_tick))
     xcl = xp.t().contiguous()[None]             # [1, D, T] for the pools
     wr = dict(
-        ms=_timed(lambda: sliding_reduce(xp, sz.window, sz.stride, nw, "sum"),
-                  200, "window_reduce", kernel="window_reduce_kernel"),
-        plain_ms=_timed(lambda: sliding_reduce_ref(
-            xp, sz.window, sz.stride, nw, "sum"), 20, "window_reduce_plain"),
+        ms=(shapes[0]["ms"], shapes[0]["wall_ms"]),
+        plain_ms=_timed(lambda: sliding_reduce_ref(xp, w, s, nw, "sum"), 20,
+                        "window_reduce_plain"),
         library_ms=_timed(lambda: torch.nn.functional.avg_pool1d(
-            xcl, sz.window, sz.stride), 200, "avg_pool1d"))
+            xcl, w, s), 200, "avg_pool1d"))
     wr_bytes = 4 * (t * sz.d + nw * sz.d)
-    wr_ops = nw * sz.d * (sz.window - 1)
+    wr_ops = nw * sz.d * (w - 1)
     # fused_tick at the fused tick's call: [T, 2 + D] rows + [T] mask
     seq = torch.cat([torch.arange(t, dtype=torch.float32, device=device)
                      [:, None], torch.randn((t, 1 + sz.d), generator=gen,
                                             device=device)], dim=1)
     valid = torch.rand((t,), generator=gen, device=device) < 0.95
     table = _engine(R).table()
-    ft = dict(
-        ms=_timed(lambda: fused_tick(seq, valid, sz.window, sz.stride,
-                                     table=table), 200, "fused_tick",
-                  kernel="fused_tick_kernel"),
-        plain_ms=_timed(lambda: fused_tick_ref(
-            seq, valid, sz.window, sz.stride, table), 5, "fused_tick_plain"),
-        library_ms=None)
     l = 1 + sz.d                                # columns the kernel reads
     ft_bytes = 4 * t * l + t + 4 * nw * (sz.d + 5 + 3)
-    ft_ops = nw * l * sz.window * 4
+    ft_shape = _tick_shape(
+        "fused_tick", f"[{t} x {2 + sz.d}]",
+        lambda how: fused_tick(seq, valid, w, s, table=table, instance=how),
+        ft_bytes, results["fused"]["launches"]["fused_tick"] // sz.ticks)
+    ft = dict(
+        ms=(ft_shape["ms"], ft_shape["wall_ms"]),
+        plain_ms=_timed(lambda: fused_tick_ref(seq, valid, w, s, table), 5,
+                        "fused_tick_plain"),
+        library_ms=None)
+    ft_ops = nw * l * w * 4
     rows = []
-    for name, rec, nbytes, ops, path in (
-            ("window_reduce", wr, wr_bytes, wr_ops, "staged"),
-            ("fused_tick", ft, ft_bytes, ft_ops, "fused")):
+    for name, rec, nbytes, ops, path, per_shape in (
+            ("window_reduce", wr, wr_bytes, wr_ops, "staged", shapes),
+            ("fused_tick", ft, ft_bytes, ft_ops, "fused", [ft_shape])):
         launches = results[path]["launches"][name]
-        rows.append(_kernel_row(
+        row = _kernel_row(
             name, rec, nbytes, ops, PEAK_F32_OPS_S, launches, errs[name],
-            f"{launches / sz.ticks:g} a tick on the {path} path"))
+            f"{launches / sz.ticks:g} a tick on the {path} path; the row's "
+            f"time is the span instance's at the {per_shape[0]['call']} call")
+        row["shapes"] = per_shape
+        rows.append(row)
     return rows
 
 
@@ -1102,7 +1168,9 @@ def profile_ticks(sz: Sizes, device, ticks=8) -> None:
 
         def tick(i):
             box[0], _ = ex.step(box[0], *feed[i])
-        _profile(f"tick_{name}", ticks, "tick", tick)
+        _profile(f"tick_{name}", ticks, "tick", tick,
+                 kernel="fused_tick_kernel" if fused
+                 else "window_reduce_kernel")
         del ex, state, box
 
 

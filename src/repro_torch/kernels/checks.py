@@ -3,9 +3,12 @@ but for ``decode_attn``, which is held to a stated tolerance.
 
 One copy of the comparisons that ``chip_smoke.py`` (phase 2) and
 ``tests/test_torch_card.py`` run on the card.  The stream-tick checks
-take the full-width block ``(t, d, window, stride)`` of a tick and add
-ragged small shapes; every block carries NaN rows and a run of invalid
-rows long enough to empty whole windows.  The AR checks take the
+take the full-width block ``(t, d, window, stride)`` of a tick (and,
+for window_reduce, the staged tick's ``[t, 1]`` columns), a view of it
+off 16 bytes, and ragged small shapes; every block carries NaN rows and
+a run of invalid rows long enough to empty whole windows, and on the
+card each call of the planned instance is also held against the simple
+one.  The AR checks take the
 routing step's batch (hilbert) and the data plane's two match shapes
 (armatch) and add ragged ones.  The decode check takes the serve
 step's cache shape, with lengths on the split edges, the reference's
@@ -66,8 +69,8 @@ def max_int_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def block(gen, t, d, device, nan_rows=3, dead=(10, 80)):
-    """[T, D] normals with NaN rows and a stretch of invalid rows long
-    enough to empty whole windows."""
+    """[T, D] normals with NaN rows and a stretch of invalid rows (the
+    checks make it long enough to empty whole windows)."""
     x = torch.randn((t, d), generator=gen, device=device)
     x[torch.randint(0, t, (nan_rows,), generator=gen, device=device),
       d // 2] = float("nan")
@@ -87,63 +90,119 @@ def _counted(fn, counter, x: torch.Tensor, what: str):
     return out
 
 
+def _simple_too(fn, counter, x: torch.Tensor, what: str):
+    """On a CUDA tensor, ``fn("simple")`` -- the first port's kernel, by
+    name -- launched once and counted as the simple instance; ``None``
+    on a CPU tensor."""
+    if not x.is_cuda:
+        return None
+    before = counter.simple_launches
+    out = _counted(lambda: fn("simple"), counter, x, f"{what} simple")
+    if counter.simple_launches != before + 1:
+        raise AssertionError(f"{what}: the simple instance launched "
+                             f"{counter.simple_launches - before} times, "
+                             "want once (by name)")
+    return out
+
+
+def _unaligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a contiguous view that starts 4 bytes past a 16-byte
+    boundary (one float into a fresh allocation)."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 def check_window_reduce(device, t, d, window, stride) -> float:
     """The ``window_reduce`` kernel against ``sliding_reduce_ref`` for
-    sum/max/min, and the wrapper's five reducers against the CPU."""
+    sum/max/min, and the wrapper's five reducers against the CPU, at the
+    staged tick's two call shapes -- the ``[t, d]`` feature block and a
+    ``[t, 1]`` column (the signal's sum/max/min and the wall stamp's
+    min) -- at the ragged shapes, and at an unaligned view of the column.
+    On the card the planned (span) instance is also held against the
+    simple one and against the CPU, and only the call that names the
+    simple instance takes it."""
     dev = torch.device(device)
     gen = torch.Generator(dev).manual_seed(1)
     err = 0.0
-    for t, d, w, s, partial in ((t, d, window, stride, False),
-                                *WINDOW_REDUCE_RAGGED):
-        x, valid = block(gen, t, d, dev)
-        if dev.type == "cuda":
+    cases = [(t, d, window, stride, False, False),
+             (t, 1, window, stride, False, False),
+             (t, 1, window, stride, False, True),
+             *((*shape, False) for shape in WINDOW_REDUCE_RAGGED)]
+    for t, d, w, s, partial, off in cases:
+        x, valid = block(gen, t, d, dev, dead=(10, max(80, 10 + 2 * w)))
+        what = f"window_reduce {t}x{d}{' unaligned' if off else ''}"
+        if dev.type == "cuda" and not off:
             for reducer in ("sum", "mean", "max", "min", "count"):
                 got = window_reduce(x, valid, w, s, reducer=reducer,
                                     partial=partial)
                 cpu = window_reduce(x.cpu(), valid.cpu(), w, s,
                                     reducer=reducer, partial=partial)
                 for a, b, name in zip(got, cpu, ("out", "count")):
-                    assert_bitwise(a, b, f"window_reduce {reducer} {t}x{d} "
-                                         f"{name} card vs CPU")
+                    assert_bitwise(a, b, f"{what} {reducer} {name} card vs "
+                                         "CPU")
         nw = -(-t // s) if partial else (t - w) // s + 1
         reach = (nw - 1) * s + w
         for op in ("sum", "max", "min"):
             xf = torch.where(valid[:, None], x, _IDENT[op])
             if reach > t:
                 xf = torch.cat([xf, xf.new_full((reach - t, d), _IDENT[op])])
+            if off:
+                xf = _unaligned(xf)
             k = _counted(lambda: sliding_reduce(xf, w, s, nw, op),
-                         window_reduce, xf, f"window_reduce {op} {t}x{d}")
+                         window_reduce, xf, f"{what} {op}")
             p = sliding_reduce_ref(xf, w, s, nw, op)
-            assert_bitwise(k, p, f"window_reduce kernel {op} {t}x{d}")
+            assert_bitwise(k, p, f"{what} kernel {op}")
             err = max(err, max_abs_err(k, p))
+            o = _simple_too(lambda how: sliding_reduce(xf, w, s, nw, op,
+                                                       instance=how),
+                            window_reduce, xf, f"{what} {op}")
+            if o is not None:
+                assert_bitwise(k, o, f"{what} {op}: span vs simple instance")
+                assert_bitwise(k, sliding_reduce(xf.cpu(), w, s, nw, op),
+                               f"{what} {op}: card vs CPU")
     return err
 
 
 def check_fused_tick(device, t, d, window, stride) -> float:
     """The ``fused_tick`` kernel against ``fused_tick_ref`` (and the
-    CPU) with :data:`TICK_TABLE` and ``min_count`` 1 and 5; ``d`` is the
-    feature count, the block has ``2 + d`` columns."""
+    CPU) with :data:`TICK_TABLE` and ``min_count`` 1 and 5, at the full
+    width block, at an unaligned view of it (``seq[1:]`` of a one row
+    longer block, 72 bytes into its allocation) and at the ragged shapes;
+    ``d`` is the feature count, the block has ``2 + d`` columns.  On the
+    card the planned (span) instance is also held against the simple
+    one, and only the call that names the simple instance takes it."""
     dev = torch.device(device)
     gen = torch.Generator(dev).manual_seed(2)
     err, fired = 0.0, set()
-    for t, d, w, s in ((t, d, window, stride), *FUSED_TICK_RAGGED):
-        x, valid = block(gen, t, d + 1, dev)
-        seq = torch.cat([torch.arange(t, device=dev, dtype=torch.float32)
-                         [:, None], x], dim=1)
+    cases = [(t, d, window, stride, 0), (t, d, window, stride, 1),
+             *((*shape, 0) for shape in FUSED_TICK_RAGGED)]
+    for t, d, w, s, off in cases:
+        x, valid = block(gen, t + off, d + 1, dev,
+                         dead=(10, max(80, 10 + 2 * w)))
+        seq = torch.cat([torch.arange(t + off, device=dev, dtype=torch.float32)
+                         [:, None], x], dim=1)[off:]
+        valid = valid[off:]
+        what = f"fused_tick {t}x{d}{' unaligned' if off else ''}"
         for min_count in (1, 5):
-            k = _counted(lambda: fused_tick(seq, valid, w, s,
-                                            table=TICK_TABLE,
-                                            min_count=min_count),
-                         fused_tick, seq, f"fused_tick {t}x{d}")
+            def call(how=None):
+                return fused_tick(seq, valid, w, s, table=TICK_TABLE,
+                                  min_count=min_count, instance=how)
+            k = _counted(call, fused_tick, seq, what)
             p = fused_tick_ref(seq, valid, w, s, TICK_TABLE,
                                min_count=min_count)
             c = fused_tick(seq.cpu(), valid.cpu(), w, s, table=TICK_TABLE,
                            min_count=min_count)
-            for name, a, b, h in zip(("agg", "wcount", "feats", "w_birth",
-                                      "cons"), k, p, c):
-                assert_bitwise(a, b, f"fused_tick kernel {t}x{d} {name}")
-                assert_bitwise(a, h, f"fused_tick {t}x{d} {name} card vs CPU")
-                err = max(err, max_abs_err(a, b))
+            o = _simple_too(call, fused_tick, seq, what)
+            for i, name in enumerate(("agg", "wcount", "feats", "w_birth",
+                                      "cons")):
+                assert_bitwise(k[i], p[i], f"{what} kernel {name}")
+                assert_bitwise(k[i], c[i], f"{what} {name} card vs CPU")
+                if o is not None:
+                    assert_bitwise(k[i], o[i],
+                                   f"{what} {name}: span vs simple instance")
+                err = max(err, max_abs_err(k[i], p[i]))
             fired.update(torch.unique(k[4]).tolist())
     if len(fired) < 4:
         raise AssertionError(f"fused_tick: consequences {sorted(fired)}, "

@@ -1,8 +1,9 @@
 // Inline PTX for the kernels that stream tiles through shared memory and
 // multiply on the tensor cores (sm_80 and later; built for sm_90a):
-// cp.async 16-byte copies with zero fill, their commit/wait groups,
-// ldmatrix (plain and transposed), movmatrix and the bf16 m16n8k16 MMA
-// with float32 accumulators.
+// cp.async 16-byte copies with zero fill and 4-byte copies, their
+// commit/wait groups, TMA bulk copies and their mbarriers, ldmatrix (plain
+// and transposed), movmatrix, the bf16 m16n8k16 MMA with float32
+// accumulators, and NaN-propagating max/min.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,8 +24,71 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
                "l"(src), "r"(valid ? 16 : 0));
 }
 
+// 4 bytes from global to shared memory (through L1): the ragged edges of
+// a copy whose 16-byte chunks do not line up
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// ---- bulk copies (the Tensor Memory Accelerator, sm_90) ------------------
+
+// an mbarrier in shared memory that completes a phase after `count`
+// arrivals and the transaction bytes they announced
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
+}
+
+// make initialized mbarriers visible to the async proxy (the TMA)
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// order this thread's earlier shared-memory accesses before its later
+// async-proxy (bulk copy) writes to them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// one arrival, announcing `bytes` of bulk copies that complete on `bar`
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// wait until the phase of parity `parity` of `bar` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory by the TMA, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 // wait until at most n of this thread's committed groups are in flight
@@ -83,6 +147,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
   return __bfloat1622float2(h);
+}
+
+// max / min that return NaN when either operand is NaN (as jnp.maximum
+// and torch.maximum do; fmaxf and fminf return the other operand): one
+// instruction, no branch (sm_80 and later)
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;\n" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
 }  // namespace ptx

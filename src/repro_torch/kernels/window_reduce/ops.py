@@ -16,8 +16,12 @@ so neither the tile padding nor the slice has a counterpart here.
 
 Dispatch follows the tensor's device: a CUDA tensor launches
 ``csrc/window_reduce.cu`` (or raises), a CPU tensor takes the plain
-version in ``ref.py``.  ``window_reduce.launches`` counts kernel
-launches.
+version in ``ref.py``.  :func:`plan` sizes the ``span`` instance, which
+stages K windows' rows in shared memory a block (``kernels/span.py``);
+the ``simple`` instance (the first port's kernel) runs only when asked
+for by name, to hold the other against it.  Each call is one launch:
+``window_reduce.launches`` counts them all,
+``window_reduce.simple_launches`` those of the simple instance.
 """
 from __future__ import annotations
 
@@ -25,45 +29,74 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, span
 from repro_torch.kernels.window_reduce.ref import sliding_reduce_ref
 
 F32_MIN = torch.finfo(torch.float32).min
 F32_MAX = torch.finfo(torch.float32).max
 _IDENT = {"sum": 0.0, "max": F32_MIN, "min": F32_MAX}
 _OP_CODE = {"sum": 0, "max": 1, "min": 2}
+#: each instance's code in the launcher's interface
+INSTANCES = {"simple": 0, "span": 1}
+
+
+def plan(d: int, window: int, stride: int, nw: int) -> span.SpanPlan:
+    """The span instance's launch of ``nw`` windows over a contiguous
+    ``[rows, d]`` block: shapes only, cached."""
+    return span.plan(nw, d, d, window, stride, False)
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.library("window_reduce")
     if not lib.window_reduce_f32.argtypes:
+        p, i = ctypes.c_void_p, ctypes.c_int
         lib.window_reduce_f32.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            p, p, ctypes.c_longlong, i, i, i, i, i, i, i, i, i,
+            ctypes.c_longlong, p]
         lib.window_reduce_f32.restype = ctypes.c_int
     return lib
 
 
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def sliding_reduce(xp: torch.Tensor, window: int, stride: int, nw: int,
-                   op: str) -> torch.Tensor:
+                   op: str, *, instance: str | None = None) -> torch.Tensor:
     """[rows, D] identity-filled f32 block -> [nw, D] reductions of the
-    windows starting at 0, S, 2S, ...; the kernel on a CUDA tensor, the
-    plain version on a CPU tensor."""
+    windows starting at 0, S, 2S, ...; the kernel on a CUDA tensor
+    (``instance`` names it in place of the span instance), the plain
+    version on a CPU tensor."""
     rows, d = xp.shape
     if xp.dtype != torch.float32:
         raise TypeError(f"window_reduce takes float32, got {xp.dtype}")
     if rows < (nw - 1) * stride + window:
         raise ValueError(f"block of {rows} rows is short of the last window")
+    if instance is not None and instance not in INSTANCES:
+        raise ValueError(f"window_reduce: instance {instance!r}, want one "
+                         f"of {sorted(INSTANCES)}")
     if not xp.is_cuda:
         return sliding_reduce_ref(xp, window, stride, nw, op)
-    xp = xp.contiguous()
+    return _launch(xp.contiguous(), window, stride, nw, op, instance or "span")
+
+
+def _launch(xp: torch.Tensor, window: int, stride: int, nw: int, op: str,
+            how: str) -> torch.Tensor:
+    d = xp.shape[1]
     out = torch.empty((nw, d), dtype=torch.float32, device=xp.device)
+    if nw * d == 0:
+        return out
+    p = plan(d, window, stride, nw) if how == "span" \
+        else span.SpanPlan(0, 0, 0, 0, 0, 0)
     lib = _lib()
     err = lib.window_reduce_f32(
         xp.data_ptr(), out.data_ptr(), nw, d, window, stride, _OP_CODE[op],
-        torch.cuda.current_stream(xp.device).cuda_stream)
-    build.check(lib, err, "window_reduce launch")
+        INSTANCES[how], p.k, p.tile_rows, p.pad, p.threads, p.smem_bytes,
+        _stream(xp.device))
+    build.check(lib, err, f"window_reduce {how} launch")
     window_reduce.launches += 1
+    if how == "simple":
+        window_reduce.simple_launches += 1
     return out
 
 
@@ -102,3 +135,4 @@ def window_reduce(x: torch.Tensor, valid: torch.Tensor, window: int,
 
 
 window_reduce.launches = 0
+window_reduce.simple_launches = 0

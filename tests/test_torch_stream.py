@@ -172,6 +172,33 @@ def test_run_overlap_equals_direct_and_int8_completes():
                                    rtol=0.05, atol=0.05)
 
 
+def test_int8_stager_is_bitwise_the_jax_stager():
+    """``IngestStager(int8=True)`` quantizes on the host (per-batch
+    amax/127) and dequantizes on the device; the port's delivers bitwise
+    the reference's payloads, stamps and modes: six [256, 16] batches at
+    scales 1e-3 to 1e3, one of them all zeros (scale 1)."""
+    from repro.runtime.overlap import IngestStager as JStager
+    from repro_torch.runtime.overlap import IngestStager as TStager
+    rng = np.random.default_rng(11)
+    feed = [((rng.standard_normal((256, 16)) * scale).astype(np.float32),
+             np.arange(256, dtype=np.float32) + 256 * i, i % 3)
+            for i, scale in enumerate(np.logspace(-3, 3, 6))]
+    feed[2] = (np.zeros((256, 16), np.float32), *feed[2][1:])
+    js, ts = JStager(int8=True), TStager(int8=True, device="cpu")
+    delivered = 0
+    for got_j, got_t in [*((js.stage(*b), ts.stage(*b)) for b in feed),
+                         (js.flush(), ts.flush())]:
+        assert (got_j is None) == (got_t is None)
+        if got_j is None:
+            continue
+        (jx, jts, jmode), (tx, tts, tmode) = got_j, got_t
+        assert_bitwise(tx, np.asarray(jx), "int8 payload")
+        assert_bitwise(tts, np.asarray(jts), "stamps")
+        assert tmode == jmode and tx.dtype == torch.float32
+        delivered += 1
+    assert delivered == len(feed)
+
+
 @pytest.mark.parametrize("fused", [False, True], ids=["staged", "fused"])
 def test_admission_lane_equals_jax(rng, fused):
     """(d): dedupe + contract + a replay tick + a backfill tick, against
