@@ -64,7 +64,19 @@ Phases, in order; any failure raises and the exit code is not 0:
    five calls, fused_tick, and armatch beside their simple instances;
 5. profile a few ticks of each stream path, a few AR steps and a few
    decode steps with ``torch.profiler``: the device's busy share and
-   the top device ops.
+   the top device ops;
+6. the recurrent and MoE families, one model at a time, each freed
+   before the next is built: RecurrentGemma-2B at full width and depth
+   (26 layers, 18 RG-LRU and 8 local attention of 10 query heads on one
+   KV head of 256, bfloat16 compute) served as Yi-6B is, 16 requests of
+   1,024 prompt ids and 64 generated, every attention layer of every
+   step launching decode_attn's ``bf16_d256`` instance, then timed and
+   profiled as in phases 4 and 5; RWKV6-7B at full width and depth and
+   Mixtral-8x7B at full width cut to 8 of its 32 layers (32 would not
+   fit in 80 GB), 16 requests of 64 prompt ids and 32 generated; each
+   family's smoke config in float32 on the card and on the CPU with the
+   same weights (RecurrentGemma's ring cache of 16 rows wraps); and
+   Kimi-K2's full parameter count, on the meta device.
 
 The line before the last is a JSON object of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -123,16 +135,27 @@ def _card_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
-def _device_events(prof, tag: str) -> list[dict]:
+def _device_events(prof, tag: str, after: str | None = None) -> list[dict]:
     """The kernel, memcpy and memset events of a finished
     ``torch.profiler`` capture, read from its Chrome trace (written to
-    ``build/``, git-ignored)."""
+    ``build/``, git-ignored).  With ``after``, only the device events
+    that start after the host entered the ``record_function`` range of
+    that name, less half of :data:`SETTLE_S` (the device and host clocks
+    may disagree; the capture leaves the device idle for ``SETTLE_S``
+    before it enters the range)."""
     path = ROOT / "build" / f"profile_{tag}.json"
     path.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
+    t0 = float("-inf")
+    if after is not None:
+        marks = [e["ts"] for e in events if e.get("name") == after
+                 and e.get("cat") == "user_annotation"]
+        if not marks:
+            _fail(f"{tag}: the trace holds no {after!r} range")
+        t0 = min(marks) - SETTLE_S / 2 * 1e6
     return [e for e in events if "dur" in e and e.get("cat") in
-            ("kernel", "gpu_memcpy", "gpu_memset")]
+            ("kernel", "gpu_memcpy", "gpu_memset") and e["ts"] >= t0]
 
 
 def _prime_profiler(device) -> None:
@@ -177,20 +200,28 @@ def _settle() -> None:
     time.sleep(SETTLE_S)
 
 
+#: the ``record_function`` range around ``_timed``'s loop
+TIMED_RANGE = "chip_smoke_timed_loop"
+
+
 def _timed(fn, reps: int, tag: str, kernel: str | None = None,
            flush=None) -> tuple[float, float]:
     """(device ms, wall ms) a call of ``fn()`` over ``reps`` calls back
-    to back.  Device time sums the device ops the profiler saw, or,
-    given ``kernel``, the traced kernels whose function name starts with
-    it, one a call (the wrapper's other ops are left out): the trace
-    must hold exactly ``reps`` of them.  With
-    ``flush``, ``flush()`` runs before each call (a read of more bytes
-    than L2 holds, so the call finds its inputs in device memory, as a
-    decode step's layer does) and its own kernel is left out of the
-    sums; wall time is then not measured (0).  Otherwise wall time is
-    CUDA events around the loop, which the host's launch rate bounds
-    whenever a call's device work is shorter than its launch."""
-    from torch.profiler import ProfilerActivity, profile
+    to back.  Device time sums the device ops the profiler saw in the
+    loop's range (:data:`TIMED_RANGE`), or, given ``kernel``, the traced
+    kernels whose function name starts with it: the range must hold
+    exactly ``reps`` of them, one a call (the wrapper's other ops are
+    left out).  Given ``kernel``, one call more runs inside the capture
+    before the range, and the device idles :data:`SETTLE_S` after it: a
+    capture that follows millions of untraced launches has missed its
+    first kernel (H100).  With ``flush``, ``flush()`` runs before each
+    call (a read of more bytes than L2 holds, so the call finds its
+    inputs in device memory, as a decode step's layer does) and its own
+    kernel is left out of the sums; wall time is then not measured (0).
+    Otherwise wall time is CUDA events around the loop, which the host's
+    launch rate bounds whenever a call's device work is shorter than its
+    launch."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), \
@@ -198,23 +229,29 @@ def _timed(fn, reps: int, tag: str, kernel: str | None = None,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _settle()
-        start.record()
-        for _ in range(reps):
+        if kernel is not None:
             if flush is not None:
                 flush()
             fn()
-        stop.record()
+            _settle()
+        with record_function(TIMED_RANGE):
+            start.record()
+            for _ in range(reps):
+                if flush is not None:
+                    flush()
+                fn()
+            stop.record()
         torch.cuda.synchronize()
         time.sleep(SETTLE_S)
-    events = [e for e in _device_events(prof, tag)
+    events = [e for e in _device_events(prof, tag, after=TIMED_RANGE)
               if FLUSH_OP not in e["name"]]
-    wall_ms = 0.0 if flush is not None else start.elapsed_time(stop) / reps
     if kernel is not None:
         events = [e for e in events
                   if _base_name(e["name"]).startswith(kernel)]
         if len(events) != reps:
-            _fail(f"{tag}: {len(events)} {kernel}* kernels traced, want "
-                  f"{reps}")
+            _fail(f"{tag}: {len(events)} {kernel}* kernels traced in the "
+                  f"timed loop, want {reps}")
+    wall_ms = 0.0 if flush is not None else start.elapsed_time(stop) / reps
     return sum(e["dur"] for e in events) * 1e-3 / reps, wall_ms
 
 
@@ -673,6 +710,8 @@ class ServeSizes(NamedTuple):
     tokens: int         # ids generated greedily after the prompt
     layers: int | None = None   # None: the configuration's depth
     compute: str = "bfloat16"   # compute_dtype (params stay float32)
+    arch: str = "yi_6b"         # the registry's architecture id
+    smoke: bool = False         # its smoke config, not the full one
 
 
 #: Yi-6B at full width and depth (``src/repro/configs/yi_6b.py``, the
@@ -683,11 +722,33 @@ SERVE_FULL = ServeSizes(requests=16, prompt_len=1024, tokens=64)
 #: compute, small enough for the CPU
 SERVE_SMALL = ServeSizes(requests=4, prompt_len=32, tokens=8, layers=2,
                          compute="float32")
+#: RecurrentGemma-2B at full width and depth
+#: (``src/repro/configs/recurrentgemma_2b.py``), Yi-6B's traffic: its 8
+#: local-attention layers take decode_attn's bf16 D 256 instance
+RG_FULL = ServeSizes(requests=16, prompt_len=1024, tokens=64,
+                     arch="recurrentgemma_2b")
+#: RWKV6-7B at full width and depth (``src/repro/configs/rwkv6_7b.py``);
+#: no attention layer, so no TPU kernel on its path
+RWKV_FULL = ServeSizes(requests=16, prompt_len=64, tokens=32,
+                       arch="rwkv6_7b")
+#: Mixtral-8x7B at full width (``src/repro/configs/mixtral_8x7b.py``),
+#: its depth cut from 32 to 8 layers: all 32 hold more bf16 weights
+#: than one 80 GB card
+MIXTRAL_FULL = ServeSizes(requests=16, prompt_len=64, tokens=32, layers=8,
+                          arch="mixtral_8x7b")
+#: each new family's smoke config in float32, card against CPU: 48
+#: steps, so that RecurrentGemma's ring cache of 16 rows (its smoke
+#: window) wraps twice
+FAMILY_SMALL = {arch: ServeSizes(requests=4, prompt_len=40, tokens=8,
+                                 compute="float32", arch=arch, smoke=True)
+                for arch in ("recurrentgemma_2b", "rwkv6_7b", "mixtral_8x7b")}
 #: the kernel path against the plain (``use_kernel=False``) path at one
 #: late step of the full-width run, both in bfloat16: the attention
-#: outputs may differ by a bf16 ulp (2^-8 relative) in every one of 32
-#: layers, and the logits carry those differences through the rest of
-#: the stack; held as the largest difference over the largest logit
+#: outputs may differ by a bf16 ulp (2^-8 relative) in every attention
+#: layer (32 in Yi-6B), and the logits carry those differences through
+#: the rest of the stack; held as the largest difference over the
+#: largest logit, over the requests whose MoE routing the two steps
+#: share (``late_step``)
 SERVE_KERNEL_VS_PLAIN = 5e-2
 #: the reduced composition, card against CPU, float32: the logits'
 #: largest difference over the largest logit
@@ -695,10 +756,11 @@ SERVE_CARD_VS_CPU = 1e-4
 
 
 def serve_config(sz: ServeSizes):
-    """Yi-6B cut to ``sz``'s depth and compute dtype."""
+    """``sz.arch`` (its full or smoke config) cut to ``sz``'s depth and
+    compute dtype."""
     import dataclasses
     from repro_torch import configs
-    cfg = configs.get_config("yi_6b")
+    cfg = (configs.smoke_config if sz.smoke else configs.get_config)(sz.arch)
     return dataclasses.replace(
         cfg, n_layers=sz.layers or cfg.n_layers,
         compute_dtype=getattr(torch, sz.compute))
@@ -709,14 +771,29 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
+def attn_shape(sz: ServeSizes) -> tuple:
+    """(b, h, hkv, d, s) of the decode_attn call of ``sz``'s serve run
+    with a full cache."""
+    cfg = serve_config(sz)
+    return (sz.requests, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+            sz.prompt_len + sz.tokens)
+
+
+def attn_caches(cfg, caches: list) -> list:
+    """The ``{k, v}`` caches of ``cfg``'s attention layers, in order."""
+    return [c for kind, c in zip(cfg.layer_kinds(), caches)
+            if kind.startswith("attn")]
+
+
 def run_serve(sz: ServeSizes, device) -> dict:
-    """Phase 3's serve run: the port's entry point (``serve.run``) with
-    the launch counts zeroed just before; fails unless every layer of
-    every step launched the decode kernel, the registry's lookup launched
-    armatch, every step's logits were finite and every id is in the
-    vocabulary.  Then, from the final caches, one more step through the
-    kernel and through the plain path must agree within
-    :data:`SERVE_KERNEL_VS_PLAIN`."""
+    """A serve run (phase 3, phase 6): the port's entry point
+    (``serve.run``) with the launch counts zeroed just before; fails
+    unless every attention layer of every step launched the decode
+    kernel (none its generic instance; no launch for a model without
+    attention), the registry's lookup launched armatch, every step's
+    logits were finite and every id is in the vocabulary.  Then, from
+    the final caches, one more step through the kernel and through the
+    plain path must agree within :data:`SERVE_KERNEL_VS_PLAIN`."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     cfg = serve_config(sz)
@@ -730,9 +807,10 @@ def run_serve(sz: ServeSizes, device) -> dict:
     launches = read_launches()
     generic = _wrappers()["decode_attn"].generic_launches
     steps = sz.prompt_len + sz.tokens
-    if launches["decode_attn"] != cfg.n_layers * steps:
+    n_attn = len(attn_caches(cfg, res.caches))
+    if launches["decode_attn"] != n_attn * steps:
         _fail(f"serve: {launches['decode_attn']} decode_attn launches, want "
-              f"{cfg.n_layers} layers x {steps} steps")
+              f"{n_attn} attention layers x {steps} steps")
     if generic:
         _fail(f"serve: {generic} of the decode_attn launches took the "
               "generic instance")
@@ -743,30 +821,108 @@ def run_serve(sz: ServeSizes, device) -> dict:
     if res.tokens.shape != (sz.requests, sz.tokens) or \
             not ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all():
         _fail(f"serve: tokens {res.tokens.shape} outside [0, {cfg.vocab})")
-    late = late_step(cfg, res)
+    instance = None
+    if n_attn:       # every attention layer's cache has the same layout
+        from repro_torch.kernels.decode_attn.ops import plan
+        last = attn_caches(cfg, res.caches)[-1]
+        b, s, hkv, d = last["k"].shape
+        instance = plan(b, cfg.n_heads, hkv, d, s, last["k"].stride(),
+                        last["v"].stride(), last["k"].dtype).instance
+    late, moe, flips = late_step(cfg, res)
     if late > SERVE_KERNEL_VS_PLAIN:
         _fail(f"serve: kernel vs plain path at step {steps + 1}: {late} of "
               f"the largest logit > {SERVE_KERNEL_VS_PLAIN}")
     return dict(cfg=cfg, res=res, launches=launches, late=late,
-                init_s=init_s, steps=steps)
+                init_s=init_s, steps=steps, n_attn=n_attn, flips=flips,
+                instance=instance,
+                overflow=[float(st["overflow_frac"]) for st in moe])
 
 
-def late_step(cfg, res) -> float:
-    """One more decode step from ``res``'s caches, through the kernel and
-    through ``use_kernel=False`` (each on its own copy of the caches):
-    the largest logit difference over the largest logit."""
+def _clone(state):
+    if isinstance(state, list):
+        return [_clone(v) for v in state]
+    if isinstance(state, dict):
+        return {k: _clone(v) for k, v in state.items()}
+    return state.clone()
+
+
+def late_step(cfg, res) -> tuple[float, list, list]:
+    """One more decode step from ``res``'s caches and states, through the
+    kernel and through ``use_kernel=False`` (each on its own copy): the
+    largest logit difference over the largest logit, the kernel step's
+    MoE stats (one dict a MoE layer), and one record for each request
+    whose expert choice differed between the two steps in some MoE layer:
+    the request, the first such layer, its MoE input's largest difference
+    between the steps over the input's largest value, and the router's
+    margin there (the kernel step's k-th less (k+1)-th probability).
+    Those requests are left out of the difference: the two attention
+    paths differ in the last bits, which can flip a near tie of the
+    router's top k, and a flipped choice sends the request through other
+    experts.  Fails unless each flip is such a near tie -- the input
+    agrees within :data:`SERVE_KERNEL_VS_PLAIN`, so no fault confined to
+    the request changed it -- unless no MoE layer of either step dropped
+    a choice while a request is left out (without drops every other
+    request's output depends only on its own choices), and if every
+    request flipped."""
+    from repro_torch.models import moe as M
     from repro_torch.models import transformer as T
     tok = torch.argmax(res.logits, dim=-1).to(torch.int32)[:, None]
-    out = {}
+    experts = [(i, layer.moe) for i, layer in enumerate(res.model.layers)
+               if getattr(layer, "moe", None) is not None]
+    out, seen = {}, {}
     with torch.inference_mode():
         for use_kernel in (True, False):
-            caches = [{k: v.clone() for k, v in c.items()}
-                      for c in res.caches]
-            out[use_kernel], _, _ = T.decode_step(
-                cfg, res.model, tok, caches, res.lengths,
-                use_kernel=use_kernel)
+            rec = seen[use_kernel] = []
+
+            def hook(mod, args, result, rec=rec):
+                h = args[0].reshape(-1, args[0].shape[-1])
+                probs, _, ids = M.route(h[None], mod.p["router"],
+                                        mod.cfg.top_k)
+                rec.append(dict(h=h.float(), probs=probs[0], ids=ids[0],
+                                stats=result[1]))
+            hooks = [m.register_forward_hook(hook) for _, m in experts]
+            caches = _clone(res.caches)
+            try:
+                out[use_kernel], _, _ = T.decode_step(
+                    cfg, res.model, tok, caches, res.lengths,
+                    use_kernel=use_kernel)
+            finally:
+                for hk in hooks:
+                    hk.remove()
             del caches
-    return _rel(out[True], out[False])
+    kern, plain = seen[True], seen[False]
+    flips = []
+    for r in range(tok.shape[0]):
+        j = next((j for j, (a, b) in enumerate(zip(kern, plain))
+                  if not torch.equal(a["ids"][r], b["ids"][r])), None)
+        if j is None:
+            continue
+        a, b = kern[j], plain[j]
+        k = a["ids"].shape[-1]
+        top = torch.sort(a["probs"][r], descending=True).values
+        flips.append(dict(request=r, layer=experts[j][0],
+                          input=_rel(a["h"][r], b["h"][r]),
+                          margin=float(top[k - 1] - top[k])))
+    if len(flips) == tok.shape[0]:
+        _fail("serve: every request's expert choice differs between the "
+              "kernel and the plain step")
+    over = [float(x["stats"]["overflow_frac"]) for x in kern + plain]
+    if flips and any(over):
+        _fail(f"serve: requests {[f['request'] for f in flips]} flipped "
+              f"their expert choice while MoE layers dropped choices "
+              f"(overflow_frac, kernel then plain step, {over}): a flip "
+              "can drop another request's choice")
+    for f in flips:
+        if f["input"] > SERVE_KERNEL_VS_PLAIN:
+            _fail(f"serve: request {f['request']}'s expert choice flipped "
+                  f"at layer {f['layer']}, whose MoE input differs by "
+                  f"{f['input']} of its largest between the kernel and "
+                  f"the plain step (> {SERVE_KERNEL_VS_PLAIN}): not a near "
+                  "tie of the router")
+    same = torch.ones(tok.shape[0], dtype=torch.bool, device=tok.device)
+    same[[f["request"] for f in flips]] = False
+    return (_rel(out[True][same], out[False][same]),
+            [x["stats"] for x in kern], flips)
 
 
 def run_serve_card_vs_cpu(sz: ServeSizes, device) -> dict:
@@ -888,31 +1044,46 @@ def _kernel_row(name: str, rec: dict, nbytes: int, ops: int,
 
 
 def _tick_shape(kernel: str, tag: str, fn, nbytes: int, a_tick: int,
-                reps: int = 200) -> dict:
+                reps: int = 200, plain=None, library=None) -> dict:
     """One stream-tick kernel call timed through its planned (span) and
-    its simple instance in the same run, printed beside its byte bound."""
+    its simple instance in the same run, printed beside its byte bound;
+    given ``plain`` and ``library`` (callables, ``None`` for a library
+    call where no single PyTorch call computes the function), also the
+    plain version's and the library call's times on the same input."""
     ms = _timed(lambda: fn(None), reps, f"{kernel}_{tag}",
                 kernel=f"{kernel}_kernel_span")
     simple = _timed(lambda: fn("simple"), reps, f"{kernel}_{tag}_simple",
                     kernel=f"{kernel}_kernel_simple")
     bound_ms, bound_by = _bound(nbytes, 0, PEAK_F32_OPS_S)
+    out = {"call": tag, "instance": "span", "ms": ms[0],
+           "wall_ms": ms[1], "simple_ms": simple[0], "bound_ms": bound_ms,
+           "bound_by": bound_by, "launches_a_tick": a_tick}
+    others = ""
+    if plain is not None:
+        out["plain_ms"] = _timed(plain, 20, f"{kernel}_{tag}_plain")[0]
+        lib = None if library is None else \
+            _timed(library, reps, f"{kernel}_{tag}_library")
+        out["library_ms"] = lib and lib[0]
+        others = (f"; plain {out['plain_ms'] * 1e3:.4f} us device, library "
+                  + ("none (no single PyTorch call)" if lib is None
+                     else _us(lib)))
     print(f"{kernel} {tag}: span instance {_us(ms)} = "
           f"{nbytes / ms[0] / 1e6:.1f} GB/s, {bound_ms / ms[0]:.4f} of the "
           f"bound {bound_ms * 1e3:.4f} us ({bound_by}: {nbytes} bytes); "
-          f"simple instance {_us(simple)} ({simple[0] / ms[0]:.2f}x); "
-          f"{a_tick} a tick")
-    return {"call": tag, "instance": "span", "ms": ms[0],
-            "wall_ms": ms[1], "simple_ms": simple[0], "bound_ms": bound_ms,
-            "bound_by": bound_by, "launches_a_tick": a_tick}
+          f"simple instance {_us(simple)} ({simple[0] / ms[0]:.2f}x)"
+          f"{others}; {a_tick} a tick")
+    return out
 
 
 def time_kernels(sz: Sizes, device, results, errs):
     """window_reduce at each of the staged tick's five calls and
     fused_tick at the fused tick's call, each through the instance its
-    plan names beside the simple instance in the same run; the kernels
-    line's times are the ``[T x D]`` call's (window_reduce) and the
-    fused call's, beside the plain version and, for window_reduce,
-    ``avg_pool1d`` on the same block."""
+    plan names beside the simple instance in the same run, and each
+    window_reduce call beside its plain version and its library call
+    (``avg_pool1d`` for a sum, ``max_pool1d`` for a max, none for a
+    min); the kernels line's times are the ``[T x D]`` call's
+    (window_reduce) and the fused call's, beside the plain version and,
+    for window_reduce, ``avg_pool1d`` on the same block."""
     from repro_torch.core import rules as R
     from repro_torch.kernels.fused_tick import fused_tick, fused_tick_ref
     from repro_torch.kernels.window_reduce import (sliding_reduce,
@@ -935,12 +1106,18 @@ def time_kernels(sz: Sizes, device, results, errs):
     a_tick = results["staged"]["launches"]["window_reduce"] // sz.ticks \
         // len(calls)
     shapes = []
+    pools = {"sum": torch.nn.functional.avg_pool1d,
+             "max": torch.nn.functional.max_pool1d}
     for tag, x, op in calls:
+        xt = x.t().contiguous()[None]           # [1, D, T] for the pools
         shapes.append(_tick_shape(
             "window_reduce", tag,
             lambda how, x=x, op=op: sliding_reduce(x, w, s, nw, op,
                                                    instance=how),
-            4 * (t * x.shape[1] + nw * x.shape[1]), a_tick))
+            4 * (t * x.shape[1] + nw * x.shape[1]), a_tick,
+            plain=lambda x=x, op=op: sliding_reduce_ref(x, w, s, nw, op),
+            library=None if op not in pools else
+            lambda xt=xt, op=op: pools[op](xt, w, s)))
     xcl = xp.t().contiguous()[None]             # [1, D, T] for the pools
     wr = dict(
         ms=(shapes[0]["ms"], shapes[0]["wall_ms"]),
@@ -1047,18 +1224,20 @@ def time_ar_kernels(sz: ARSizes, device, ar: dict, errs: dict) -> list:
 
 
 def time_serve_kernel(sv: dict, errs: dict) -> dict:
-    """decode_attn at the serve step's call with the full cache (every
-    request at 1,088 rows), beside its plain version and, as the
-    one-call yardstick, ``F.scaled_dot_product_attention`` with the
-    length mask and ``enable_gqa`` on the same cache views (checked to
-    give the same answer within the bf16 tolerance)."""
+    """decode_attn at a serve step's call with its last attention
+    layer's full cache (every request at 1,088 rows), beside its plain
+    version and, as the one-call yardstick,
+    ``F.scaled_dot_product_attention`` with the length mask and
+    ``enable_gqa`` on the same cache views (checked to give the same
+    answer within the bf16 tolerance)."""
     import torch.nn.functional as F
     from repro_torch.kernels import checks
     from repro_torch.kernels.decode_attn import decode_attention, \
         decode_attn_ref
     from repro_torch.kernels.decode_attn.ops import plan_for
     cfg, res = sv["cfg"], sv["res"]
-    kc, vc = res.caches[-1]["k"], res.caches[-1]["v"]
+    last = attn_caches(cfg, res.caches)[-1]
+    kc, vc = last["k"], last["v"]
     b, s, hkv, d = kc.shape
     h, g = cfg.n_heads, cfg.n_heads // hkv
     gen = torch.Generator(kc.device).manual_seed(9)
@@ -1105,11 +1284,12 @@ def time_serve_kernel(sv: dict, errs: dict) -> dict:
     row = _kernel_row(
         "decode_attn", rec, nbytes, ops, PEAK_BF16_OPS_S,
         sv["launches"]["decode_attn"], errs["decode_attn"],
-        f"{sv['launches']['decode_attn'] / steps:g} a step on the serve "
-        f"path, {cfg.n_layers} layers")
+        f"{sv['launches']['decode_attn'] / steps:g} a step on the "
+        f"{cfg.name} serve path, {sv['n_attn']} attention layers")
     for name, r in (("back to back (L2 warm)", rec),
                     ("after a 192 MB read (L2 cold)", cold)):
-        print(f"decode_attn {name}: instance {how.instance}, n_split "
+        print(f"decode_attn {name} at {cfg.name} [{b} x {s} x {hkv} x "
+              f"{d}], G {g}: instance {how.instance}, n_split "
               f"{how.n_split}, scratch 0 bytes in device memory (the splits "
               f"fold in the cluster's shared memory); kernel "
               f"{r['ms'][0] * 1e3:.3f} us = {nbytes / r['ms'][0] / 1e6:.1f} "
@@ -1117,7 +1297,8 @@ def time_serve_kernel(sv: dict, errs: dict) -> dict:
               f"{row['bound_ms'] * 1e3:.3f} us bound; SDPA "
               f"{r['library_ms'][0] * 1e3:.3f} us; plain "
               f"{r['plain_ms'][0] * 1e3:.3f} us")
-    row.update(instance=how.instance, n_split=how.n_split,
+    row.update(serve=cfg.name, shape=[b, h, hkv, d, s],
+               instance=how.instance, n_split=how.n_split,
                cold_ms=cold["ms"][0], cold_plain_ms=cold["plain_ms"][0],
                cold_library_ms=cold["library_ms"][0])
     return row
@@ -1186,7 +1367,7 @@ def profile_ar(sz: ARSizes, ar: dict, steps=8) -> None:
     _profile("ar", steps, "step", step, kernel="armatch_kernel")
 
 
-def profile_serve(sv: dict, steps=8) -> None:
+def profile_serve(sv: dict, steps=8, tag="serve") -> None:
     """Where a decode step's time goes, over ``steps`` more steps from
     the run's final state (the ring cache wraps to its first row)."""
     from repro_torch.launch import steps as steps_mod
@@ -1197,12 +1378,13 @@ def profile_serve(sv: dict, steps=8) -> None:
     def one(i):
         tok = torch.argmax(box[0], dim=-1).to(torch.int32)[:, None]
         box[0], _, box[1] = step(res.model, tok, res.caches, box[1])
-    _profile("serve", steps, "step", one, kernel="decode_attn_")
+    _profile(tag, steps, "step", one, kernel="decode_attn_")
 
 
 def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
         ar_small: ARSizes = AR_SMALL, serve_sz: ServeSizes = SERVE_FULL,
-        serve_small: ServeSizes = SERVE_SMALL, device="cuda") -> dict:
+        serve_small: ServeSizes = SERVE_SMALL, rg_sz: ServeSizes = RG_FULL,
+        device="cuda") -> dict:
     from repro_torch.kernels import build, checks
     from repro_torch.testing import assert_bitwise, assert_close
     # float32 matmuls in full precision on the card, so the core stage
@@ -1218,15 +1400,14 @@ def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
     print(f"card: {_card_line()}")
 
     block = (sz.batch + sz.window - sz.stride, sz.d, sz.window, sz.stride)
-    scfg = serve_config(serve_sz)
     errs = {"window_reduce": checks.check_window_reduce(device, *block),
             "fused_tick": checks.check_fused_tick(device, *block),
             "hilbert": checks.check_hilbert(device, ar_sz.n),
             "armatch": checks.check_armatch(device, (
                 (ar_sz.n, ar_sz.interests), (ar_sz.shard, 1))),
-            "decode_attn": checks.check_decode_attn(device, (
-                serve_sz.requests, scfg.n_heads, scfg.n_kv_heads,
-                scfg.d_head, serve_sz.prompt_len + serve_sz.tokens))}
+            "decode_attn": checks.check_decode_attn(
+                device, attn_shape(serve_sz), attn_shape(rg_sz),
+                attn_shape(MIXTRAL_FULL))}
     print(f"phase 2 kernels: bitwise equal to their plain versions, "
           f"decode_attn within {checks.DECODE_ATTN_TOL} (max abs err "
           f"{errs})")
@@ -1246,6 +1427,7 @@ def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
           f"the pairs, least query hits {ar['min_hits']}, registry hits "
           f"{ar['found']}; card == CPU bitwise over {compared} steps at "
           f"{ar_small.n} posts, shard {ar_small.shard}")
+    torch.cuda.reset_peak_memory_stats()
     sv = run_serve(serve_sz, device)
     small = run_serve_card_vs_cpu(serve_small, device)
     res = sv["res"]
@@ -1271,13 +1453,7 @@ def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
           f"posts/s (all posts over all steps), step p50 {q[0] * 1e3:.3f} ms, "
           f"p99 {q[1] * 1e3:.3f} ms over {len(ar['secs'])} steps, launches "
           f"{ar['launches']}")
-    secs = np.asarray(res.secs)
-    q = np.quantile(secs, [0.5, 0.99])
-    print(f"path serve: {serve_sz.requests * len(secs) / secs.sum():.1f} "
-          f"tokens/s (all tokens, prompt and generated, over all steps), "
-          f"decode step p50 {q[0] * 1e3:.3f} ms, p99 {q[1] * 1e3:.3f} ms "
-          f"over {len(secs)} steps, launches {sv['launches']}, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print_serve("serve", serve_sz, sv)
     _prime_profiler(device)
     kernels = {"kernels": time_kernels(sz, device, results, errs)
                + time_ar_kernels(ar_sz, device, ar, errs)
@@ -1285,7 +1461,96 @@ def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
     profile_ticks(sz, device)
     profile_ar(ar_sz, ar)
     profile_serve(sv)
+    del sv, res
+    _free()
+    kernels["kernels"].append(run_families(rg_sz, device, errs))
     return kernels
+
+
+def print_serve(tag: str, sz: ServeSizes, sv: dict) -> None:
+    """A serve run's timing line: tokens a second over all steps' wall
+    time, p50/p99 step ms, launches and the peak of device memory since
+    the last reset."""
+    secs = np.asarray(sv["res"].secs)
+    q = np.quantile(secs, [0.5, 0.99])
+    print(f"path {tag}: {sz.requests * len(secs) / secs.sum():.1f} "
+          f"tokens/s (all tokens, prompt and generated, over all steps), "
+          f"decode step p50 {q[0] * 1e3:.3f} ms, p99 {q[1] * 1e3:.3f} ms "
+          f"over {len(secs)} steps, launches {sv['launches']}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def _free() -> None:
+    """Give the card's memory back before the next model is built."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _serve_line(sz: ServeSizes, sv: dict, small: dict) -> str:
+    cfg, res = sv["cfg"], sv["res"]
+    return (f"{cfg.name} ({cfg.n_layers} layers: {sv['n_attn']} attention, "
+            f"decode_attn instance {sv['instance']}, "
+            f"d_model {cfg.d_model}, compute {sz.compute}), {sz.requests} "
+            f"requests resolved as {res.resolved}, {sz.prompt_len} prompt ids "
+            f"teacher-forced + {sz.tokens} generated; init "
+            f"{sv['init_s']:.2f} s; logits finite, ids in the vocabulary; "
+            f"kernel vs plain path at the next step {sv['late']:.3e} of the "
+            f"largest logit; smoke config card == CPU ids over "
+            f"{small['steps']} steps, logits within {small['rel']:.3e}; "
+            f"first ids {res.tokens[0, :8]}")
+
+
+def run_families(rg_sz: ServeSizes, device, errs: dict) -> dict:
+    """Phase 6: RecurrentGemma-2B served at ``rg_sz``, checked, timed and
+    profiled, then RWKV6-7B and Mixtral-8x7B (8 layers), checked and
+    profiled, each family's smoke config card against CPU, one model at
+    a time; Kimi-K2's parameter count on the meta device.  Returns RecurrentGemma's
+    decode_attn row of the kernels line."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    torch.cuda.reset_peak_memory_stats()
+    rg = run_serve(rg_sz, device)
+    small = run_serve_card_vs_cpu(FAMILY_SMALL[rg_sz.arch], device)
+    print(f"phase 6 serve path: {_serve_line(rg_sz, rg, small)}")
+    print_serve(f"serve {rg['cfg'].name}", rg_sz, rg)
+    row = time_serve_kernel(rg, errs)
+    profile_serve(rg, tag="serve_rg")
+    del rg
+    _free()
+    for sz in (RWKV_FULL, MIXTRAL_FULL):
+        torch.cuda.reset_peak_memory_stats()
+        sv = run_serve(sz, device)
+        small = run_serve_card_vs_cpu(FAMILY_SMALL[sz.arch], device)
+        full = configs.get_config(sz.arch)
+        cut = ""
+        if sv["cfg"].n_layers != full.n_layers:
+            n = T.param_count(full, T.init_params(full, device="meta"))
+            cut = (f"; depth cut from {full.n_layers} to "
+                   f"{sv['cfg'].n_layers} layers: all {full.n_layers} hold "
+                   f"{n * 2 / 1e9:.1f} GB of bf16 weights")
+        moe = "" if not sv["overflow"] else (
+            f"; MoE overflow_frac of the next step, by layer "
+            f"{sv['overflow']}; requests whose expert choice flipped "
+            f"between the kernel and the plain step (left out of their "
+            f"difference): {len(sv['flips'])} of {sz.requests}"
+            + "".join(f" (request {f['request']} at layer {f['layer']}: "
+                      f"MoE input {f['input']:.4e} of its largest apart, "
+                      f"router margin {f['margin']:.4e})"
+                      for f in sv["flips"]))
+        print(f"phase 6 serve path: {_serve_line(sz, sv, small)}{cut}{moe}")
+        print_serve(f"serve {sv['cfg'].name}", sz, sv)
+        profile_serve(sv, tag=f"serve_{sz.arch}")
+        del sv
+        _free()
+    kimi = configs.get_config("kimi_k2_1t_a32b")
+    model = T.init_params(kimi, device="meta")
+    print(f"phase 6 {kimi.name}: not served (one MoE layer alone holds "
+          f"{sum(p.numel() for p in model.layers[1].moe.parameters()) * 2 / 1e9:.1f} "
+          f"GB of bf16 weights); on the meta device "
+          f"{T.param_count(kimi, model)} parameters, "
+          f"{T.active_param_count(kimi, model)} active a token")
+    return row
 
 
 def main() -> int:

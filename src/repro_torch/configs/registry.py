@@ -1,10 +1,9 @@
-"""Architecture registry: the reference's 10 assigned configs, of which
-the six dense ones are ported, each with its reduced smoke twin.
+"""Architecture registry: the reference's 10 assigned configs, each
+with its reduced smoke twin.
 
-Port of ``repro.configs.registry``.  Each ported config is a copy of
-the reference's file (``repro/configs/<name>.py``), its dtypes as
-``torch.dtype``.  The four others -- MoE, RWKV6, RG-LRU -- raise in
-``get_config`` and ``smoke_config``: their layers are ROADMAP item 13.
+Port of ``repro.configs.registry``.  Each config is a copy of the
+reference's file (``repro/configs/<name>.py``), its dtypes as
+``torch.dtype``.
 """
 from __future__ import annotations
 
@@ -15,9 +14,8 @@ ARCH_IDS = [
     "rwkv6_7b", "mixtral_8x7b", "kimi_k2_1t_a32b", "musicgen_large",
     "recurrentgemma_2b",
 ]
-#: the dense architectures, which the port runs
-PORTED = ["yi_6b", "yi_34b", "qwen2_72b", "nemotron_4_15b", "qwen2_vl_7b",
-          "musicgen_large"]
+#: the architectures the port runs: all of them
+PORTED = list(ARCH_IDS)
 
 # shape set shared by all LM archs (assignment):
 SHAPES = {
@@ -32,10 +30,6 @@ def _module(arch_id: str):
     arch_id = arch_id.replace("-", "_")
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown architecture {arch_id!r}")
-    if arch_id not in PORTED:
-        raise NotImplementedError(
-            f"{arch_id} is not ported yet: its MoE / RWKV6 / RG-LRU layers "
-            "are ROADMAP item 13")
     return importlib.import_module(f"repro_torch.configs.{arch_id}")
 
 

@@ -14,9 +14,10 @@ Representation differences handled here:
   past the reference's capacity (stamp -1, never read);
 * the model: the reference stacks the layers of a kind along a leading
   ``repeat`` dim (``stacks``, one ``{pos<i>: ...}`` group a stack), the
-  port keeps one ``DecoderLayer`` a layer; the KV caches likewise
+  port keeps one layer module a layer; the decode caches likewise
   (``[repeat, B, S, Hkv, D]`` a stack against ``[B, S, Hkv, D]`` a
-  layer).
+  layer), and an attention layer's ``{"attn": {k, v}}`` is the port's
+  ``{k, v}`` (the recurrent kinds' states keep their nesting).
 """
 from __future__ import annotations
 
@@ -150,8 +151,10 @@ def model_from_numpy(cfg, tree, device: str | torch.device | None = None
         return {k: group(v) if isinstance(v, dict) else tens(v)
                 for k, v in g.items()}
 
-    layers = [T.DecoderLayer(cfg, group(_index(tree["stacks"][si][key], r)))
-              for si, r, key in _layer_slices(cfg)]
+    layers = [T.make_layer(cfg, kind,
+                           group(_index(tree["stacks"][si][key], r)))
+              for (si, r, key), kind in zip(_layer_slices(cfg),
+                                            cfg.layer_kinds())]
     unembed = None if cfg.tie_embeddings else tens(tree["unembed"])
     return T.Transformer(cfg, tens(tree["embed"]), group(tree["final_norm"]),
                          unembed, layers)
@@ -164,21 +167,38 @@ def _index(g, r):
 
 def caches_from_numpy(cfg, caches, device: str | torch.device | None = None
                       ) -> list[dict]:
-    """The reference's decode caches (one ``{pos<i>: {attn: {k, v}}}`` a
-    stack, ``[repeat, B, S, Hkv, D]``) -> the port's per-layer ``{k, v}``."""
-    return [{n: _t(np.asarray(caches[si][key]["attn"][n])[r], device)
-             for n in ("k", "v")} for si, r, key in _layer_slices(cfg)]
+    """The reference's decode caches (one ``{pos<i>: state}`` a stack,
+    each leaf with a leading ``repeat`` dim) -> the port's per-layer
+    caches: ``{k, v}`` for attention, the recurrent states as nested."""
+    def layer(state, r):
+        if isinstance(state, dict):
+            return {k: layer(v, r) for k, v in state.items()}
+        return _t(np.asarray(state)[r], device)
+
+    out = []
+    for si, r, key in _layer_slices(cfg):
+        state = caches[si][key]
+        out.append(layer(state["attn"] if "attn" in state else state, r))
+    return out
 
 
 def caches_to_numpy(cfg, caches: list[dict]) -> list[dict]:
     """The port's per-layer caches -> the reference's stacked layout, as
     numpy arrays (bfloat16 as float32: numpy has no bfloat16)."""
-    out, it = [], iter(caches)
+    def stack(states):
+        if isinstance(states[0], dict):
+            return {k: stack([s[k] for s in states]) for k in states[0]}
+        return np.stack([_np(s) for s in states])
+
+    out, it = [], iter(zip(cfg.layer_kinds(), caches))
     for kinds, repeat in cfg.stacks():
         layers = [[next(it) for _ in kinds] for _ in range(repeat)]
-        out.append({f"pos{i}": {"attn": {
-            n: np.stack([_np(rep[i][n]) for rep in layers])
-            for n in ("k", "v")}} for i in range(len(kinds))})
+        group = {}
+        for i, kind in enumerate(kinds):
+            states = stack([rep[i][1] for rep in layers])
+            group[f"pos{i}"] = {"attn": states} if kind.startswith("attn") \
+                else states
+        out.append(group)
     return out
 
 

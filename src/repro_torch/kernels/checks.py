@@ -432,21 +432,23 @@ def max_err_within(a, b, tol: float, what: str) -> float:
     return float((a - b).abs().max())
 
 
-def check_decode_attn(device, full) -> float:
+def check_decode_attn(device, *serve) -> float:
     """The ``decode_attn`` kernel against ``decode_attn_ref`` on the same
     tensors, and against the CPU, in float32 and bfloat16, within
-    :data:`DECODE_ATTN_TOL`: at ``full`` ``(b, h, hkv, d, s)`` (the serve
-    step's cache) with every row full but a length-0 one, and with
-    :func:`split_edge_lengths`; at :data:`DECODE_ATTN_SHAPES` and
-    :data:`DECODE_ATTN_HEADS` with random lengths; on a strided cache
-    view that keeps 16-byte rows, and on one that does not.  Each call
-    must launch the instance that :func:`plan_for` names: the generic
-    one for the unaligned view and float32 at D 256, a fast one
-    elsewhere."""
+    :data:`DECODE_ATTN_TOL`: at each ``serve`` shape ``(b, h, hkv, d,
+    s)`` (a serve step's full cache) with every row full but a length-0
+    one, and with :func:`split_edge_lengths`; at
+    :data:`DECODE_ATTN_SHAPES` and :data:`DECODE_ATTN_HEADS` with random
+    lengths; on a strided cache view that keeps 16-byte rows, and on
+    one that does not.  Each call must launch the instance that
+    :func:`plan_for` names: the generic one for the unaligned view and
+    float32 at D 256, a fast one elsewhere, and at a serve shape the
+    fast instance of its dtype and D (``bf16_d256`` at RecurrentGemma's
+    D 256)."""
     dev = torch.device(device)
     gen = torch.Generator(dev).manual_seed(6)
     err = 0.0
-    cases = [(full, "full"), (full, "edges"),
+    cases = [*((full, kind) for full in serve for kind in ("full", "edges")),
              *((s, "ragged") for s in DECODE_ATTN_SHAPES + DECODE_ATTN_HEADS),
              ((3, 8, 2, 32, 70), "strided"), ((3, 8, 2, 32, 70), "unaligned")]
     for dtype, tol in DECODE_ATTN_TOL.items():
@@ -470,6 +472,10 @@ def check_decode_attn(device, full) -> float:
             if (how.instance == "generic") != (kind == "unaligned"
                                                or wide_f32):
                 raise AssertionError(f"{what}: planned {how}")
+            fast = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_d{d}"
+            if kind in ("full", "edges") and not wide_f32 \
+                    and how.instance != fast:
+                raise AssertionError(f"{what}: planned {how}, want {fast}")
             generic = decode_attention.generic_launches
             out = _counted(lambda: decode_attention(q, k, v, lengths,
                                                     num_kv_heads=hkv),

@@ -9,9 +9,12 @@ serverless ``FunctionRegistry`` under a function profile
 (``decode:<name>``, profile ``serve`` + the model's name); ``run``
 resolves it by associative matching with the ``serve`` interest (the
 ``armatch`` kernel on the card), prefills each request by decoding its
-prompt teacher-forced, then generates greedily (argmax).  The model is
-the port's seeded random init unless the caller hands one in.  Runs on
-the CUDA card unless the caller asks for the CPU.
+prompt teacher-forced, then generates greedily (argmax).  Any of the
+ten configs serves: attention layers keep ring KV caches and attend
+through ``decode_attn``, RWKV6 and RG-LRU layers carry their recurrent
+states.  The model is the port's seeded random init unless the caller
+hands one in.  Runs on the CUDA card unless the caller asks for the
+CPU.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.registry import get_config, smoke_config
+from repro_torch.configs.registry import ARCH_IDS, get_config, smoke_config
 from repro_torch.core import profiles as P
 from repro_torch.core.serverless import FunctionRegistry
 from repro_torch.kernels.decode_attn import decode_attention
@@ -35,9 +38,10 @@ class ServeResult(NamedTuple):
     tokens: np.ndarray          # [requests, tokens] generated ids
     secs: list                  # wall seconds of each decode step
     launches: int               # decode_attn kernel launches in the loop
+                                # (0 for a model without attention)
     finite: bool                # every step's logits were finite
     logits: torch.Tensor        # [requests, vocab] after the last step
-    caches: list                # the per-layer KV caches at the end
+    caches: list                # the per-layer caches / states at the end
     lengths: torch.Tensor       # [requests] cache fill at the end
     model: T.Transformer
     resolved: str               # the registry entry that served
@@ -99,7 +103,7 @@ def run(cfg, requests: int, prompt_len: int, tokens: int, *,
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="yi_6b")
+    ap.add_argument("--arch", default="yi_6b", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--prompt-len", type=int, default=16)

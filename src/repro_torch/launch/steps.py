@@ -3,7 +3,7 @@
 Port of ``build_serve_step`` and ``build_prefill_step`` of
 ``repro.launch.steps``, on one device: no mesh and no sharding
 constraints.  Each step runs under ``torch.inference_mode()``.
-``build_train_step`` waits for the training slice (ROADMAP item 13).
+``build_train_step`` waits for the training slice (ROADMAP item 13b).
 """
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ def build_prefill_step(cfg):
 
 def build_serve_step(cfg):
     """(model, tokens [B, 1], caches, lengths [B]) -> (logits [B, V],
-    caches, lengths + 1); the caches are written in place."""
+    caches, lengths + 1); the caches and recurrent states are written in
+    place."""
     def serve_step(model, tokens, caches, lengths):
         with torch.inference_mode():
             return T.decode_step(cfg, model, tokens, caches, lengths)

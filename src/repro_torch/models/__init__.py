@@ -1,9 +1,12 @@
-"""The model substrate, ported from ``repro.models`` (dense layers only).
+"""The model substrate, ported from ``repro.models``.
 
-  layers      — norms, dense init, the four dense FFN kinds
+  layers      — norms, dense init, the four dense FFN kinds, chunked scan
   positional  — RoPE, M-RoPE, sinusoidal embeddings
   attention   — GQA projections, causal attention, cached decode step
+  moe         — the MoE FFN and its sort-based dispatch plan
+  rwkv        — RWKV-6 time mix and channel mix
+  griffin     — the RG-LRU recurrent block (RecurrentGemma)
   transformer — the decoder stack: init, forward, prefill, decode_step
 
-The MoE, RWKV6 and RG-LRU layers are not ported yet (ROADMAP item 13).
+Training (``loss_fn`` and the optimizer) waits for ROADMAP item 13b.
 """

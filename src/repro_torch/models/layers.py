@@ -1,11 +1,13 @@
-"""Shared model layers: norms, dense init, the dense FFN kinds.
+"""Shared model layers: norms, dense init, the dense FFN kinds and the
+chunked scan of the recurrent kinds.
 
-Port of ``repro.models.layers`` (``chunked_scan``, a training helper
-of the recurrent kinds, is left out).  Norms and FFNs are plain
-functions on tensors; a parameter group is any mapping of names to
-tensors (a dict, or an ``nn.ParameterDict`` of a module).
+Port of ``repro.models.layers``.  Norms and FFNs are plain functions
+on tensors; a parameter group is any mapping of names to tensors (a
+dict, or an ``nn.ParameterDict`` of a module).
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -102,3 +104,41 @@ class FFN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return ffn_apply(self.kind, self.p, x)
+
+
+# ---------------------------------------------------------------------------
+# Time-chunked scan
+# ---------------------------------------------------------------------------
+
+def _stack(ys: list):
+    """A list of step outputs (tensors, or tuples of them) -> the outputs
+    stacked along a new leading axis, with the steps' structure."""
+    if isinstance(ys[0], (tuple, list)):
+        return type(ys[0])(torch.stack(col) for col in zip(*ys))
+    return torch.stack(ys)
+
+
+def chunked_scan(body: Callable, init, xs, *, chunk: int):
+    """``lax.scan(body, init, xs)`` over the leading axis in chunks of
+    ``chunk`` steps: ``body(carry, x_t) -> (carry, y_t)``, where ``xs``
+    is a tensor or a tuple of tensors and ``x_t`` its slices at step t.
+    Returns ``(carry, ys)``, the ``y_t`` stacked along a new leading
+    axis.  The leading axis must be a multiple of ``chunk``.  The
+    reference wraps each chunk in ``jax.checkpoint`` for its backward
+    pass; the port serves, so it keeps the chunking contract only."""
+    seq = isinstance(xs, (tuple, list))
+    t = (xs[0] if seq else xs).shape[0]
+    if t % chunk:
+        raise ValueError(f"chunked_scan: {t} steps are not a multiple of "
+                         f"chunk {chunk}")
+    carry, chunks = init, []
+    for c in range(t // chunk):
+        ys = []
+        for i in range(c * chunk, (c + 1) * chunk):
+            x_t = tuple(a[i] for a in xs) if seq else xs[i]
+            carry, y = body(carry, x_t)
+            ys.append(y)
+        chunks.append(_stack(ys))
+    if isinstance(chunks[0], (tuple, list)):
+        return carry, type(chunks[0])(torch.cat(col) for col in zip(*chunks))
+    return carry, torch.cat(chunks)

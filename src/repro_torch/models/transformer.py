@@ -1,11 +1,13 @@
-"""The decoder stack, ported from ``repro.models.transformer`` for the
-dense architectures.
+"""The decoder stack, ported from ``repro.models.transformer``.
 
-An architecture is an ``ArchConfig``: a layer pattern, an FFN kind,
-attention geometry and embedding geometry (dtypes are ``torch.dtype``).
-The model is a ``Transformer`` module: the embedding, the final norm,
-the unembedding and one ``DecoderLayer`` a layer, driven by a Python
-loop (the reference scans stacked layers with ``lax.scan``).
+An architecture is an ``ArchConfig``: a layer pattern (cycled kinds:
+attention, RWKV6, RG-LRU recurrent), an FFN kind (the dense kinds or
+MoE), attention geometry and embedding geometry (dtypes are
+``torch.dtype``).  The model is a ``Transformer`` module: the
+embedding, the final norm, the unembedding and one layer module a layer
+(``DecoderLayer`` for ``attn+dense`` and ``attn+moe``, ``RWKVLayer``,
+``RecurrentLayer``), driven by a Python loop (the reference scans
+stacked layers with ``lax.scan``).
 
 Casts.  The reference casts every layer's parameters to
 ``compute_dtype`` on each call (``_cast_params``); the port casts them
@@ -14,25 +16,28 @@ reference, ``embed`` stays in ``param_dtype`` and is gathered before the
 cast, ``final_norm`` stays uncast, and ``unembed`` is cast to the
 activations' dtype (``compute_dtype``), here once.
 
-Entry points: ``forward``, ``prefill`` and ``decode_step``.  Only the
-``attn+dense`` layer kind is ported: the ``rwkv``, ``rec`` and ``+moe``
-kinds, and ``loss_fn``, wait for ROADMAP item 13.
+Caches: one a layer, ``{k, v}`` ring buffers for attention,
+``{"tmix": {"shift", "wkv"}, "cmix"}`` for RWKV6 and
+``{"rec": {"h", "conv"}}`` for RG-LRU; a decode step updates them in
+place.
+
+Entry points: ``forward``, ``prefill`` and ``decode_step``.
+``loss_fn`` waits for the training slice (ROADMAP item 13b).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
 
 import torch
 from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as A
+from repro_torch.models import griffin as G
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import positional as pos_mod
-
-_NOT_PORTED = ("layer kind {!r} is not ported yet: the MoE, RWKV6 and "
-               "RG-LRU layers are ROADMAP item 13")
+from repro_torch.models import rwkv as W
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +52,7 @@ class ArchConfig:
     d_head: int = 128
     pattern: tuple = ("attn",)          # cycled layer kinds
     ffn: str = "swiglu"                 # dense ffn kind or "moe"
-    moe: Any = None                     # MoEConfig (not ported)
+    moe: M.MoEConfig | None = None
     first_k_dense: int = 0              # leading dense-FFN layers (Kimi)
     qkv_bias: bool = False
     window: int | None = None
@@ -57,8 +62,8 @@ class ArchConfig:
     pos_emb: str = "none"               # "none" | "sinusoidal"
     norm: str = "rmsnorm"
     norm_eps: float = 1e-6
-    rwkv: Any = None                    # RWKVConfig (not ported)
-    rglru: Any = None                   # RGLRUConfig (not ported)
+    rwkv: W.RWKVConfig | None = None
+    rglru: G.RGLRUConfig | None = None
     vlm: bool = False                   # expects vision_embeds in the batch
     modality: str = "text"              # doc tag: text | vision | audio
     param_dtype: torch.dtype = torch.float32
@@ -106,38 +111,45 @@ class ArchConfig:
         return out
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    for kind in cfg.layer_kinds():
-        if kind != "attn+dense":
-            raise NotImplementedError(_NOT_PORTED.format(kind))
-
-
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
 
 def _cast(params: dict, dtype: torch.dtype) -> dict:
-    return {k: v.to(dtype) if v.is_floating_point() else v
+    return {k: _cast(v, dtype) if isinstance(v, dict)
+            else v.to(dtype) if v.is_floating_point() else v
             for k, v in params.items()}
 
 
-class DecoderLayer(nn.Module):
-    """One ``attn+dense`` layer, pre-norm residual, its parameters cast
-    to ``cfg.compute_dtype`` once, here."""
+def _dense_ffn(cfg: ArchConfig) -> str:
+    """The FFN kind of a dense attention layer: SwiGLU for the leading
+    dense layers of a MoE config (Kimi-K2's first)."""
+    return cfg.ffn if cfg.ffn != "moe" else "swiglu"
 
-    def __init__(self, cfg: ArchConfig, params: dict) -> None:
+
+class DecoderLayer(nn.Module):
+    """One attention layer, ``attn+dense`` or ``attn+moe``: pre-norm
+    residual attention, then the dense FFN or the MoE, its parameters
+    cast to ``cfg.compute_dtype`` once, here."""
+
+    def __init__(self, cfg: ArchConfig, params: dict, kind: str) -> None:
         super().__init__()
         dt = cfg.compute_dtype
-        self.cfg = cfg
+        self.cfg, self.kind = cfg, kind
         self.norm1 = L.frozen(_cast(params["norm1"], dt))
         self.norm2 = L.frozen(_cast(params["norm2"], dt))
         self.attn = A.Attention(cfg.attn_cfg(), _cast(params["attn"], dt))
-        self.ffn = L.FFN(cfg.ffn, _cast(params["ffn"], dt))
+        if kind == "attn+moe":
+            self.ffn, self.moe = None, M.MoE(cfg.moe, _cast(params["moe"], dt))
+        else:
+            self.ffn = L.FFN(_dense_ffn(cfg), _cast(params["ffn"], dt))
+            self.moe = None
 
     def forward(self, x, positions, cache: dict | None = None, lengths=None,
                 *, use_kernel: bool = True):
-        """(x, cache): the cache is the layer's KV (forward) or the
-        decode cache updated in place (``cache`` given)."""
+        """(x, cache, MoE stats or None): the cache is the layer's KV
+        (forward) or the decode cache updated in place (``cache``
+        given)."""
         cfg = self.cfg
         h = L.apply_norm(cfg.norm, x, self.norm1, cfg.norm_eps)
         if cache is not None:
@@ -147,22 +159,107 @@ class DecoderLayer(nn.Module):
             a_out, new_cache = self.attn(h, positions)
         x = x + a_out
         h = L.apply_norm(cfg.norm, x, self.norm2, cfg.norm_eps)
-        return x + self.ffn(h), new_cache
+        if self.moe is not None:
+            f_out, stats = self.moe(h)
+            return x + f_out, new_cache, stats
+        return x + self.ffn(h), new_cache, None
+
+
+def _update(cache: dict, new: dict) -> dict:
+    """Copy the state ``new`` into ``cache`` (same nesting) in place."""
+    for k, v in new.items():
+        if isinstance(v, dict):
+            _update(cache[k], v)
+        else:
+            cache[k].copy_(v)
+    return cache
+
+
+class RWKVLayer(nn.Module):
+    """One ``rwkv`` layer: pre-norm residual time mix, then channel mix."""
+
+    kind = "rwkv"
+
+    def __init__(self, cfg: ArchConfig, params: dict) -> None:
+        super().__init__()
+        dt = cfg.compute_dtype
+        self.cfg = cfg
+        self.norm1 = L.frozen(_cast(params["norm1"], dt))
+        self.norm2 = L.frozen(_cast(params["norm2"], dt))
+        self.tmix = L.frozen(_cast(params["tmix"], dt))
+        self.cmix = L.frozen(_cast(params["cmix"], dt))
+
+    def forward(self, x, positions, cache: dict | None = None, lengths=None,
+                *, use_kernel: bool = True):
+        """(x, state, None): the new state (forward), or ``cache``
+        updated in place (decode)."""
+        cfg = self.cfg
+        h = L.apply_norm(cfg.norm, x, self.norm1, cfg.norm_eps)
+        t_out, tstate = W.time_mix_apply(
+            self.tmix, h, cfg.rwkv, None if cache is None else cache["tmix"])
+        x = x + t_out
+        h = L.apply_norm(cfg.norm, x, self.norm2, cfg.norm_eps)
+        c_out, cstate = W.channel_mix_apply(
+            self.cmix, h, None if cache is None else cache["cmix"])
+        new = {"tmix": tstate, "cmix": cstate}
+        return x + c_out, new if cache is None else _update(cache, new), None
+
+
+class RecurrentLayer(nn.Module):
+    """One ``rec`` layer: pre-norm residual RG-LRU block, then the FFN."""
+
+    kind = "rec"
+
+    def __init__(self, cfg: ArchConfig, params: dict) -> None:
+        super().__init__()
+        dt = cfg.compute_dtype
+        self.cfg = cfg
+        self.norm1 = L.frozen(_cast(params["norm1"], dt))
+        self.norm2 = L.frozen(_cast(params["norm2"], dt))
+        self.rec = L.frozen(_cast(params["rec"], dt))
+        self.ffn = L.FFN(cfg.ffn, _cast(params["ffn"], dt))
+
+    def forward(self, x, positions, cache: dict | None = None, lengths=None,
+                *, use_kernel: bool = True):
+        """(x, state, None): the new state (forward), or ``cache``
+        updated in place (decode)."""
+        cfg = self.cfg
+        h = L.apply_norm(cfg.norm, x, self.norm1, cfg.norm_eps)
+        r_out, rstate = G.rglru_block_apply(
+            self.rec, h, cfg.rglru, None if cache is None else cache["rec"])
+        x = x + r_out
+        h = L.apply_norm(cfg.norm, x, self.norm2, cfg.norm_eps)
+        new = {"rec": rstate}
+        return x + self.ffn(h), new if cache is None else _update(cache, new), \
+            None
+
+
+def make_layer(cfg: ArchConfig, kind: str, params: dict) -> nn.Module:
+    """The layer module of ``kind`` over ``params`` (the reference's
+    names for one layer)."""
+    if kind.startswith("attn"):
+        return DecoderLayer(cfg, params, kind)
+    if kind == "rwkv":
+        return RWKVLayer(cfg, params)
+    if kind == "rec":
+        return RecurrentLayer(cfg, params)
+    raise ValueError(f"unknown layer kind {kind!r}")
 
 
 class Transformer(nn.Module):
     """The decoder stack: ``embed`` ``[V, D]`` and ``final_norm`` in
     ``param_dtype``, ``unembed`` ``[D, V]`` (``None`` when tied to the
-    embedding) cast to ``compute_dtype``, and the ``DecoderLayer``s."""
+    embedding) cast to ``compute_dtype``, and one layer module a layer,
+    of the kinds ``cfg.layer_kinds()`` names."""
 
     def __init__(self, cfg: ArchConfig, embed: torch.Tensor,
                  final_norm: dict, unembed: torch.Tensor | None,
-                 layers: list[DecoderLayer]) -> None:
+                 layers: list[nn.Module]) -> None:
         super().__init__()
-        _check_dense(cfg)
-        if len(layers) != cfg.n_layers:
-            raise ValueError(f"{cfg.name}: {len(layers)} layers, want "
-                             f"{cfg.n_layers}")
+        kinds = [layer.kind for layer in layers]
+        if kinds != cfg.layer_kinds():
+            raise ValueError(f"{cfg.name}: layers {kinds}, want "
+                             f"{cfg.layer_kinds()}")
         self.cfg = cfg
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.final_norm = L.frozen(final_norm)
@@ -176,6 +273,28 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(layers)
 
 
+def _init_layer(cfg: ArchConfig, kind: str, gen: torch.Generator,
+                dev: torch.device) -> dict:
+    dt, d = cfg.param_dtype, cfg.d_model
+    p = {"norm1": L.init_norm(cfg.norm, d, dt, dev),
+         "norm2": L.init_norm(cfg.norm, d, dt, dev)}
+    if kind.startswith("attn"):
+        p["attn"] = A.init_attn(gen, d, cfg.attn_cfg(), dt, dev)
+        if kind.endswith("+moe"):
+            p["moe"] = M.init_moe(gen, d, cfg.moe, dt, dev)
+        else:
+            p["ffn"] = L.ffn_init(_dense_ffn(cfg), gen, d, cfg.d_ff, dt, dev)
+    elif kind == "rwkv":
+        p["tmix"] = W.init_time_mix(gen, d, cfg.rwkv, dt, dev)
+        p["cmix"] = W.init_channel_mix(gen, d, cfg.d_ff, dt, dev)
+    elif kind == "rec":
+        p["rec"] = G.init_rglru_block(gen, d, cfg.rglru, dt, dev)
+        p["ffn"] = L.ffn_init(cfg.ffn, gen, d, cfg.d_ff, dt, dev)
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
+    return p
+
+
 def init_params(cfg: ArchConfig, *, seed: int = 0,
                 device: str | torch.device | None = None) -> Transformer:
     """A model with random weights drawn from a ``torch.Generator`` seeded
@@ -183,7 +302,6 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     shapes and allocates nothing): the reference's shapes and scales
     (N(0, 0.02) embeddings, N(0, 1/d_in) dense weights, unit norms, zero
     biases), not its numbers."""
-    _check_dense(cfg)
     dev = resolve_device(device)
     gen = torch.Generator("cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
@@ -193,15 +311,10 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
                         device=dev) * 0.02
     unembed = None if cfg.tie_embeddings \
         else L.dense_init(gen, d, cfg.vocab, dt, dev)
-    layers = []
-    for _ in range(cfg.n_layers):
-        # each layer is cast as it is drawn, so that a full-width model
-        # never holds all of its float32 layer weights at once
-        layers.append(DecoderLayer(cfg, {
-            "norm1": L.init_norm(cfg.norm, d, dt, dev),
-            "norm2": L.init_norm(cfg.norm, d, dt, dev),
-            "attn": A.init_attn(gen, d, cfg.attn_cfg(), dt, dev),
-            "ffn": L.ffn_init(cfg.ffn, gen, d, cfg.d_ff, dt, dev)}))
+    # each layer is cast as it is drawn, so that a full-width model never
+    # holds all of its float32 layer weights at once
+    layers = [make_layer(cfg, kind, _init_layer(cfg, kind, gen, dev))
+              for kind in cfg.layer_kinds()]
     return Transformer(cfg, embed.to(dt), L.init_norm(cfg.norm, d, dt, dev),
                        unembed, layers)
 
@@ -210,18 +323,54 @@ def param_count(cfg: ArchConfig, model: Transformer) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
+def active_param_count(cfg: ArchConfig, model: Transformer) -> int:
+    """Active params per token (MoE: top_k of the routed expert pool;
+    the shared experts always count)."""
+    total = param_count(cfg, model)
+    if cfg.ffn != "moe":
+        return total
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    experts = sum(layer.moe.p[n].numel() for layer in model.layers
+                  if getattr(layer, "moe", None) is not None
+                  for n in ("w_in", "w_out", "w_gate") if n in layer.moe.p)
+    return total - experts + int(experts * k / e)
+
+
 # ---------------------------------------------------------------------------
 # Caches and embedding
 # ---------------------------------------------------------------------------
 
+def _empty_cache(cfg: ArchConfig, kind: str, batch: int, seq_len: int,
+                 dev: torch.device) -> dict:
+    dt = cfg.compute_dtype
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if kind.startswith("attn"):
+        return A.init_cache(cfg.attn_cfg(), batch, seq_len, dt, dev)
+    if kind == "rwkv":
+        h, dh = cfg.rwkv.n_heads, cfg.rwkv.d_head
+        return {"tmix": {"shift": zeros((batch, cfg.d_model)),
+                         "wkv": zeros((batch, h, dh, dh), torch.float32)},
+                "cmix": zeros((batch, cfg.d_model))}
+    if kind == "rec":
+        r = cfg.rglru
+        return {"rec": {"h": zeros((batch, r.d_rnn), torch.float32),
+                        "conv": zeros((batch, r.conv_width - 1, r.d_rnn))}}
+    raise ValueError(f"unknown layer kind {kind!r}")
+
+
 def init_caches(cfg: ArchConfig, batch: int, seq_len: int,
                 device: str | torch.device | None = None) -> list[dict]:
-    """One empty ``{k, v}`` ring cache a layer, ``[B, S, Hkv, dh]`` in
-    ``compute_dtype`` (S capped at the window)."""
-    _check_dense(cfg)
+    """One empty decode cache a layer on ``device`` (``None``: the card):
+    a ``{k, v}`` ring cache ``[B, S, Hkv, dh]`` in ``compute_dtype`` (S
+    capped at the window) for attention, zero recurrent states for the
+    ``rwkv`` and ``rec`` kinds (float32 ``wkv`` and ``h``, the rest in
+    ``compute_dtype``)."""
     dev = resolve_device(device)
-    return [A.init_cache(cfg.attn_cfg(), batch, seq_len, cfg.compute_dtype,
-                         dev) for _ in range(cfg.n_layers)]
+    return [_empty_cache(cfg, kind, batch, seq_len, dev)
+            for kind in cfg.layer_kinds()]
 
 
 def _embed(cfg: ArchConfig, model: Transformer, batch: dict,
@@ -260,14 +409,17 @@ def _logits(cfg: ArchConfig, model: Transformer, x: torch.Tensor):
 def forward(cfg: ArchConfig, model: Transformer, batch: dict, *,
             want_caches: bool = False):
     """Full-sequence forward.  Returns (logits [B, T, V], aux_loss,
-    per-layer caches or None); aux_loss is 0 (no MoE layer is ported)."""
+    per-layer caches or None); aux_loss sums the MoE layers'
+    load-balance losses (0 without MoE)."""
     x, positions = _embed(cfg, model, batch)
     caches = [] if want_caches else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in model.layers:
-        x, c = layer(x, positions)
+        x, c, stats = layer(x, positions)
+        if stats is not None:
+            aux = aux + stats["aux_loss"]
         if want_caches:
             caches.append(c)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(cfg, model, x), aux, caches
 
 
@@ -276,8 +428,8 @@ def prefill(cfg: ArchConfig, model: Transformer, batch: dict,
     """Prefill: logits of the last position + caches for decode.
 
     ``pad_cache_to``: total cache capacity for subsequent decode steps.
-    The caches are laid out in decode ring order (slot = t mod
-    capacity)."""
+    Attention caches are laid out in decode ring order (slot = t mod
+    capacity); recurrent states need no padding and pass through."""
     logits, _, caches = forward(cfg, model, batch, want_caches=True)
     t = batch["tokens"].shape[1]
     if pad_cache_to is not None:
@@ -293,7 +445,9 @@ def prefill(cfg: ArchConfig, model: Transformer, batch: dict,
             slots = torch.arange(cap, device=a.device)
             return a[:, base + ((slots - base) % cap)]
 
-        caches = [{k: fix(v) for k, v in c.items()} for c in caches]
+        caches = [{k: fix(v) for k, v in c.items()}
+                  if kind.startswith("attn") else c
+                  for kind, c in zip(cfg.layer_kinds(), caches)]
     return logits[:, -1, :], caches
 
 
@@ -301,14 +455,15 @@ def decode_step(cfg: ArchConfig, model: Transformer, tokens: torch.Tensor,
                 caches: list, lengths: torch.Tensor, *,
                 use_kernel: bool = True):
     """One decode step.  tokens: [B, 1]; lengths: [B] int32 tokens so
-    far.  Writes the new K/V rows into ``caches`` in place.  Returns
-    (logits [B, V], caches, lengths + 1).  ``use_kernel=False`` attends
-    by the reference's jnp branch in every layer."""
+    far.  Writes the new K/V rows and the new recurrent states into
+    ``caches`` in place.  Returns (logits [B, V], caches, lengths + 1).
+    ``use_kernel=False`` attends by the reference's jnp branch in every
+    layer."""
     if cfg.rope == "mrope":
         positions = lengths[None, :, None].expand((3,) + tokens.shape)
     else:
         positions = lengths[:, None]
     x, _ = _embed(cfg, model, {"tokens": tokens}, positions=positions)
     for layer, cache in zip(model.layers, caches):
-        x, _ = layer(x, positions, cache, lengths, use_kernel=use_kernel)
+        x, _, _ = layer(x, positions, cache, lengths, use_kernel=use_kernel)
     return _logits(cfg, model, x)[:, 0, :], caches, lengths + 1

@@ -1,8 +1,11 @@
-"""``chip_smoke.py``'s AR data-plane phase, rehearsed on the CPU at a
-tiny size: the same functions the card runs, with the kernels' plain
-versions.  The card-only pieces (``torch.cuda.synchronize``, the
-kernels' launch counts, which stay 0 on the CPU) are stubbed."""
+"""``chip_smoke.py``'s AR data-plane and serve phases, rehearsed on the
+CPU at a tiny size: the same functions the card runs, with the kernels'
+plain versions; the serve runs of Yi-6B and of the recurrent and MoE
+families (RecurrentGemma-2B, RWKV6-7B, Mixtral-8x7B) at their smoke
+widths.  The card-only pieces (``torch.cuda.synchronize``, the kernels'
+launch counts, which stay 0 on the CPU) are stubbed."""
 import importlib.util
+import json
 from pathlib import Path
 
 import pytest
@@ -117,6 +120,146 @@ def test_serve_phase_runs_and_checks_itself(smoke, monkeypatch):
     assert 0 <= sv["late"] < 1e-5        # float32: the two paths agree
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "rwkv6_7b",
+                                  "mixtral_8x7b"])
+def test_family_serve_phase_runs_and_checks_itself(smoke, monkeypatch, arch):
+    """Phase 6's serve run at each family's smoke widths: decode_attn
+    launches wanted for the attention layers only (none for RWKV), the
+    late step through both attention paths on cloned recurrent states,
+    and Mixtral's MoE stats of that step."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    sz = _serve_sizes(smoke, monkeypatch, arch=arch, prompt_len=20)
+    cfg = smoke.serve_config(sz)
+    steps = sz.prompt_len + sz.tokens
+    n_attn = sum(k.startswith("attn") for k in cfg.layer_kinds())
+    assert n_attn == {"recurrentgemma_2b": 1, "rwkv6_7b": 0,
+                      "mixtral_8x7b": 2}[arch]
+    real = smoke.read_launches
+
+    def as_on_card():
+        counts = real()
+        counts.update(decode_attn=n_attn * steps, armatch=1)
+        return counts
+    monkeypatch.setattr(smoke, "read_launches", as_on_card)
+    sv = smoke.run_serve(sz, "cpu")
+    assert sv["n_attn"] == n_attn and sv["steps"] == steps
+    assert sv["instance"] == (None if arch == "rwkv6_7b" else "f32_d16")
+    assert sv["res"].resolved == f"decode:{cfg.name}"
+    assert 0 <= sv["late"] < 1e-5 and sv["flips"] == []
+    assert len(sv["overflow"]) == (2 if arch == "mixtral_8x7b" else 0)
+    assert all(0 <= f <= 1 for f in sv["overflow"])
+    # the serve run moved every recurrent state off zero, in place
+    for kind, c in zip(cfg.layer_kinds(), sv["res"].caches):
+        state = {"rec": lambda: c["rec"]["h"],
+                 "rwkv": lambda: c["tmix"]["wkv"]}.get(kind)
+        if state is not None:
+            assert float(state().abs().max()) > 0
+
+
+@pytest.mark.parametrize("flip", ["one", "all", "fault", "overflow"])
+def test_late_step_leaves_out_requests_whose_routing_flipped(
+        smoke, monkeypatch, flip):
+    """The late step's plain path given other experts for request 0 (or
+    for every request): that request is counted as flipped and left out
+    of the logit difference, with its MoE input where it flipped and the
+    router's margin there.  The phase fails with every request flipped
+    (nothing is left to compare), with a flipped request whose MoE input
+    differs between the steps (a fault confined to it: here another
+    token), and with a flip while a MoE layer drops choices."""
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    sz = _serve_sizes(smoke, monkeypatch, arch="mixtral_8x7b")
+    cfg = smoke.serve_config(sz)
+    res = serve.run(cfg, 4, 6, 2, device="cpu")
+    real_route, real_step, plain = moe.route, T.decode_step, [False]
+
+    def route(xt, router, k):
+        probs, gates, ids = real_route(xt, router, k)
+        if plain[0]:          # the next experts, for the chosen requests
+            rows = slice(None) if flip == "all" else slice(0, 1)
+            ids = ids.clone()
+            ids[:, rows] = (ids[:, rows] + 1) % router.shape[1]
+        return probs, gates, ids
+
+    def step(cfg, model, tokens, *args, use_kernel=True, **kw):
+        plain[0] = not use_kernel
+        if plain[0] and flip == "fault":
+            tokens = tokens.clone()
+            tokens[0] = (tokens[0] + 1) % cfg.vocab
+        try:
+            return real_step(cfg, model, tokens, *args,
+                             use_kernel=use_kernel, **kw)
+        finally:
+            plain[0] = False
+    monkeypatch.setattr(moe, "route", route)
+    monkeypatch.setattr(T, "decode_step", step)
+    if flip == "overflow":    # a capacity of one choice an expert
+        monkeypatch.setattr(moe, "capacity", lambda cfg, n: 1)
+    want = {"all": "every request's expert", "fault": "not a near tie",
+            "overflow": "dropped choices"}.get(flip)
+    if want is not None:
+        with pytest.raises(RuntimeError, match=want):
+            smoke.late_step(cfg, res)
+        return
+    late, stats, flips = smoke.late_step(cfg, res)
+    assert late < 1e-5 and len(stats) == cfg.n_layers
+    assert [(f["request"], f["layer"]) for f in flips] == [(0, 0)]
+    assert flips[0]["input"] < 1e-5 and flips[0]["margin"] >= 0
+    assert all(float(st["overflow_frac"]) == 0 for st in stats)
+
+
+def test_family_serve_phase_counts_attention_layers_only(smoke, monkeypatch):
+    """RecurrentGemma's launch count is its attention layers x steps, not
+    all of its layers."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    sz = _serve_sizes(smoke, monkeypatch, arch="recurrentgemma_2b")
+    cfg = smoke.serve_config(sz)
+    real = smoke.read_launches
+    steps = sz.prompt_len + sz.tokens
+    monkeypatch.setattr(smoke, "read_launches", lambda: {
+        **real(), "decode_attn": cfg.n_layers * steps, "armatch": 1})
+    with pytest.raises(RuntimeError, match="1 attention layers"):
+        smoke.run_serve(sz, "cpu")
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "rwkv6_7b",
+                                  "mixtral_8x7b"])
+def test_family_card_vs_cpu_runs_the_smoke_config(smoke, arch):
+    """Phase 6's card-against-CPU run, at the sizes it uses: the smoke
+    config, 48 steps, RecurrentGemma's 16-row ring cache wrapping."""
+    sz = smoke.FAMILY_SMALL[arch]
+    cfg = smoke.serve_config(sz)
+    assert cfg.name.endswith("-smoke") and cfg.compute_dtype == torch.float32
+    steps = sz.prompt_len + sz.tokens
+    assert steps >= 48 and (cfg.window is None or steps > cfg.window)
+    assert smoke.run_serve_card_vs_cpu(sz, "cpu") == {"rel": 0.0,
+                                                      "steps": steps}
+
+
+def test_family_sizes_are_the_published_widths(smoke):
+    """RecurrentGemma-2B and RWKV6-7B at full width and depth, Mixtral at
+    full width and 8 layers; the decode_attn shapes phase 2 checks."""
+    rg = smoke.serve_config(smoke.RG_FULL)
+    assert (rg.n_layers, rg.d_model, rg.n_heads, rg.n_kv_heads, rg.d_head,
+            rg.d_ff, rg.vocab, rg.window) == \
+        (26, 2560, 10, 1, 256, 7680, 256000, 2048)
+    assert rg.layer_kinds().count("attn+dense") == 8
+    assert smoke.attn_shape(smoke.RG_FULL) == (16, 10, 1, 256, 1088)
+    assert smoke.attn_shape(smoke.MIXTRAL_FULL) == (16, 32, 8, 128, 96)
+    rw = smoke.serve_config(smoke.RWKV_FULL)
+    assert (rw.n_layers, rw.d_model, rw.rwkv.n_heads, rw.rwkv.d_head,
+            rw.d_ff) == (32, 4096, 64, 64, 14336)
+    mx = smoke.serve_config(smoke.MIXTRAL_FULL)
+    assert (mx.n_layers, mx.d_model, mx.n_heads, mx.n_kv_heads,
+            mx.moe.num_experts, mx.moe.top_k, mx.moe.d_ff, mx.window) == \
+        (8, 4096, 32, 8, 8, 2, 14336, 4096)
+    for sz in (smoke.RG_FULL, smoke.RWKV_FULL, smoke.MIXTRAL_FULL):
+        cfg = smoke.serve_config(sz)
+        assert cfg.compute_dtype == torch.bfloat16
+        assert cfg.param_dtype == torch.float32 and sz.requests == 16
+
+
 def test_serve_phase_fails_without_kernel_launches(smoke, monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     with pytest.raises(RuntimeError, match="decode_attn launches"):
@@ -162,3 +305,33 @@ def test_timed_matches_kernels_by_function_name(smoke, event, want):
     name, read out of the trace's demangled names."""
     assert smoke._base_name(event) == want
     assert smoke._base_name(event).startswith(want[:8])
+
+
+def test_timed_counts_only_the_loop_range(smoke, monkeypatch, tmp_path):
+    """``_device_events(after=...)`` keeps the device events that start
+    in the named range (less half the settle time), not the untimed call
+    made before it, and fails on a trace without the range."""
+    monkeypatch.setattr(smoke, "ROOT", tmp_path)
+    t0, pad = 1.0e6, smoke.SETTLE_S / 2 * 1e6
+    trace = [
+        {"cat": "kernel", "name": "k_warm", "ts": t0 - 2 * pad, "dur": 5},
+        {"cat": "user_annotation", "name": smoke.TIMED_RANGE, "ts": t0,
+         "dur": 100},
+        {"cat": "kernel", "name": "k_early_clock", "ts": t0 - 1, "dur": 5},
+        {"cat": "kernel", "name": "k_loop", "ts": t0 + 10, "dur": 5},
+        {"cat": "gpu_memcpy", "name": "copy", "ts": t0 + 20, "dur": 1},
+        {"cat": "cpu_op", "name": "aten::add", "ts": t0 + 30, "dur": 1},
+    ]
+
+    class Prof:
+        def __init__(self, events):
+            self.events = events
+
+        def export_chrome_trace(self, path):
+            Path(path).write_text(json.dumps({"traceEvents": self.events}))
+    names = [e["name"] for e in smoke._device_events(
+        Prof(trace), "t", after=smoke.TIMED_RANGE)]
+    assert names == ["k_early_clock", "k_loop", "copy"]
+    assert len(smoke._device_events(Prof(trace), "t")) == 4
+    with pytest.raises(RuntimeError, match="no 'chip_smoke_timed_loop'"):
+        smoke._device_events(Prof(trace[:1]), "t", after=smoke.TIMED_RANGE)

@@ -141,6 +141,25 @@ def test_check_decode_attn_runs_on_the_cpu_and_catches_errors(monkeypatch):
         checks.check_decode_attn("cpu", (2, 8, 2, 32, 64))
 
 
+def test_check_decode_attn_takes_several_serve_shapes(monkeypatch):
+    """RecurrentGemma-2B's serve shape beside a small one: each at full
+    and split-edge lengths; a plan that names another instance than
+    ``bf16_d256`` at D 256 is caught."""
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.decode_attn.ops import Plan
+    rg = (2, 10, 1, 256, 300)
+    assert checks.check_decode_attn("cpu", (2, 8, 2, 32, 64), rg) == 0.0
+    real = checks.plan_for
+
+    def wrong(q, k, v, hkv):
+        how = real(q, k, v, hkv)
+        return Plan("bf16_d128", how.n_split) \
+            if how.instance == "bf16_d256" else how
+    monkeypatch.setattr(checks, "plan_for", wrong)
+    with pytest.raises(AssertionError, match="want bf16_d256"):
+        checks.check_decode_attn("cpu", rg)
+
+
 # ---- the kernel's launch plan (a pure function of shapes, strides and
 # dtype; the card runs what it names) ---------------------------------------
 
@@ -158,6 +177,10 @@ def _strides(b, s, hkv, width):
     ("one unit", (1, 8, 1, 64, 64, torch.bfloat16), ("bf16_d64", 1)),
     ("a unit and one row", (1, 8, 1, 64, 65, torch.float32), ("f32_d64", 2)),
     ("G 16, D 256", (1, 16, 1, 256, 300, torch.bfloat16), ("bf16_d256", 4)),
+    ("recurrentgemma_2b serve", (16, 10, 1, 256, 1088, torch.bfloat16),
+     ("bf16_d256", 4)),
+    ("mixtral_8x7b serve", (16, 32, 8, 128, 96, torch.bfloat16),
+     ("bf16_d128", 1)),
     ("a long cache, one head", (1, 8, 1, 128, 4096, torch.bfloat16),
      ("bf16_d128", 8)),
     ("a full wave of heads", (512, 8, 1, 128, 4096, torch.bfloat16),

@@ -11,10 +11,16 @@ from repro_torch.core import profiles, serverless, store
 from repro_torch.configs import smoke_config
 from repro_torch.data import ringbuffer
 from repro_torch.launch import serve
-from repro_torch.models import transformer
+from repro_torch.models import griffin, moe, rwkv, transformer
 from repro_torch.obs import latency
 from repro_torch.runtime.overlap import IngestStager
 from repro_torch.stream import ingest
+
+def _gen() -> torch.Generator:
+    """A generator where the constructor under test draws: the card's
+    when there is one."""
+    return torch.Generator("cuda" if torch.cuda.is_available() else "cpu")
+
 
 CONSTRUCTORS = {
     "ringbuffer.create": lambda: ringbuffer.create(4, (2,)).store,
@@ -36,6 +42,22 @@ CONSTRUCTORS = {
         lambda: transformer.init_params(smoke_config("yi_6b")).embed,
     "transformer.init_caches":
         lambda: transformer.init_caches(smoke_config("yi_6b"), 2, 4)[0]["k"],
+    "griffin.init_rglru_block": lambda: griffin.init_rglru_block(
+        _gen(), 16, griffin.RGLRUConfig(d_rnn=16), torch.float32)["w_x"],
+    "rwkv.init_time_mix": lambda: rwkv.init_time_mix(
+        _gen(), 16, rwkv.RWKVConfig(n_heads=2, d_head=8, decay_lora=4),
+        torch.float32)["wr"],
+    "rwkv.init_channel_mix": lambda: rwkv.init_channel_mix(
+        _gen(), 16, 32, torch.float32)["wk"],
+    "moe.init_moe": lambda: moe.init_moe(
+        _gen(), 16, moe.MoEConfig(num_experts=4, top_k=2, d_ff=32),
+        torch.float32)["w_in"],
+    "transformer.init_caches[rwkv]":
+        lambda: transformer.init_caches(smoke_config("rwkv6_7b"), 2, 4)[0][
+            "tmix"]["wkv"],
+    "transformer.init_caches[rec]":
+        lambda: transformer.init_caches(smoke_config("recurrentgemma_2b"),
+                                        2, 4)[0]["rec"]["h"],
     "convert.caches_from_numpy":
         lambda: convert.caches_from_numpy(smoke_config("yi_6b"), [{"pos0": {
             "attn": {"k": np.zeros((2, 1, 4, 2, 16), np.float32),

@@ -3,8 +3,9 @@ step resolves through the AR function registry, and the tokens it
 generates -- prompts decoded teacher-forced, then greedy argmax -- are
 the JAX serving loop's (``repro.launch.serve``, as
 ``tests/test_system.py::test_generation_via_ar_registry`` drives it) on
-the same converted weights and prompts.  Compute is float32, so that no
-bfloat16 rounding can flip an argmax."""
+the same converted weights and prompts, for the dense, MoE, RWKV6 and
+RG-LRU families.  Compute is float32, so that no bfloat16 rounding can
+flip an argmax."""
 import dataclasses
 import subprocess
 import sys
@@ -49,7 +50,9 @@ def _jax_generate(cfg, params, prompts: np.ndarray, tokens: int):
     return np.concatenate(gen, 1), np.asarray(logits)
 
 
-@pytest.mark.parametrize("arch", ["yi_6b", "musicgen_large", "qwen2_vl_7b"])
+@pytest.mark.parametrize("arch", ["yi_6b", "musicgen_large", "qwen2_vl_7b",
+                                  "recurrentgemma_2b", "rwkv6_7b",
+                                  "mixtral_8x7b", "kimi_k2_1t_a32b"])
 def test_serve_generates_the_jax_tokens(arch):
     jcfg = dataclasses.replace(jax_smoke_config(arch),
                                compute_dtype=jnp.float32)
@@ -62,6 +65,8 @@ def test_serve_generates_the_jax_tokens(arch):
     res = serve.run(tcfg, b, plen, ntok, device="cpu", model=model)
     assert res.resolved == f"decode:{tcfg.name}"
     assert res.tokens.shape == (b, ntok) and res.finite
+    # the plain version attends on the CPU: no kernel launch, whatever
+    # the model's attention layers
     assert len(res.secs) == plen + ntok and res.launches == 0
     assert torch.equal(res.lengths, torch.full((b,), plen + ntok,
                                                dtype=torch.int32))
@@ -91,3 +96,18 @@ def test_serve_entry_point_on_the_cpu():
     assert r.returncode == 0, r.stderr
     assert "resolved decode:yi-6b-smoke via AR profile" in r.stdout
     assert "generated (2, 4) tokens" in r.stdout
+
+
+def test_serve_entry_point_runs_recurrentgemma_on_the_cpu():
+    """The README's command: RecurrentGemma-2B's smoke config, 20 steps
+    through a ring cache of 16 rows (its smoke window)."""
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "recurrentgemma_2b", "--smoke", "--requests", "2", "--prompt-len",
+         "12", "--tokens", "8", "--device", "cpu"],
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "resolved decode:recurrentgemma-2b-smoke via AR profile" \
+        in r.stdout
+    assert "generated (2, 8) tokens" in r.stdout
