@@ -76,7 +76,22 @@ Phases, in order; any failure raises and the exit code is not 0:
    fit in 80 GB), 16 requests of 64 prompt ids and 32 generated; each
    family's smoke config in float32 on the card and on the CPU with the
    same weights (RecurrentGemma's ring cache of 16 rows wraps); and
-   Kimi-K2's full parameter count, on the meta device.
+   Kimi-K2's full parameter count, on the meta device;
+7. the edge fleet's data plane: 8 shards in 2 regions of 4, each at
+   phase 3's full width (65,536 rows a tick, a 2^22-row ring), two core
+   ranks under a fleet core budget of 1,024 and a fog budget of 768 a
+   region, 16 ticks staged and 16 fused (cold and hot by turns of 4).
+   Staged and fused must agree bitwise; both budgets must bind on every
+   hot tick and neither on a cold one; fused_tick must launch once a
+   shard a tick on the fused path and window_reduce five times on the
+   staged path, never a simple instance; a 1-shard fleet must equal the
+   stream executor bitwise, and with non-binding budgets the fleet must
+   equal 8 lone executors; at 4,096 rows a shard, a degraded run (an
+   unhealthy shard, an inactive one, a stalled uplink, a replay tick)
+   must give bitwise the same on the card and the CPU, the core outputs
+   within 1e-6.  Then timed and profiled as the single tick is; its
+   launch counts join the fused_tick and window_reduce entries of the
+   kernels line (``fleet_launches``).
 
 The line before the last is a JSON object of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -1464,7 +1479,43 @@ def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
     del sv, res
     _free()
     kernels["kernels"].append(run_families(rg_sz, device, errs))
+    _free()
+    run_fleet_phase(sz, FLEET, device, kernels["kernels"])
     return kernels
+
+
+def run_fleet_phase(sz: Sizes, fz: FleetSizes, device, rows: list) -> None:
+    """Phase 7: the fleet run and its checks (``run_fleet``), its timing
+    and profile lines; the fleet's launch counts join the fused_tick and
+    window_reduce entries of the kernels line (``rows``)."""
+    from repro_torch.testing import assert_bitwise, assert_close
+    t0 = time.perf_counter()
+    fl = run_fleet(sz, fz, SMALL, FLEET_SMALL, device, assert_bitwise,
+                   assert_close)
+    s = fz.shards
+    print(f"phase 7 fleet path: {s} shards in {fz.regions} regions of "
+          f"{fz.edges}, {sz.batch} rows a shard a tick, core budget "
+          f"{fz.core_budget} over {fz.num_core} core ranks, fog budget "
+          f"{fz.fog_budget} a region; staged == fused bitwise over "
+          f"{fz.ticks} ticks, both budgets bound on every hot tick and "
+          f"neither on a cold one; a 1-shard fleet == the stream executor "
+          f"bitwise over {fl['single']} ticks; the fleet == {s} lone "
+          f"executors over {len(fz.checks)} ticks ({fl['oracle']} windows "
+          f"escalated, no budget binding); card == CPU at {SMALL.batch} "
+          f"rows a shard over {SMALL.ticks} degraded ticks, core outputs "
+          f"within {fl['card_vs_cpu_err']:.3e}; launches "
+          f"{_nonzero(fl['results']['fused']['launches'])} (fused), "
+          f"{_nonzero(fl['results']['staged']['launches'])} (staged); "
+          f"{time.perf_counter() - t0:.1f} s")
+    print_fleet(sz, fz, fl)
+    profile_fleet(sz, fz, device)
+    for row in rows:
+        path = {"fused_tick": "fused", "window_reduce": "staged"}.get(
+            row["name"])
+        if path is not None and "fleet_launches" not in row:
+            n = fl["results"][path]["launches"][row["name"]]
+            row["fleet_launches"] = n
+            row["fleet_launches_a_tick"] = n / fz.ticks
 
 
 def print_serve(tag: str, sz: ServeSizes, sv: dict) -> None:
@@ -1551,6 +1602,359 @@ def run_families(rg_sz: ServeSizes, device, errs: dict) -> dict:
           f"{T.param_count(kimi, model)} parameters, "
           f"{T.active_param_count(kimi, model)} active a token")
     return row
+
+
+# ---- phase 7: the edge fleet at full width ---------------------------------
+
+class FleetSizes(NamedTuple):
+    regions: int        # R
+    edges: int          # edge shards a region
+    num_core: int       # core ranks (region 0's first edge columns)
+    core_budget: int    # fleet-wide core slots a tick
+    fog_budget: int     # escalations a region forwards a tick
+    ticks: int          # measured ticks a path
+    checks: tuple       # tick indices of the oracle and 1-shard checks
+
+    @property
+    def shards(self) -> int:
+        return self.regions * self.edges
+
+
+#: the layout of ``benchmarks/fleet.py``'s region run (8 shards in 2
+#: regions of 4) and ``tests/test_fleet_regions.py``, each shard at the
+#: single tick's full width (``FULL``); two core ranks, each at the
+#: single tick's core capacity (512), under a fleet budget of 1,024.
+#: The fog budget is 768 a region: 2 x 768 survivors exceed the core
+#: budget on a hot tick (512 would not: 2 x 512 == 1,024), and a cold
+#: region escalates about 190 windows a tick, so neither binds then
+FLEET = FleetSizes(regions=2, edges=4, num_core=2, core_budget=1024,
+                   fog_budget=768, ticks=16, checks=(0, 1, 4, 5))
+#: the same layout at a size the CPU runs too (the card against the CPU)
+FLEET_SMALL = FleetSizes(regions=2, edges=4, num_core=2, core_budget=64,
+                         fog_budget=48, ticks=6, checks=(0, 4))
+SMALL = Sizes(batch=4096, d=16, window=64, stride=32, capacity=1 << 16,
+              ticks=6, cpu_ticks=6, dedupe=0, warmup=1)
+#: core outputs (8 layers of tanh(h @ p)), the card against the CPU
+FLEET_CORE = ("tanh/matmul rounding differs between CPU and CUDA "
+              "libraries", 1e-6, 1e-6)
+
+
+def make_fleet(sz: Sizes, fz: FleetSizes, device, fused=True, regions=None,
+               edges=None, num_core=None, core_budget=None,
+               fog_budget=-1):
+    """A fleet of ``regions x edges`` shards (``fz``'s by default) at the
+    single tick's per-shard config and core stand-in; ``fog_budget=None``
+    is non-binding."""
+    from repro_torch import convert
+    from repro_torch.core import pipeline as P
+    from repro_torch.core import rules as R
+    from repro_torch.stream import StreamConfig
+    from repro_torch.stream.fleet import FleetConfig, FleetExecutor
+    cfg = StreamConfig(micro_batch=sz.batch, window=sz.window,
+                       stride=sz.stride, capacity=sz.capacity,
+                       lateness=64.0, fused=fused)
+    engine = _engine(R)
+    p = convert.params_from_numpy(
+        (np.random.default_rng(0).standard_normal((5 + sz.d, 5 + sz.d))
+         * 0.1).astype(np.float32), device)
+    pipe = P.two_tier_pipeline(_edge_fn, _core_fn, engine, core_params=p)
+    rr = fz.regions if regions is None else regions
+    ee = fz.edges if edges is None else edges
+    fx = FleetExecutor(FleetConfig(
+        stream=cfg, num_shards=rr * ee, num_regions=rr,
+        num_core=fz.num_core if num_core is None else num_core,
+        core_budget=fz.core_budget if core_budget is None else core_budget,
+        fog_budget=fz.fog_budget if fog_budget == -1 else fog_budget),
+        engine, pipe, device=device)
+    return fx, fx.init_state(sz.d)
+
+
+def fleet_batch(sz: Sizes, fz: FleetSizes, i: int, device, shards=None):
+    """Tick ``i`` of the fleet's feed: shard ``s``'s batch made on the
+    device from seed 10,000 + 100 s + i, hot (the signal shifted by 0.5,
+    as ``tick_batch``'s hot regime) every other
+    :data:`FLEET_HOT_EVERY` ticks."""
+    s = fz.shards if shards is None else shards
+    items = torch.empty((s, sz.batch, sz.d), device=device)
+    for k in range(s):
+        gen = torch.Generator(device).manual_seed(10_000 + 100 * k + i)
+        items[k] = torch.randn((sz.batch, sz.d), generator=gen,
+                               device=device)
+    if fleet_hot(i):
+        items[:, :, 0] += 0.5
+    ts = (torch.arange(sz.batch, dtype=torch.float32, device=device)
+          + float(i * sz.batch)).expand(s, sz.batch)
+    return items, ts
+
+
+#: the fleet feed's regime flips every this many ticks
+FLEET_HOT_EVERY = 4
+
+
+def fleet_hot(i: int) -> bool:
+    return (i // FLEET_HOT_EVERY) % 2 == 1
+
+
+def drive_fleet(fx, state, sz: Sizes, fz: FleetSizes, device, ticks):
+    """``ticks`` fleet ticks, each timed between two synchronizes; the
+    outputs, and each tick's cumulative fog-shed and core-overflow
+    counters (read after the loop)."""
+    secs, outs, counters = [], [], []
+    for i in range(ticks):
+        items, ts = fleet_batch(sz, fz, i, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = fx.step(state, items, ts)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        outs.append(out)
+        counters.append(torch.stack([state.fog_shed.sum(),
+                                     state.fleet_core_overflow[0].long()]))
+    counts = torch.stack(counters).cpu().numpy()
+    return state, secs, outs, np.diff(counts, axis=0, prepend=0)
+
+
+def _fleet_state_bitwise(bitwise, a, b, what):
+    """Two fleet states' leaves, less the ring's and carries' wall-time
+    column (two runs stamp different clocks)."""
+    cols = [0] + list(range(2, a.shard.rb.store.shape[-1]))
+    bitwise(a.shard.rb.store[..., cols], b.shard.rb.store[..., cols],
+            f"{what} ring")
+    bitwise(a.shard.carry[..., cols], b.shard.carry[..., cols],
+            f"{what} carry")
+    for f in ("head", "tail"):
+        bitwise(getattr(a.shard.rb, f), getattr(b.shard.rb, f),
+                f"{what} ring {f}")
+    for f in ("carry_valid", "max_ts"):
+        bitwise(getattr(a.shard, f), getattr(b.shard, f), f"{what} {f}")
+    for f in ("watermark", "region_watermark", "late_excluded"):
+        bitwise(getattr(a, f), getattr(b, f), f"{what} {f}")
+
+
+def run_fleet(sz: Sizes, fz: FleetSizes, small: Sizes, fz_small: FleetSizes,
+              device, bitwise, close) -> dict:
+    """Phase 7: the fleet at ``sz`` a shard, staged and fused, each for
+    ``fz.ticks`` ticks with the launch counts zeroed just before; then
+    its checks, each failing the run:
+
+    1. staged == fused, bitwise, every output, counter and ring;
+    2. a 1-shard fleet == the stream executor (``make_executor``),
+       bitwise, every output and counter;
+    3. with non-binding budgets, the fleet's aggregates, features,
+       window counts, consequences and escalations == S lone executors;
+    4. at ``small`` a shard, the card == the CPU with one unhealthy
+       shard, one inactive, one stalled uplink and one replay tick:
+       bitwise, the core outputs within ``FLEET_CORE``;
+    5. fog shed and core overflow on every hot tick, neither on a cold;
+    6. fused_tick launched S times a tick on the fused path,
+       window_reduce 5 S on the staged, never a simple instance."""
+    from repro_torch.stream.executor import StepOutput
+    from repro_torch.testing import Tolerance
+    s = fz.shards
+    results = {}
+    for name, fused in (("staged", False), ("fused", True)):
+        fx, state = make_fleet(sz, fz, device, fused=fused)
+        state, *_ = drive_fleet(fx, state, sz, fz, device, sz.warmup)
+        del fx, state
+        fx, state = make_fleet(sz, fz, device, fused=fused)
+        zero_launches()
+        state, secs, outs, deltas = drive_fleet(fx, state, sz, fz, device,
+                                                fz.ticks)
+        launches, simple = read_launches(), read_simple()
+        results[name] = dict(state=state, secs=secs, outs=outs,
+                             deltas=deltas, launches=launches,
+                             metrics=state.metrics.as_dict())
+        del fx
+        if any(simple.values()):
+            _fail(f"fleet {name} path launched a simple instance: {simple}")
+        kernel, other = ("fused_tick", "window_reduce") if fused \
+            else ("window_reduce", "fused_tick")
+        want = (1 if fused else 5) * s * fz.ticks
+        if launches[kernel] != want or launches[other]:
+            _fail(f"fleet {name} path launched {kernel} "
+                  f"{launches[kernel]} times and {other} {launches[other]} "
+                  f"over {fz.ticks} ticks of {s} shards, want {want} and 0")
+    st, fu = results["staged"], results["fused"]
+    for i, (a, b) in enumerate(zip(st["outs"], fu["outs"])):
+        for field in StepOutput._fields:
+            bitwise(getattr(a, field), getattr(b, field),
+                    f"fleet staged vs fused tick {i} {field}")
+    if st["metrics"] != fu["metrics"]:
+        _fail(f"fleet staged vs fused metrics: {st['metrics']} != "
+              f"{fu['metrics']}")
+    _fleet_state_bitwise(bitwise, st["state"], fu["state"],
+                         "fleet staged vs fused")
+    for i, (shed, over) in enumerate(fu["deltas"]):
+        binds = shed > 0 and over > 0
+        if binds != fleet_hot(i) or (not binds and (shed or over)):
+            _fail(f"fleet tick {i} ({'hot' if fleet_hot(i) else 'cold'})"
+                  f": {shed} shed by the fog budgets, {over} over the core "
+                  f"budget; both must bind on hot ticks, neither on cold")
+    m = fu["metrics"]["fleet"]
+    if m["items_offered"] != m["items_accepted"] + m["items_rejected"] \
+            + m["items_deduped"]:
+        _fail(f"fleet conservation broken: {m}")
+
+    single = fleet_vs_executor(sz, fz, device, bitwise)
+    oracle = fleet_vs_lone(sz, fz, device, bitwise)
+    err = fleet_card_vs_cpu(small, fz_small, device, bitwise, close,
+                            Tolerance(*FLEET_CORE))
+    return dict(results=results, single=single, oracle=oracle,
+                card_vs_cpu_err=err)
+
+
+def fleet_vs_executor(sz: Sizes, fz: FleetSizes, device, bitwise) -> int:
+    """Check 2: one shard, one core rank at the stream executor's core
+    capacity, on ``fz.checks``'s ticks of shard 0's feed."""
+    fx, fs = make_fleet(sz, fz, device, regions=1, edges=1, num_core=1,
+                        core_budget=sz.batch // sz.stride // 4,
+                        fog_budget=None)
+    ex, es = make_executor(sz, device, fused=True)
+    for i in fz.checks:
+        items, ts = fleet_batch(sz, fz, i, device, shards=1)
+        fs, fo = fx.step(fs, items, ts)
+        es, eo = ex.step(es, items[0], ts[0])
+        for field in eo._fields:
+            bitwise(getattr(fo, field)[0], getattr(eo, field),
+                    f"1-shard fleet vs executor tick {i} {field}")
+    fm, em = fs.metrics.as_dict()["shard"], es.metrics.as_dict()
+    fm = {k: v[0] for k, v in fm.items()}
+    if fm != em:
+        _fail(f"1-shard fleet vs executor metrics: {fm} != {em}")
+    if not em["core_overflow"]:
+        _fail(f"1-shard check: the core budget never bound: {em}")
+    return len(fz.checks)
+
+
+def fleet_vs_lone(sz: Sizes, fz: FleetSizes, device, bitwise) -> int:
+    """Check 3: the fleet with non-binding budgets against one stream
+    executor a shard, on ``fz.checks``'s ticks."""
+    s = fz.shards
+    nw = sz.batch // sz.stride
+    fx, fs = make_fleet(sz, fz, device, core_budget=s * nw,
+                        fog_budget=None)
+    lone = [make_executor(sz, device, fused=True) for _ in range(s)]
+    states = [st for _, st in lone]
+    for i in fz.checks:
+        items, ts = fleet_batch(sz, fz, i, device)
+        fs, fo = fx.step(fs, items, ts)
+        for k, (ex, _) in enumerate(lone):
+            states[k], eo = ex.step(states[k], items[k], ts[k])
+            for field in ("aggregates", "features", "window_count",
+                          "consequence", "escalated"):
+                bitwise(getattr(fo, field)[k], getattr(eo, field),
+                        f"fleet vs lone shard {k} tick {i} {field}")
+    md = fs.metrics.as_dict()
+    escalated = md["fleet"]["windows_escalated"]
+    if md["fleet_core_overflow"] or not escalated \
+            or sum(md["fog_shed"]) or sum(md["core_processed"]) != escalated:
+        _fail(f"fleet oracle: budgets bound or nothing escalated: {md}")
+    return escalated
+
+
+def fleet_card_vs_cpu(sz: Sizes, fz: FleetSizes, device, bitwise, close,
+                      tol) -> float:
+    """Check 4: the same degraded run on the card and on the CPU (the
+    card's inputs, copied): shard 5 unhealthy and behind from tick 1,
+    shard 6 inactive from tick 2, shard 3's uplink stalled and half of
+    shard 4's at tick 3, shard 2's batch a replay at tick 4.  Returns
+    the largest core-output difference."""
+    from repro_torch.stream import MODE_REPLAY
+    from repro_torch.stream.executor import StepOutput
+    s = fz.shards
+    runs = {}
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        runs[name] = list(make_fleet(sz, fz, dev))
+    outs = {"card": [], "cpu": []}
+    for i in range(sz.ticks):
+        items, ts = fleet_batch(sz, fz, i, device)
+        ts = ts.clone()
+        ts[5] -= 100.0 if i >= 1 else 0.0
+        kw = {}
+        if i == 1:
+            health = np.ones(s, bool)
+            health[5] = False
+            for fx, _ in runs.values():
+                fx.set_health(health)
+        if i == 2:
+            active = np.ones(s, bool)
+            active[6] = False
+            for fx, _ in runs.values():
+                fx.set_active(active)
+        if i == 3:
+            offered = np.ones((s, sz.batch), bool)
+            offered[3] = False
+            offered[4, ::2] = False
+            kw["offered"] = offered
+        if i == 4:
+            mode = np.zeros(s, np.int32)
+            mode[2] = MODE_REPLAY
+            kw["mode"] = mode
+            ts[2] -= 3.0 * sz.batch
+        for name, run in runs.items():
+            fx, state = run
+            dev = fx.device
+            state, out = fx.step(state, items.to(dev), ts.to(dev), **kw)
+            run[1] = state
+            outs[name].append(out)
+    err = 0.0
+    for i, (a, b) in enumerate(zip(outs["card"], outs["cpu"])):
+        for field in StepOutput._fields:
+            if field == "outputs":
+                err = max(err, float((a.outputs.cpu() - b.outputs)
+                                     .abs().max()))
+                close(a.outputs, b.outputs, tol,
+                      f"fleet card vs CPU tick {i} outputs")
+            else:
+                bitwise(getattr(a, field), getattr(b, field),
+                        f"fleet card vs CPU tick {i} {field}")
+    card, cpu = runs["card"][1], runs["cpu"][1]
+    _fleet_state_bitwise(bitwise, card, cpu, "fleet card vs CPU")
+    mc, mp = card.metrics.as_dict(), cpu.metrics.as_dict()
+    if mc != mp:
+        _fail(f"fleet card vs CPU metrics: {mc} != {mp}")
+    for key, why in (("late_excluded", "an excluded shard's catch-up"),
+                     ("fog_shed", "the fog budget")):
+        if not sum(mc[key]):
+            _fail(f"fleet card vs CPU: {why} never showed ({key} 0)")
+    if not mc["shard"]["items_replayed"][2]:
+        _fail(f"fleet card vs CPU: the replay tick replayed nothing: {mc}")
+    return err
+
+
+def profile_fleet(sz: Sizes, fz: FleetSizes, device, ticks=4) -> None:
+    """Where a fused fleet tick's time goes, over ``ticks`` ticks."""
+    fx, state = make_fleet(sz, fz, device, fused=True)
+    state, *_ = drive_fleet(fx, state, sz, fz, device, sz.warmup)
+    feed = [fleet_batch(sz, fz, FLEET_HOT_EVERY + i, device)
+            for i in range(ticks)]
+    box = [state]
+
+    def tick(i):
+        box[0], _ = fx.step(box[0], *feed[i])
+    _profile("fleet_fused", ticks, "tick", tick, kernel="fused_tick_kernel")
+    del fx, state, box
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def print_fleet(sz: Sizes, fz: FleetSizes, fl: dict) -> None:
+    """The fleet's timing lines, one a path."""
+    s = fz.shards
+    for name in ("staged", "fused"):
+        r = fl["results"][name]
+        secs = np.asarray(r["secs"])
+        q = np.quantile(secs, [0.5, 0.99])
+        per = {k: v / len(secs) for k, v in _nonzero(r["launches"]).items()}
+        print(f"path fleet {name}: {s} shards ({fz.regions} regions of "
+              f"{fz.edges}) x {sz.batch} rows, "
+              f"{s * sz.batch * len(secs) / secs.sum():.0f} items/s (all "
+              f"shards' rows over all ticks), tick p50 {q[0] * 1e3:.3f} ms, "
+              f"p99 {q[1] * 1e3:.3f} ms over {len(secs)} ticks, launches a "
+              f"tick {per}; fog shed / core overflow a tick "
+              f"{r['deltas'][:, 0].tolist()} / {r['deltas'][:, 1].tolist()}")
 
 
 def main() -> int:

@@ -29,6 +29,7 @@ from repro_torch.core.store import ShardStore
 from repro_torch.data.ringbuffer import RingBuffer
 from repro_torch.models import transformer as T
 from repro_torch.stream.executor import StreamMetrics, StreamState
+from repro_torch.stream.fleet.executor import FleetState
 from repro_torch.stream.ingest import AdmissionState
 
 
@@ -44,8 +45,14 @@ def _t(a, device, dtype=None) -> torch.Tensor:
 def state_from_numpy(ref_state, device: str | torch.device | None = None
                      ) -> StreamState:
     """A reference ``StreamState`` with numpy leaves -> the port's."""
+    return _stream_state(ref_state, device, lead=0)
+
+
+def _stream_state(ref_state, device, lead: int) -> StreamState:
+    """``state_from_numpy`` for a state whose leaves carry ``lead``
+    leading dims (1: a fleet's shard dim)."""
     buf = np.asarray(ref_state.rb.buf)
-    store = np.concatenate([buf, np.zeros_like(buf[:1])])
+    store = np.concatenate([buf, np.zeros_like(buf[..., :1, :])], axis=lead)
     m = ref_state.metrics
     return StreamState(
         rb=RingBuffer(_t(store, device), _t(ref_state.rb.head, device),
@@ -65,21 +72,50 @@ def state_from_numpy(ref_state, device: str | torch.device | None = None
 def state_to_numpy(state: StreamState) -> dict:
     """The port's ``StreamState`` -> nested dict of numpy arrays, keyed
     by the reference's field names, with the reference's ``buf`` and
-    uint32 ``seen``."""
-    def np_(t):
-        return t.detach().cpu().numpy()
-
+    uint32 ``seen``.  Leading dims (a fleet's shards) stay.  The arrays
+    are copies: the ring is written in place by later ticks."""
     return {
-        "rb": {"buf": np_(state.rb.buf), "head": np_(state.rb.head),
-               "tail": np_(state.rb.tail)},
-        "carry": np_(state.carry),
-        "carry_valid": np_(state.carry_valid),
-        "max_ts": np_(state.max_ts),
-        "metrics": {f: np_(getattr(state.metrics, f))
+        "rb": {"buf": _np(state.rb.store[..., :-1, :]),
+               "head": _np(state.rb.head), "tail": _np(state.rb.tail)},
+        "carry": _np(state.carry),
+        "carry_valid": _np(state.carry_valid),
+        "max_ts": _np(state.max_ts),
+        "metrics": {f: _np(getattr(state.metrics, f))
                     for f in StreamMetrics._fields},
-        "adm": {"seen": np_(state.adm.seen).astype(np.uint32),
-                "seen_pos": np_(state.adm.seen_pos)},
+        "adm": {"seen": _np(state.adm.seen).astype(np.uint32),
+                "seen_pos": _np(state.adm.seen_pos)},
     }
+
+
+#: the fleet state's per-shard counter leaves past ``shard``/``fleet``
+_FLEET_LEAVES = ("escalations_sent", "fog_shed", "core_received",
+                 "core_processed", "fleet_core_overflow", "late_excluded",
+                 "watermark", "region_watermark")
+
+
+def fleet_state_from_numpy(ref_state,
+                           device: str | torch.device | None = None
+                           ) -> FleetState:
+    """A reference ``FleetState`` with numpy leaves (each with its
+    leading ``[S]`` shard dim, as the reference's ``init_state`` lays
+    it out) -> the port's, so a reference fleet can be carried across
+    whole after any number of ticks."""
+    m = ref_state.fleet
+    return FleetState(
+        shard=_stream_state(ref_state.shard, device, lead=1),
+        fleet=StreamMetrics(*(_t(getattr(m, f), device)
+                              for f in StreamMetrics._fields)),
+        **{k: _t(getattr(ref_state, k), device) for k in _FLEET_LEAVES})
+
+
+def fleet_state_to_numpy(state) -> dict:
+    """The port's ``FleetState`` -> nested dict of numpy arrays keyed by
+    the reference's field names (see :func:`state_to_numpy`)."""
+    out = {"shard": state_to_numpy(state.shard),
+           "fleet": {f: _np(getattr(state.fleet, f))
+                     for f in StreamMetrics._fields}}
+    out.update({k: _np(getattr(state, k)) for k in _FLEET_LEAVES})
+    return out
 
 
 def histograms_from_numpy(lat_hist, lineage,
@@ -203,5 +239,6 @@ def caches_to_numpy(cfg, caches: list[dict]) -> list[dict]:
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` as a numpy array (bfloat16 as float32)."""
     t = t.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.array((t.float() if t.dtype == torch.bfloat16 else t).numpy())

@@ -60,11 +60,19 @@ def histogram_update_batch(counts: torch.Tensor, values: torch.Tensor,
                            ) -> torch.Tensor:
     """Bucket-increment ``counts`` with a batch of samples: ``values``
     [N] f32 seconds, ``mask`` [N] bool.  Masked-in values are clamped up
-    to the first bucket: a zero latency is a real measurement here."""
+    to the first bucket: a zero latency is a real measurement here.
+    With leading dims (``counts [..., buckets]``, ``values``/``mask``
+    ``[..., N]``: a fleet's shards) each row takes its own samples."""
     e = _edges(edges, counts.device)
     v = torch.maximum(values.to(torch.float32), e[0] * 0.5)
     idx = torch.searchsorted(e, v)
-    return counts.index_add(0, idx, mask.to(counts.dtype))
+    nb = counts.shape[-1]
+    if counts.ndim > 1:
+        rows = torch.arange(counts.numel() // nb, device=counts.device) * nb
+        idx = idx + rows.reshape(counts.shape[:-1] + (1,))
+    return counts.reshape(-1).index_add(
+        0, idx.reshape(-1), mask.to(counts.dtype).reshape(-1)) \
+        .reshape(counts.shape)
 
 
 def histogram_merge(a, b):
@@ -84,12 +92,15 @@ def lineage_init(edges: np.ndarray = DEFAULT_EDGES,
 
 def lineage_update(bank: torch.Tensor, samples: dict,
                    edges: np.ndarray = DEFAULT_EDGES) -> torch.Tensor:
-    """Batch-update stage rows of a lineage bank.  ``samples`` maps stage
-    names to ``(values, mask)`` pairs; other stages keep their counts."""
+    """Batch-update stage rows of a lineage bank ``[..., stages,
+    buckets]`` (leading dims: one bank a fleet shard).  ``samples`` maps
+    stage names to ``(values, mask)`` pairs (``[..., N]``); other stages
+    keep their counts."""
     bank = bank.clone()
     for name, (values, mask) in samples.items():
         i = LINEAGE_STAGES.index(name)     # ValueError -> typo'd stage
-        bank[i] = histogram_update_batch(bank[i], values, mask, edges)
+        bank[..., i, :] = histogram_update_batch(bank[..., i, :], values,
+                                                 mask, edges)
     return bank
 
 

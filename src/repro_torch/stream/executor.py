@@ -163,6 +163,7 @@ class IngestResult(NamedTuple):
     n_accepted: torch.Tensor
     n_dequeued: torch.Tensor
     n_late: torch.Tensor
+    n_late_excluded: torch.Tensor  # admitted, but late vs the fleet ref
     n_replayed: torch.Tensor       # replay-mode records (never late-dropped)
     n_deduped: torch.Tensor        # offered rows dropped by the dedupe window
     n_backfilled: torch.Tensor     # backfill-mode records (never late-dropped)
@@ -183,26 +184,42 @@ def _scalar(v, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def _count(mask: torch.Tensor) -> torch.Tensor:
-    return mask.sum(dtype=torch.int32)
+    """True entries along the last dim (a leading shard dim stays)."""
+    return mask.sum(-1, dtype=torch.int32)
 
 
 def ingest_and_window(cfg: StreamConfig, engine: R.RuleEngine,
                       state: StreamState, items: torch.Tensor,
-                      ts: torch.Tensor, mode=None,
+                      ts: torch.Tensor,
+                      watermark_ts: torch.Tensor | None = None,
+                      offer_mask: torch.Tensor | None = None,
+                      excluded_ref: torch.Tensor | None = None,
+                      replay=None, mode=None,
                       now: torch.Tensor | float = 0.0,
                       tracer=NULL_TRACER) -> IngestResult:
     """enqueue -> dequeue -> watermark -> carry-continuous windows ->
     rule features, on fixed shapes.
 
+    ``watermark_ts``: reference max event time for the late test,
+    defaulting to this stream's own ``state.max_ts``; a fleet passes the
+    fleet-wide minimum of per-shard maxima, so lagging shards hold back
+    window close everywhere.  The shard's own running max only ever
+    advances.  ``offer_mask``: optional [N] bool, which producer slots
+    hold real items this tick (a stalled uplink offers nothing; shapes
+    stay fixed).  ``excluded_ref``: optional fleet reference used only
+    for accounting: items admitted by ``watermark_ts`` but late by it
+    are counted in ``n_late_excluded`` (a straggler-excluded shard's
+    catch-up records, processed locally and flagged).
+
     ``mode`` (``MODE_*``, int or 0-dim tensor) is the ingest mode of
-    the offered batch, and ``now`` this tick's wall time (seconds since
-    the executor's epoch) stamped on every enqueued row and measured
-    against by the lineage taps ``q_lat``/``q_mask`` (per dequeued row)
-    and ``w_birth`` (per window, the oldest valid sample's stamp; 0 for
-    empty windows).  The reference's fleet-only arguments
-    (``watermark_ts``, ``offer_mask``, ``excluded_ref``, ``replay``)
-    wait for the fleet executor's slice: every offered row is real and
-    the watermark is this stream's own.
+    the offered batch: replayed and backfilled rows the offer
+    contributed are lateness-exempt and never advance the local clock.
+    ``replay`` (bool or 0-dim tensor) is the legacy shorthand for
+    ``MODE_REPLAY``; passing both is an error.  ``now`` is this tick's
+    wall time (seconds since the executor's epoch) stamped on every
+    enqueued row and measured against by the lineage taps
+    ``q_lat``/``q_mask`` (per dequeued row) and ``w_birth`` (per
+    window, the oldest valid sample's stamp; 0 for empty windows).
 
     Before any row reaches the ring it passes the admission lane of
     ``cfg.admission``; the default (inert) plan skips it statically.
@@ -211,7 +228,13 @@ def ingest_and_window(cfg: StreamConfig, engine: R.RuleEngine,
     (``obs:ingest``, ``obs:window``, ...) on a profiler timeline; the
     default marks nothing and costs nothing.
     """
+    if replay is not None and mode is not None:
+        raise ValueError("pass either replay= (bool shorthand) or "
+                         "mode= (stream.ingest mode code), not both")
     dev = state.rb.store.device
+    if replay is not None:
+        mode = torch.where(_scalar(replay, torch.bool, dev),
+                           I.MODE_REPLAY, I.MODE_LIVE).to(torch.int32)
     n_in = items.shape[0]
     plan = cfg.admission
     held = state.rb.head - state.rb.tail       # rows queued before this offer
@@ -220,21 +243,27 @@ def ingest_and_window(cfg: StreamConfig, engine: R.RuleEngine,
         rows_in = torch.cat(
             [ts.to(torch.float32)[:, None], now.expand(n_in, 1),
              items.to(torch.float32)], dim=1)
-        n_offered = _scalar(n_in, torch.int32, dev)
+        if offer_mask is None:
+            n_offered = _scalar(n_in, torch.int32, dev)
+        else:
+            n_offered = _count(offer_mask.to(torch.bool))
         if plan.inert:
             n_dedup = torch.zeros((), dtype=torch.int32, device=dev)
             drift = torch.zeros((items.shape[1],), dtype=torch.int32,
                                 device=dev)
             adm = state.adm
-            rb, n_acc = rbuf.enqueue(state.rb, rows_in)
+            rb, n_acc = rbuf.enqueue(state.rb, rows_in, offer_mask)
         else:
             with tracer.span("obs:admission"):
-                gate = I.admission_gate(plan, state.adm, ts, items, None)
+                gate = I.admission_gate(plan, state.adm, ts, items,
+                                        offer_mask)
                 rb, n_acc = rbuf.enqueue(state.rb, rows_in, gate.admit)
                 adm = I.admission_record(plan, state.adm, gate, n_acc)
             n_dedup = gate.n_deduped
             drift = gate.drift
         rb, rows, valid = rbuf.dequeue(rb, cfg.micro_batch)
+    wm = state.max_ts if watermark_ts is None \
+        else _scalar(watermark_ts, torch.float32, dev)
     dequeued = valid
     if mode is None:
         exempt = None
@@ -248,7 +277,7 @@ def ingest_and_window(cfg: StreamConfig, engine: R.RuleEngine,
         exempt = reproc & (pos >= held)
     with tracer.span("obs:watermark"):
         valid, n_late, max_ts = W.apply_watermark(
-            rows[:, 0], valid, state.max_ts, cfg.lateness, exempt=exempt)
+            rows[:, 0], valid, wm, cfg.lateness, exempt=exempt)
     max_ts = torch.maximum(state.max_ts, max_ts)
     if mode is None:
         n_rep = torch.zeros((), dtype=torch.int32, device=dev)
@@ -262,6 +291,12 @@ def ingest_and_window(cfg: StreamConfig, engine: R.RuleEngine,
                               torch.finfo(torch.float32).min).amax()
         max_ts = torch.where(reproc, torch.maximum(state.max_ts, own_max),
                              max_ts)
+    if excluded_ref is None:
+        n_lx = torch.zeros((), dtype=torch.int32, device=dev)
+    else:
+        live = valid if exempt is None else valid & ~exempt
+        ref = _scalar(excluded_ref, torch.float32, dev)
+        n_lx = _count(live & (rows[:, 0] < ref - cfg.lateness))
 
     # cross-batch continuity: prepend the carried W-S samples
     seq = torch.cat([state.carry, rows], dim=0)
@@ -303,7 +338,7 @@ def ingest_and_window(cfg: StreamConfig, engine: R.RuleEngine,
         consequence=cons, emit=emit, record=record,
         n_in=n_offered, n_accepted=n_acc,
         n_dequeued=_count(valid) + n_late,
-        n_late=n_late, n_replayed=n_rep,
+        n_late=n_late, n_late_excluded=n_lx, n_replayed=n_rep,
         n_deduped=n_dedup, n_backfilled=n_bf, drift=drift, adm=adm,
         q_lat=q_lat, q_mask=dequeued, w_birth=w_birth)
 

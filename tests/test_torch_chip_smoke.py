@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.testing import assert_bitwise
+from repro_torch.testing import assert_bitwise, assert_close
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -335,3 +335,124 @@ def test_timed_counts_only_the_loop_range(smoke, monkeypatch, tmp_path):
     assert len(smoke._device_events(Prof(trace), "t")) == 4
     with pytest.raises(RuntimeError, match="no 'chip_smoke_timed_loop'"):
         smoke._device_events(Prof(trace[:1]), "t", after=smoke.TIMED_RANGE)
+
+
+# -- phase 7: the fleet -------------------------------------------------------
+
+def _fleet_sizes(smoke):
+    sz = smoke.Sizes(batch=512, d=16, window=64, stride=32,
+                     capacity=1 << 12, ticks=8, cpu_ticks=2, dedupe=0,
+                     warmup=1)
+    fz = smoke.FleetSizes(regions=2, edges=4, num_core=2, core_budget=16,
+                          fog_budget=12, ticks=8, checks=(0, 4))
+    small = sz._replace(batch=256, ticks=6)
+    fzs = fz._replace(core_budget=8, fog_budget=6, ticks=6)
+    return sz, fz, small, fzs
+
+
+def _as_on_card(smoke, monkeypatch, fz, per_tick=None, simple=0):
+    """Launch counts as the card gives them: ``per_tick`` launches of the
+    path's kernel a shard a tick (fused 1, staged 5 by default)."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    real = smoke.make_fleet
+    phase = {}
+
+    def make_fleet(*a, fused=True, **k):
+        phase["fused"] = fused
+        return real(*a, fused=fused, **k)
+
+    def launches():
+        fused = phase["fused"]
+        n = (1 if fused else 5) if per_tick is None else per_tick
+        return {"window_reduce": 0 if fused else n * fz.shards * fz.ticks,
+                "fused_tick": n * fz.shards * fz.ticks if fused else 0,
+                "hilbert": 0, "armatch": 0, "decode_attn": 0}
+    monkeypatch.setattr(smoke, "make_fleet", make_fleet)
+    monkeypatch.setattr(smoke, "read_launches", launches)
+    monkeypatch.setattr(smoke, "read_simple", lambda: {
+        "window_reduce": 0, "fused_tick": simple, "armatch": 0})
+
+
+def test_fleet_phase_runs_and_checks_itself(smoke, monkeypatch):
+    """Phase 7 at a tiny size on the CPU: every check runs and holds,
+    both budgets bind on the hot ticks and neither on the cold ones."""
+    sz, fz, small, fzs = _fleet_sizes(smoke)
+    _as_on_card(smoke, monkeypatch, fz)
+    seen = []
+
+    def bitwise(a, b, what):
+        assert_bitwise(a, b, what)
+        seen.append(what)
+    fl = smoke.run_fleet(sz, fz, small, fzs, "cpu", bitwise, assert_close)
+    assert fl["single"] == 2 and fl["oracle"] > 0
+    assert fl["card_vs_cpu_err"] == 0.0
+    fused = fl["results"]["fused"]
+    hot = [smoke.fleet_hot(i) for i in range(fz.ticks)]
+    assert [bool(d[0] and d[1]) for d in fused["deltas"]] == hot
+    for what in ("fleet staged vs fused tick 7 outputs",
+                 "fleet staged vs fused ring",
+                 "1-shard fleet vs executor tick 4 outputs",
+                 "fleet vs lone shard 7 tick 4 escalated",
+                 "fleet card vs CPU tick 5 consequence",
+                 "fleet card vs CPU watermark"):
+        assert what in seen, what
+    smoke.print_fleet(sz, fz, fl)
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("launches", "staged path launched window_reduce 0 times"),
+    ("simple", "launched a simple instance"),
+    ("budgets", "must bind on hot ticks"),
+])
+def test_fleet_phase_fails_on_a_broken_check(smoke, monkeypatch, fault,
+                                             match):
+    """The phase fails when a path launched no kernel, launched
+    a simple instance, or when the budgets do not bind on hot ticks."""
+    sz, fz, small, fzs = _fleet_sizes(smoke)
+    _as_on_card(smoke, monkeypatch, fz,
+                per_tick=0 if fault == "launches" else None,
+                simple=1 if fault == "simple" else 0)
+    if fault == "budgets":
+        fz = fz._replace(core_budget=10_000, fog_budget=10_000)
+    with pytest.raises(RuntimeError, match=match):
+        smoke.run_fleet(sz, fz, small, fzs, "cpu", assert_bitwise,
+                        assert_close)
+
+
+def test_fleet_card_vs_cpu_fails_on_a_different_core(smoke, monkeypatch):
+    """Check 4 holds the core outputs within its tolerance: a core stage
+    off by 1e-5 on one side fails it."""
+    sz, fz, small, fzs = _fleet_sizes(smoke)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    real = smoke.make_fleet
+    calls = []
+
+    def make_fleet(*a, **k):
+        fx, st = real(*a, **k)
+        calls.append(fx)
+        if len(calls) == 1:       # the "card" side
+            fn = fx.pipeline.stages[-1].fn
+            fx.pipeline.stages = fx.pipeline.stages[:-1] + (
+                fx.pipeline.stages[-1].__class__(
+                    "core", lambda p, b: (fn(p, b)[0] + 1e-5,
+                                          fn(p, b)[1]), "core",
+                    fx.pipeline.stages[-1].params),)
+        return fx, st
+    monkeypatch.setattr(smoke, "make_fleet", make_fleet)
+    from repro_torch.testing import Tolerance
+    with pytest.raises(AssertionError, match="fleet card vs CPU tick"):
+        smoke.fleet_card_vs_cpu(small, fzs, "cpu", assert_bitwise,
+                                assert_close, Tolerance(*smoke.FLEET_CORE))
+
+
+def test_fleet_sizes_are_the_full_width(smoke):
+    """8 shards in 2 regions of 4, each at the single tick's full width,
+    two core ranks at the single tick's core capacity, 1e-6 on the core
+    outputs."""
+    fz, sz = smoke.FLEET, smoke.FULL
+    assert (fz.regions, fz.edges, fz.num_core, fz.core_budget,
+            fz.fog_budget) == (2, 4, 2, 1024, 768)
+    assert (sz.batch, sz.d, sz.window, sz.stride, sz.capacity) == \
+        (65536, 16, 64, 32, 1 << 22)
+    assert fz.core_budget // fz.num_core == sz.batch // sz.stride // 4
+    assert fz.ticks == 16 and smoke.FLEET_CORE[1:] == (1e-6, 1e-6)

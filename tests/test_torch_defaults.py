@@ -14,7 +14,22 @@ from repro_torch.launch import serve
 from repro_torch.models import griffin, moe, rwkv, transformer
 from repro_torch.obs import latency
 from repro_torch.runtime.overlap import IngestStager
-from repro_torch.stream import ingest
+from repro_torch.stream import StreamConfig, ingest
+from repro_torch.stream.fleet import FleetConfig, FleetExecutor
+
+def _fleet():
+    """A 2-shard fleet built without ``device``: its state's ring."""
+    from repro_torch.core import pipeline, rules
+    engine = rules.RuleEngine([rules.threshold_rule(
+        "hot", 0, ">=", 1.0, rules.C_SEND_CORE)])
+    ex = FleetExecutor(
+        FleetConfig(stream=StreamConfig(micro_batch=8, window=4, stride=4,
+                                        capacity=16), num_shards=2),
+        engine, pipeline.two_tier_pipeline(lambda p, b: (b, b[:, :5]),
+                                           lambda p, b: (b, b[:, :5]),
+                                           engine))
+    return ex.init_state(2).shard.rb.store
+
 
 def _gen() -> torch.Generator:
     """A generator where the constructor under test draws: the card's
@@ -63,6 +78,7 @@ CONSTRUCTORS = {
             "attn": {"k": np.zeros((2, 1, 4, 2, 16), np.float32),
                      "v": np.zeros((2, 1, 4, 2, 16), np.float32)}}}])[0]["k"],
     "serve.run": lambda: serve.run(smoke_config("yi_6b"), 2, 2, 2).logits,
+    "FleetExecutor": _fleet,
 }
 
 
