@@ -91,7 +91,26 @@ Phases, in order; any failure raises and the exit code is not 0:
    must give bitwise the same on the card and the CPU, the core outputs
    within 1e-6.  Then timed and profiled as the single tick is; its
    launch counts join the fused_tick and window_reduce entries of the
-   kernels line (``fleet_launches``).
+   kernels line (``fleet_launches``);
+8. the fleet's control plane, on phase 7's layout at full width, fused,
+   each check failing the run: (1) a ``FleetController`` through a
+   stall of shard 2 and a churn of shard 5 (its stream replayed on a
+   backup in its region, its sliding window carry handed over and
+   back), budgets pinned ample, against a healthy fleet without a
+   controller on the same feed: every stream's windows equal (one
+   stated window of the stalled stream apart), the watermark monotone,
+   no late row, the catch-up counted in ``late_excluded``, shard 2
+   flagged and re-admitted, the replayed rows those offered with the
+   replay flag; (2) the default elastic core and fog policies on the
+   hot/cold feed grow and shrink, ``resizes`` as the log counts them;
+   (3) the whole controlled arc with a drop SLO that breaches and
+   recovers at 4,096 rows a shard on the card and the CPU: each tick's
+   ``ControlDecision`` and the event log equal, the outputs and final
+   state bitwise, core outputs within 1e-6; (4) ``step_cost`` of one
+   fleet tick, the fused_tick bytes its wrappers reported, the stage
+   table and the roofline at the card's peaks; (5) the controller's tick
+   p50/p99 beside the step's, 8 fused_tick launches a tick, which join
+   the fused_tick entry of the kernels line (``control_launches``).
 
 The line before the last is a JSON object of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -103,6 +122,7 @@ import json
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 from typing import NamedTuple
 
@@ -975,54 +995,8 @@ TPU_KERNELS = {
     "armatch": "src/repro/kernels/armatch/armatch.py:83",
     "decode_attn": "src/repro/kernels/decode_attn/decode_attn.py:68",
 }
-#: Operation counts for the AR kernels' bounds: the work the function
-#: needs, not the instructions a kernel compiles to.
-#:
-#: One step of the Hilbert loop as the reference writes it
-#: (``repro.core.sfc.xy2d``), the step's constants (s, s*s, s - 1) taken
-#: out and no loop overhead: the two bit tests (an and and a compare
-#: each: 4); d += s*s * ((3*rx) ^ ry) (a multiply, an xor, a multiply by
-#: the power of two s*s, an add: 4); the reflect test (ry == 0) &
-#: (rx == 1) (3; the swap reuses ry == 0); the reflect, two subtractions
-#: and two selects (4); the swap, two selects (2).
-HILBERT_OPS_PER_STEP = 17
-
-
-def armatch_ops(data: torch.Tensor, interests: torch.Tensor) -> int:
-    """int32 operations the match of ``data`` ``[M, 128]`` against
-    ``interests`` ``[N, 128]`` needs on these inputs.  Only used slots
-    are tested, and what depends on one slot alone is decoded once a
-    slot, not once a pair:
-
-    - a (used interest slot, used data slot) pair tests the attribute
-      (two xors, two ands, an or, a compare to zero: 6) and ORs into the
-      interest slot's ``sat`` (1); unless the interest slot is NONE it
-      ANDs in a value test (1) whose own cost follows the interest
-      slot's kind: EXACT two compares and two ands (4), PREFIX two xors,
-      two ands, an or, a compare and an and (7), RANGE two compares and
-      two ands (4), ANY none (the data slot's kind is decoded once).
-      An interest slot of another kind never matches: no pair is tested;
-    - a (data row, used interest slot) pair ANDs that slot's ``sat`` into
-      the result (1); a (data row, interest) pair ANDs in "the interest
-      has a used slot" (1);
-    - decoding: three kind tests a used data slot (EXACT, NUM, not
-      NONE), two a used interest slot (used, kind).
-
-    The kernel tests all 8 x 8 slot pairs of every (row, interest) pair
-    whatever is used, so this is the least work, not the kernel's."""
-    from repro_torch.core import profiles as P
-    per_kind = {P.VK_NONE: 7, P.VK_EXACT: 12, P.VK_PREFIX: 15,
-                P.VK_ANY: 8, P.VK_RANGE: 12}
-    d = data.reshape(-1, P.MAX_SLOTS, P.SLOT_WIDTH)
-    p = interests.reshape(-1, P.MAX_SLOTS, P.SLOT_WIDTH)
-    u_d = int((d[..., P.L_USED] > 0).sum())
-    p_used = p[..., P.L_USED] > 0
-    u_p = int(p_used.sum())
-    kind = p[..., P.L_VKIND]
-    slot_pairs = sum(cost * int((p_used & (kind == k)).sum())
-                     for k, cost in per_kind.items())
-    m, n = d.shape[0], p.shape[0]
-    return u_d * slot_pairs + m * u_p + m * n + 3 * u_d + 2 * u_p
+#: each kernel's bytes and operations, the bounds' inputs, come from
+#: ``repro_torch.kernels.cost`` (the counts the cost model uses too)
 
 
 def _us(pair):
@@ -1100,6 +1074,7 @@ def time_kernels(sz: Sizes, device, results, errs):
     (window_reduce) and the fused call's, beside the plain version and,
     for window_reduce, ``avg_pool1d`` on the same block."""
     from repro_torch.core import rules as R
+    from repro_torch.kernels import cost
     from repro_torch.kernels.fused_tick import fused_tick, fused_tick_ref
     from repro_torch.kernels.window_reduce import (sliding_reduce,
                                                    sliding_reduce_ref)
@@ -1129,7 +1104,7 @@ def time_kernels(sz: Sizes, device, results, errs):
             "window_reduce", tag,
             lambda how, x=x, op=op: sliding_reduce(x, w, s, nw, op,
                                                    instance=how),
-            4 * (t * x.shape[1] + nw * x.shape[1]), a_tick,
+            cost.window_reduce(x.shape[1], w, s, nw)[0], a_tick,
             plain=lambda x=x, op=op: sliding_reduce_ref(x, w, s, nw, op),
             library=None if op not in pools else
             lambda xt=xt, op=op: pools[op](xt, w, s)))
@@ -1140,8 +1115,7 @@ def time_kernels(sz: Sizes, device, results, errs):
                         "window_reduce_plain"),
         library_ms=_timed(lambda: torch.nn.functional.avg_pool1d(
             xcl, w, s), 200, "avg_pool1d"))
-    wr_bytes = 4 * (t * sz.d + nw * sz.d)
-    wr_ops = nw * sz.d * (w - 1)
+    wr_bytes, wr_ops = cost.window_reduce(sz.d, w, s, nw)
     # fused_tick at the fused tick's call: [T, 2 + D] rows + [T] mask
     seq = torch.cat([torch.arange(t, dtype=torch.float32, device=device)
                      [:, None], torch.randn((t, 1 + sz.d), generator=gen,
@@ -1149,7 +1123,7 @@ def time_kernels(sz: Sizes, device, results, errs):
     valid = torch.rand((t,), generator=gen, device=device) < 0.95
     table = _engine(R).table()
     l = 1 + sz.d                                # columns the kernel reads
-    ft_bytes = 4 * t * l + t + 4 * nw * (sz.d + 5 + 3)
+    ft_bytes, ft_ops = cost.fused_tick(t, l, sz.d, nw, w)
     ft_shape = _tick_shape(
         "fused_tick", f"[{t} x {2 + sz.d}]",
         lambda how: fused_tick(seq, valid, w, s, table=table, instance=how),
@@ -1159,7 +1133,6 @@ def time_kernels(sz: Sizes, device, results, errs):
         plain_ms=_timed(lambda: fused_tick_ref(seq, valid, w, s, table), 5,
                         "fused_tick_plain"),
         library_ms=None)
-    ft_ops = nw * l * w * 4
     rows = []
     for name, rec, nbytes, ops, path, per_shape in (
             ("window_reduce", wr, wr_bytes, wr_ops, "staged", shapes),
@@ -1180,6 +1153,7 @@ def time_ar_kernels(sz: ARSizes, device, ar: dict, errs: dict) -> list:
     against the shard's log, each through the instance its plan names,
     beside the simple instance in the same run."""
     from repro_torch.core import sfc
+    from repro_torch.kernels import cost
     from repro_torch.kernels.armatch import armatch, armatch_ref
     from repro_torch.kernels.armatch.ops import plan as armatch_plan
     from repro_torch.kernels.hilbert import hilbert_xy2d, hilbert_xy2d_ref
@@ -1192,9 +1166,7 @@ def time_ar_kernels(sz: ARSizes, device, ar: dict, errs: dict) -> list:
                         "hilbert_plain"),
         library_ms=None)
     rows = [_kernel_row(
-        "hilbert", hil, 12 * x.numel(),
-        x.numel() * 16 * HILBERT_OPS_PER_STEP,
-        PEAK_INT32_OPS_S, ar["launches"]["hilbert"], errs["hilbert"],
+        "hilbert", hil, *cost.hilbert(x.numel(), 16), PEAK_INT32_OPS_S, ar["launches"]["hilbert"], errs["hilbert"],
         f"{ar['launches']['hilbert'] / steps:g} a step on the AR path")]
     log_keys = ar["shard"].log()[0]
     query = plane.queries[:1]
@@ -1211,8 +1183,7 @@ def time_ar_kernels(sz: ARSizes, device, ar: dict, errs: dict) -> list:
                            kernel="armatch_kernel_simple")
         rec["plain_ms"] = _timed(lambda: armatch_ref(data, ints), plain_reps,
                                  f"armatch_{tag}_plain")
-        nbytes = 4 * 128 * (m + n) + 4 * m * n
-        ops = armatch_ops(data, ints)
+        nbytes, ops = cost.armatch(data, ints)
         bound_ms, bound_by = _bound(nbytes, ops, PEAK_INT32_OPS_S)
         ms, how = rec["ms"][0], armatch_plan(m, n)
         rate = (f"{nbytes / ms / 1e6:.1f} GB/s" if bound_by == "bytes"
@@ -1246,7 +1217,7 @@ def time_serve_kernel(sv: dict, errs: dict) -> dict:
     ``enable_gqa`` on the same cache views (checked to give the same
     answer within the bf16 tolerance)."""
     import torch.nn.functional as F
-    from repro_torch.kernels import checks
+    from repro_torch.kernels import checks, cost
     from repro_torch.kernels.decode_attn import decode_attention, \
         decode_attn_ref
     from repro_torch.kernels.decode_attn.ops import plan_for
@@ -1292,9 +1263,7 @@ def time_serve_kernel(sv: dict, errs: dict) -> dict:
             library_ms=_timed(library, 50, "decode_attn_sdpa_cold",
                               flush=junk.argmax))
     del junk
-    el = kc.element_size()
-    nbytes = 2 * b * s * hkv * d * el + 2 * b * h * d * el + 4 * b
-    ops = 4 * b * h * s * d
+    nbytes, ops = cost.decode_attn(b, h, hkv, d, s, kc.element_size())
     steps = sv["steps"]
     row = _kernel_row(
         "decode_attn", rec, nbytes, ops, PEAK_BF16_OPS_S,
@@ -1481,6 +1450,8 @@ def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
     kernels["kernels"].append(run_families(rg_sz, device, errs))
     _free()
     run_fleet_phase(sz, FLEET, device, kernels["kernels"])
+    _free()
+    run_control_phase(sz, FLEET, device, kernels["kernels"])
     return kernels
 
 
@@ -1641,10 +1612,10 @@ FLEET_CORE = ("tanh/matmul rounding differs between CPU and CUDA "
 
 def make_fleet(sz: Sizes, fz: FleetSizes, device, fused=True, regions=None,
                edges=None, num_core=None, core_budget=None,
-               fog_budget=-1):
+               fog_budget=-1, drop_rule=False):
     """A fleet of ``regions x edges`` shards (``fz``'s by default) at the
     single tick's per-shard config and core stand-in; ``fog_budget=None``
-    is non-binding."""
+    is non-binding; ``drop_rule`` adds :data:`DROP_RULE` to the rules."""
     from repro_torch import convert
     from repro_torch.core import pipeline as P
     from repro_torch.core import rules as R
@@ -1654,6 +1625,10 @@ def make_fleet(sz: Sizes, fz: FleetSizes, device, fused=True, regions=None,
                        stride=sz.stride, capacity=sz.capacity,
                        lateness=64.0, fused=fused)
     engine = _engine(R)
+    if drop_rule:
+        name, feature, op, value, priority = DROP_RULE
+        engine = R.RuleEngine(list(engine.rules) + [R.threshold_rule(
+            name, feature, op, value, R.C_DROP, priority=priority)])
     p = convert.params_from_numpy(
         (np.random.default_rng(0).standard_normal((5 + sz.d, 5 + sz.d))
          * 0.1).astype(np.float32), device)
@@ -1957,13 +1932,446 @@ def print_fleet(sz: Sizes, fz: FleetSizes, fl: dict) -> None:
               f"{r['deltas'][:, 0].tolist()} / {r['deltas'][:, 1].tolist()}")
 
 
+# ---- phase 8: the controlled fleet ------------------------------------------
+
+#: the traffic of check 1 (and, at ``SMALL``, of check 3): shard 2 stalls
+#: for ticks 4..9; shard 5 leaves at tick 6 and a joiner takes its slot
+#: at tick 12, its stream replayed on the backup ``leave`` picks in the
+#: meantime, with its sliding window carry handed over and back;
+#: ``CONTROL_TICKS`` fresh ticks, then drain ticks until the injector
+#: holds nothing, then ``CONTROL_QUIET`` more
+CONTROL_FAULT = (2, 4, 10)
+CONTROL_CHURN = (5, 6, 12)
+CONTROL_TICKS = 24
+CONTROL_QUIET = 3
+#: check 3's drop rule (a window whose signal mean is below -0.25 is
+#: dropped: about 2% of a cold tick's windows) and the ticks whose
+#: signal is shifted down by 1, where it drops nearly every window: the
+#: drop SLO breaches there and recovers after
+DROP_RULE = ("calm", 0, "<", -0.25, 3)
+CALM_TICKS = range(14, 18)
+
+
+def _decision(dec) -> dict:
+    """A ``ControlDecision`` as plain Python, every field."""
+    def plain(v):
+        if isinstance(v, np.ndarray):
+            return v.tolist()
+        if isinstance(v, np.generic):
+            return v.item()
+        if isinstance(v, (list, tuple)):
+            return [plain(x) for x in v]
+        return v
+    return {k: plain(v) for k, v in dec._asdict().items()}
+
+
+def _events(log) -> list:
+    """The event log's records less their ``wall_time`` stamps."""
+    return [{k: v for k, v in r.items() if k != "wall_time"}
+            for r in log.records]
+
+
+def control_feed(sz: Sizes, fz: FleetSizes, device, calm=()):
+    """Tick ``i`` of the fleet feed (:func:`fleet_batch`, made on the
+    device) as host numpy, the injector's input; on ``calm`` ticks the
+    signal column is shifted down by 1."""
+    def feed(i):
+        items, ts = fleet_batch(sz, fz, i, device)
+        if i in calm:
+            items[:, :, 0] -= 1.0
+        return items.cpu().numpy(), ts.cpu().numpy()
+    return feed
+
+
+def run_controlled(fx, state, ctl, inj, feed, churn, on_tick):
+    """Drive ``fx`` under ``ctl`` through ``inj``'s schedule:
+    :data:`CONTROL_TICKS` fresh ticks of ``feed``, then drain ticks
+    (``fresh=False``) until the injector holds nothing, then
+    :data:`CONTROL_QUIET` quiet ticks.  ``churn`` (shard, leave, join)
+    is acted with the sliding carry handoff.  Each tick calls
+    ``on_tick(t, out, decision, origin, offered, replay, health)``,
+    ``health`` the mask the tick ran under.  Returns the final state and
+    the churned shard's backup."""
+    s = fx.cfg.num_shards
+    shard, leave, join = churn
+    backups, backup, t, quiet, base = {}, None, 0, 0, None
+    while True:
+        if t >= CONTROL_TICKS and not inj.pending:
+            if quiet == CONTROL_QUIET:
+                return state, backup
+            quiet += 1
+        if t == leave:
+            backup = ctl.leave(shard)
+            if backup is None:
+                _fail(f"controlled fleet: no backup for shard {shard}")
+            backups = {shard: backup}
+            state = ctl.begin_replay_carry(state, shard, backup)
+        if t == join:
+            state = ctl.end_replay_carry(state, shard, backup)
+            ctl.join(shard)
+        fresh = t < CONTROL_TICKS
+        base = feed(t) if fresh else tuple(np.zeros_like(a) for a in base)
+        items, ts, offered, replay = inj.inject(t, *base, fresh=fresh,
+                                                backups=backups)
+        health = fx.health
+        state, out = fx.step(state, items, ts, offered=offered,
+                             replay=replay)
+        dec = ctl.tick(state, step_times=inj.schedule.stall_time(t, s))
+        on_tick(t, out, dec, inj.origin.copy(), offered, replay, health)
+        t += 1
+
+
+def _controlled(sz: Sizes, fz: FleetSizes, device, **fleet_kw):
+    """A fleet under a controller with an event log, and an injector of
+    the stall and churn traffic logging to it."""
+    from repro_torch.obs import EventLog
+    from repro_torch.stream.fleet import (Churn, Fault, FaultInjector,
+                                          FaultSchedule, FleetController)
+    fx, state = make_fleet(sz, fz, device, **fleet_kw.pop("fleet", {}))
+    log = EventLog()
+    ctl = FleetController(fx, event_log=log, **fleet_kw)
+    inj = FaultInjector(FaultSchedule([Fault(*CONTROL_FAULT)],
+                                      churn=[Churn(*CONTROL_CHURN)]),
+                        event_log=log)
+    return fx, state, ctl, inj, log
+
+
+def _emitted(out) -> tuple:
+    """A tick's window counts, aggregates, consequences and core outputs
+    on the host."""
+    return tuple(getattr(out, f).cpu().numpy() for f in
+                 ("window_count", "aggregates", "consequence", "outputs"))
+
+
+def control_vs_oracle(sz: Sizes, fz: FleetSizes, device, bitwise,
+                      close) -> dict:
+    """Check 1: the stall and churn traffic at ``sz`` a shard under a
+    controller with the budgets pinned ample (the core budget every
+    window of the fleet, no fog budget), against a healthy fleet without
+    a controller on the same feed.
+
+    Each stream's emitted windows (collected by the injector's origin of
+    each slot) equal the oracle's -- aggregates, window counts and
+    consequences bitwise, core outputs within ``FLEET_CORE`` -- except one
+    window, which it states exactly: the stream of the stalled shard
+    resumes after empty ticks, so the first window of its first batch
+    after the stall frames ``stride`` rows (its carry is empty) where the
+    oracle's frames ``window`` (the reference holds a stall only on
+    tumbling windows for this reason).  The churned stream and its
+    backup's are bitwise throughout (the carry handoff).  Also: the fleet
+    watermark never moves back, no row is late anywhere, the stalled
+    shard's catch-up rows count in ``late_excluded``, it is flagged and
+    then re-admitted, and the replayed rows are the rows offered with
+    the replay flag."""
+    from repro_torch.runtime import ElasticBudget
+    from repro_torch.obs import EventLog
+    from repro_torch.testing import Tolerance
+    s, nw = fz.shards, sz.batch // sz.stride
+    ample = s * nw
+    pinned = dict(core_budget=ample, fog_budget=None)
+    feed = control_feed(sz, fz, device)
+
+    def keep(store, e, rows):
+        emit = rows[0][e] > 0
+        for k, v in enumerate(rows):
+            store[e][k].append(v[e][emit])
+
+    oracle = [[[], [], [], []] for _ in range(s)]
+    fx, state = make_fleet(sz, fz, device, **pinned)
+    for i in range(CONTROL_TICKS):
+        items, ts = feed(i)
+        state, out = fx.step(state, items, ts)
+        rows = _emitted(out)
+        for e in range(s):
+            keep(oracle, e, rows)
+    del fx, state
+
+    fx, state, ctl, inj, log = _controlled(
+        sz, fz, device, fleet=pinned,
+        budget_policy=ElasticBudget(min_budget=ample, max_budget=ample))
+    got = [[[], [], [], []] for _ in range(s)]
+    wms, rep_rows, ticks = [], 0, []
+
+    def on_tick(t, out, dec, origin, offered, replay, health):
+        nonlocal rep_rows
+        rows = _emitted(out)
+        for e in range(s):
+            if origin[e] >= 0:
+                emit = rows[0][e] > 0
+                for k, v in enumerate(rows):
+                    got[int(origin[e])][k].append(v[e][emit])
+        wms.append(dec.watermark)
+        rep_rows += int(offered[replay].sum())
+        ticks.append(t)
+    zero_launches()
+    state, backup = run_controlled(fx, state, ctl, inj, feed, CONTROL_CHURN,
+                                   on_tick)
+    launches = read_launches()
+    md = state.metrics.as_dict()
+    EventLog.validate(log.records)
+
+    stalled, start, _ = CONTROL_FAULT
+    split = start * nw                   # its first window after the stall
+    tol = Tolerance(*FLEET_CORE)
+    for e in range(s):
+        a = [np.concatenate(x) for x in got[e]]
+        b = [np.concatenate(x) for x in oracle[e]]
+        if a[0].shape != b[0].shape:
+            _fail(f"controlled stream {e}: {a[0].shape[0]} windows "
+                  f"emitted, the oracle {b[0].shape[0]}")
+        same = np.ones(a[0].shape[0], bool)
+        if e == stalled:
+            same[split] = False
+            if (a[0][split], b[0][split]) != (sz.stride, sz.window):
+                _fail(f"stalled stream: window {split} frames "
+                      f"{a[0][split]} rows, the oracle {b[0][split]}; want "
+                      f"{sz.stride} and {sz.window}")
+        for k, what in enumerate(("window counts", "aggregates",
+                                  "consequences")):
+            bitwise(a[k][same], b[k][same],
+                    f"controlled vs oracle stream {e} {what}")
+        close(a[3][same], b[3][same], tol,
+              f"controlled vs oracle stream {e} core outputs")
+    if any(b < a for a, b in zip(wms, wms[1:])):
+        _fail(f"controlled fleet: the watermark moved back: {wms}")
+    if md["shard"]["items_late"] != [0] * s:
+        _fail(f"controlled fleet dropped late rows: {md['shard']}")
+    if not md["late_excluded"][stalled]:
+        _fail(f"stalled shard's catch-up never counted: {md}")
+    flagged = [r for r in log.of_kind("health_change")
+               if not r["healthy"][stalled]]
+    back = [r for r in log.of_kind("health_change")
+            if r["healthy"][stalled] and flagged
+            and r["seq"] > flagged[0]["seq"]]
+    if not flagged or not back or not fx.health[stalled]:
+        _fail(f"shard {stalled} was not flagged and re-admitted: "
+              f"{log.of_kind('health_change')}")
+    replayed = md["shard"]["items_replayed"]
+    if not rep_rows or replayed[backup] != rep_rows \
+            or sum(replayed) != rep_rows:
+        _fail(f"replayed {replayed}, want {rep_rows} on shard {backup}")
+    want = s * len(ticks)
+    if launches["fused_tick"] != want or launches["window_reduce"]:
+        _fail(f"controlled fleet launched fused_tick "
+              f"{launches['fused_tick']} times over {len(ticks)} ticks of "
+              f"{s} shards (want {want}), window_reduce "
+              f"{launches['window_reduce']}")
+    return dict(ticks=len(ticks), backup=backup, launches=launches,
+                replayed=rep_rows, late_excluded=md["late_excluded"],
+                events=len(log), watermark=wms[-1])
+
+
+def control_elastic(sz: Sizes, fz: FleetSizes, device) -> dict:
+    """Check 2, and the timing of check 5: ``fz.ticks`` ticks of the
+    hot/cold feed under the default policies (the core budget's and each
+    region's fog budget's), each tick's step and control tick timed.
+    The core budget must grow and shrink, a fog budget must move, and
+    ``resizes`` must count one a tick for the core budget and one a tick
+    for the fog budgets (however many regions moved), as the log shows."""
+    from repro_torch.obs import EventLog
+    from repro_torch.stream.fleet import FleetController
+    fx, state = make_fleet(sz, fz, device)
+    log = EventLog()
+    ctl = FleetController(fx, event_log=log)
+    s = fz.shards
+    step_s, ctl_s, budgets = [], [], []
+    zero_launches()
+    for i in range(fz.ticks):
+        items, ts = fleet_batch(sz, fz, i, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = fx.step(state, items, ts)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dec = ctl.tick(state, step_times=np.full(s, 0.1))
+        step_s.append(t1 - t0)
+        ctl_s.append(time.perf_counter() - t1)
+        budgets.append((dec.budget, dec.region_budgets.tolist()))
+    launches = read_launches()
+    core = log.of_kind("budget_resize")
+    fog = log.of_kind("fog_budget_resize")
+    up = [r for r in core if r["budget_to"] > r["budget_from"]]
+    down = [r for r in core if r["budget_to"] < r["budget_from"]]
+    if not up or not down or not fog:
+        _fail(f"elastic budgets: {len(up)} core grows, {len(down)} core "
+              f"shrinks, {len(fog)} fog resizes over {budgets}")
+    if ctl.resizes != len(core) + len({r["tick"] for r in fog}):
+        _fail(f"resizes {ctl.resizes}, the log holds {len(core)} core and "
+              f"{len(fog)} fog resizes on {len({r['tick'] for r in fog})} "
+              "ticks")
+    want = s * fz.ticks
+    if launches["fused_tick"] != want or launches["window_reduce"]:
+        _fail(f"elastic fleet launched fused_tick {launches['fused_tick']} "
+              f"times over {fz.ticks} ticks of {s} shards, want {want}")
+    return dict(step_s=step_s, ctl_s=ctl_s, budgets=budgets,
+                resizes=ctl.resizes, retraces=ctl._retraces,
+                max_trace_count=ctl.max_trace_count, core=len(core),
+                fog=len(fog), launches=launches, state=state, fx=fx)
+
+
+def control_card_vs_cpu(sz: Sizes, fz: FleetSizes, device, bitwise,
+                        close) -> dict:
+    """Check 3: the whole controlled arc at ``sz`` a shard on the card
+    and on the CPU, from the same host feed: the stall, the churn with
+    the carry handoff, the default elastic core and fog policies, and a
+    drop SLO over :data:`DROP_RULE` that breaches on the calm ticks and
+    recovers.  Each tick's ``ControlDecision`` and the event log (less
+    wall times) must be equal, every tick's outputs bitwise (core outputs
+    within ``FLEET_CORE``), and the final state bitwise."""
+    from repro_torch.obs import SLO
+    from repro_torch.testing import Tolerance
+    from repro_torch.stream.executor import StepOutput
+    feed = control_feed(sz, fz, device, calm=CALM_TICKS)
+    slo = SLO("drops", stage="drops", objective=0.9, fast_window=2,
+              slow_window=4, burn_threshold=2.0)
+    runs = {}
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        fx, state, ctl, inj, log = _controlled(
+            sz, fz, dev, fleet=dict(drop_rule=True), slos=(slo,))
+        decisions, outs = [], []
+
+        def on_tick(t, out, dec, *_):
+            decisions.append(_decision(dec))
+            outs.append(StepOutput(*(v.cpu() for v in out)))
+        state, _ = run_controlled(fx, state, ctl, inj, feed, CONTROL_CHURN,
+                                  on_tick)
+        runs[name] = dict(decisions=decisions, outs=outs, state=state,
+                          events=_events(log), resizes=ctl.resizes,
+                          metrics=state.metrics.as_dict())
+    card, cpu = runs["card"], runs["cpu"]
+    if len(card["decisions"]) != len(cpu["decisions"]):
+        _fail(f"controlled card vs CPU: {len(card['decisions'])} ticks vs "
+              f"{len(cpu['decisions'])}")
+    for i, (a, b) in enumerate(zip(card["decisions"], cpu["decisions"])):
+        if a != b:
+            _fail(f"controlled card vs CPU tick {i} decision: {a} != {b}")
+    if card["events"] != cpu["events"]:
+        diff = next(i for i, (a, b) in enumerate(
+            zip(card["events"], cpu["events"])) if a != b) \
+            if len(card["events"]) == len(cpu["events"]) else "count"
+        _fail(f"controlled card vs CPU event log differs at {diff}")
+    err = 0.0
+    for i, (a, b) in enumerate(zip(card["outs"], cpu["outs"])):
+        for field in StepOutput._fields:
+            if field == "outputs":
+                err = max(err, float((a.outputs - b.outputs).abs().max()))
+                close(a.outputs, b.outputs, Tolerance(*FLEET_CORE),
+                      f"controlled card vs CPU tick {i} outputs")
+            else:
+                bitwise(getattr(a, field), getattr(b, field),
+                        f"controlled card vs CPU tick {i} {field}")
+    _fleet_state_bitwise(bitwise, card["state"], cpu["state"],
+                         "controlled card vs CPU")
+    if card["metrics"] != cpu["metrics"]:
+        _fail(f"controlled card vs CPU metrics: {card['metrics']} != "
+              f"{cpu['metrics']}")
+    kinds = {e["kind"] for e in card["events"]}
+    for kind in ("slo_breach", "slo_recover", "budget_resize",
+                 "fog_budget_resize", "health_change", "replay_delivery",
+                 "backlog_drain"):
+        if kind not in kinds:
+            _fail(f"controlled card vs CPU: no {kind} event in the arc")
+    return dict(ticks=len(card["decisions"]), events=len(card["events"]),
+                resizes=card["resizes"], err=err)
+
+
+def control_cost(sz: Sizes, fz: FleetSizes, fx, state, step_p50: float
+                 ) -> dict:
+    """Check 4: ``step_cost`` of one fused fleet tick at ``sz`` a shard on
+    the controlled fleet's own state (nothing is consumed), with the
+    roofline at the card's peaks against the measured step p50.  The
+    fused_tick calls must have reported their bytes, one call a shard."""
+    from repro_torch.obs import roofline, stage_table
+    items, ts = fleet_batch(sz, fz, fz.ticks, fx.device)
+    c = fx.step_cost(state, items, ts)
+    ft = c["kernels"].get("fused_tick", {})
+    if ft.get("calls") != fz.shards or not ft.get("bytes"):
+        _fail(f"step_cost: fused_tick reported {ft}, want {fz.shards} "
+              "calls with their bytes")
+    rl = roofline(c["flops"], c["bytes_accessed"], step_p50,
+                  peak_flops=PEAK_F32_OPS_S, peak_bw=PEAK_BYTES_S)
+    return dict(cost=c, roofline=rl, table=stage_table(c))
+
+
+def run_control_phase(sz: Sizes, fz: FleetSizes, device, rows: list) -> None:
+    """Phase 8: the controlled fleet's checks, each failing the run, its
+    cost and timing lines; the controlled run's fused_tick launches join
+    the kernels line's fused_tick entry (``control_launches``)."""
+    from repro_torch.testing import assert_bitwise, assert_close
+    t0 = time.perf_counter()
+    card = _card_line()
+    arc = control_vs_oracle(sz, fz, device, assert_bitwise, assert_close)
+    s = fz.shards
+    print(f"phase 8 controlled fleet: {s} shards in {fz.regions} regions of "
+          f"{fz.edges}, {sz.batch} rows a shard a tick, fused; shard "
+          f"{CONTROL_FAULT[0]} stalled for ticks {CONTROL_FAULT[1]}.."
+          f"{CONTROL_FAULT[2] - 1}, shard {CONTROL_CHURN[0]} away for ticks "
+          f"{CONTROL_CHURN[1]}..{CONTROL_CHURN[2] - 1} (backup "
+          f"{arc['backup']}, carry handed over and back), {arc['ticks']} "
+          f"ticks: every stream == the healthy oracle (the stalled stream's "
+          f"one resumed window apart), watermark monotone to "
+          f"{arc['watermark']}, no late row, late_excluded "
+          f"{arc['late_excluded']}, {arc['replayed']} rows replayed, "
+          f"{arc['events']} events; fused_tick "
+          f"{arc['launches']['fused_tick'] / arc['ticks']:g} a tick; {card}")
+    el = control_elastic(sz, fz, device)
+    print(f"phase 8 elastic budgets: {fz.ticks} ticks of the hot/cold feed, "
+          f"{el['core']} core and {el['fog']} fog budget resizes, resizes "
+          f"{el['resizes']}, retraces {el['retraces']}, max_trace_count "
+          f"{el['max_trace_count']} (host counting; the eager tick counts no "
+          f"traces); budgets a tick {el['budgets']}; {card}")
+    cc = control_card_vs_cpu(SMALL, FLEET_SMALL, device, assert_bitwise,
+                             assert_close)
+    print(f"phase 8 card vs CPU: the controlled arc at {SMALL.batch} rows a "
+          f"shard, {cc['ticks']} ticks: every ControlDecision and the "
+          f"{cc['events']} events equal, outputs and the final state "
+          f"bitwise, core outputs within {cc['err']:.3e}; {card}")
+    step = np.asarray(el["step_s"])
+    ctl_ms = np.quantile(np.asarray(el["ctl_s"]), [0.5, 0.99]) * 1e3
+    q = np.quantile(step, [0.5, 0.99])
+    cost = control_cost(sz, fz, el["fx"], el["state"], float(q[0]))
+    c, rl = cost["cost"], cost["roofline"]
+    ft = c["kernels"]["fused_tick"]
+    print(f"phase 8 step_cost of one fused fleet tick: {c['flops']:.6g} "
+          f"FLOPs, {c['bytes_accessed']:.6g} bytes, "
+          f"{c['transcendentals']:.6g} transcendentals; fused_tick reported "
+          f"{ft['calls']} calls, {ft['bytes']} bytes, {ft['ops']} ops; "
+          f"stages (stage, ops, bytes) {cost['table']}")
+    print(f"phase 8 roofline at the step p50 {q[0] * 1e3:.3f} ms: "
+          f"{rl['gbs']:.3f} GB/s = {rl['bw_util']:.5f} of 3.35 TB/s, "
+          f"{rl['gflops']:.3f} GFLOP/s = {rl['flops_util']:.6f} of 67 "
+          f"TFLOP/s f32, intensity {rl['ai']:.4f} FLOP/byte; bytes alone "
+          f"would take {c['bytes_accessed'] / PEAK_BYTES_S * 1e3:.4f} ms; "
+          f"{card}")
+    per_tick = el["launches"]["fused_tick"] / fz.ticks
+    print(f"phase 8 timing: FleetController.tick p50 {ctl_ms[0]:.3f} ms, p99 "
+          f"{ctl_ms[1]:.3f} ms beside the controlled fleet step p50 "
+          f"{q[0] * 1e3:.3f} ms, p99 {q[1] * 1e3:.3f} ms, "
+          f"{s * sz.batch * len(step) / step.sum():.0f} items/s over "
+          f"{len(step)} ticks; fused_tick {per_tick:g} a tick; "
+          f"{time.perf_counter() - t0:.1f} s; {card}")
+    if per_tick != s:
+        _fail(f"controlled fleet: {per_tick} fused_tick launches a tick, "
+              f"want {s}")
+    del el
+    for row in rows:
+        if row["name"] == "fused_tick":
+            n = arc["launches"]["fused_tick"]
+            row["control_launches"] = n
+            row["control_launches_a_tick"] = n / arc["ticks"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
               "card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    kernels = run()
+    try:
+        kernels = run()
+    except Exception:                   # any failed check: no result line
+        traceback.print_exc()
+        return 1
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

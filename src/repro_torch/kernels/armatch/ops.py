@@ -26,7 +26,7 @@ import functools
 import torch
 
 from repro_torch.core import profiles as P
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.armatch.ref import armatch_ref
 
 #: the widest N the narrow instance takes: its interests' decoded slots
@@ -92,9 +92,10 @@ def armatch(data: torch.Tensor, interests: torch.Tensor,
         raise ValueError(f"armatch: the narrow instance takes at most "
                          f"{NARROW_MAX_N} interests, got "
                          f"{interests.shape[0]}")
-    if not data.is_cuda:
-        return armatch_ref(data, interests)
-    return _launch(data, interests, instance)
+    with cost.counted("armatch", cost.armatch, data, interests):
+        if not data.is_cuda:
+            return armatch_ref(data, interests)
+        return _launch(data, interests, instance)
 
 
 def _launch(data: torch.Tensor, interests: torch.Tensor,

@@ -29,7 +29,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 
 #: the generic instance's limits (csrc/decode_attn.cu): float32
@@ -169,6 +169,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     the kernel on CUDA tensors, the plain version on CPU ones."""
     hkv = num_kv_heads
     _check(q, k_cache, v_cache, lengths, hkv)
+    b, h, d = q.shape
+    with cost.counted("decode_attn", cost.decode_attn, b, h, hkv, d,
+                      k_cache.shape[1], k_cache.element_size()):
+        return _dispatch(q, k_cache, v_cache, lengths, hkv)
+
+
+def _dispatch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+              lengths: torch.Tensor, hkv: int) -> torch.Tensor:
     b, h, d = q.shape
     g = h // hkv
     scale = 1.0 / (d ** 0.5)

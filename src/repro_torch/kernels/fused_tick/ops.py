@@ -23,7 +23,8 @@ in shared memory a block (``kernels/span.py``); the ``simple`` instance
 (the first port's kernel) runs only when asked for by name, to hold the
 other against it.  Each call is one launch: ``fused_tick.launches``
 counts them all, ``fused_tick.simple_launches`` those of the simple
-instance.
+instance.  Each call reports its bytes and operations
+(``kernels.cost.fused_tick``) to an active ``obs.costmodel.analyze``.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, span
+from repro_torch.kernels import build, cost, span
 from repro_torch.kernels.fused_tick.ref import fused_tick_ref
 
 MAX_RULES = 16                    # RuleTable capacity in csrc/fused_tick.cu
@@ -141,11 +142,13 @@ def fused_tick(seq: torch.Tensor, seq_valid: torch.Tensor, window: int,
     nw = (t - window) // stride + 1             # complete windows only
     if nw < 1:
         raise ValueError(f"need t >= window, got {t} < {window}")
-    if seq.is_cuda:
-        return _launch(seq, seq_valid, window, stride, rows, min_count,
-                       meta_cols, nw, d, instance)
-    return fused_tick_ref(seq, seq_valid, window, stride, table,
-                          min_count=min_count, meta_cols=meta_cols)
+    with cost.counted("fused_tick", cost.fused_tick, t, seq.shape[1] - 1,
+                      d, nw, window):
+        if seq.is_cuda:
+            return _launch(seq, seq_valid, window, stride, rows, min_count,
+                           meta_cols, nw, d, instance)
+        return fused_tick_ref(seq, seq_valid, window, stride, table,
+                              min_count=min_count, meta_cols=meta_cols)
 
 
 fused_tick.launches = 0

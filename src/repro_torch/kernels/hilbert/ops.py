@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.hilbert.ref import hilbert_xy2d_ref
 
 
@@ -42,8 +42,13 @@ def hilbert_xy2d(x: torch.Tensor, y: torch.Tensor,
                          f"{tuple(y.shape)} on {y.device} differ")
     if not 0 <= order <= 32:
         raise ValueError(f"order must be in [0, 32], got {order}")
-    if not x.is_cuda:
-        return hilbert_xy2d_ref(x, y, order)
+    with cost.counted("hilbert", cost.hilbert, x.numel(), order):
+        if not x.is_cuda:
+            return hilbert_xy2d_ref(x, y, order)
+        return _launch(x, y, order)
+
+
+def _launch(x: torch.Tensor, y: torch.Tensor, order: int) -> torch.Tensor:
     x, y = x.contiguous(), y.contiguous()
     d = torch.empty_like(x)
     if x.numel() == 0:

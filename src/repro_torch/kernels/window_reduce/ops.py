@@ -21,7 +21,9 @@ stages K windows' rows in shared memory a block (``kernels/span.py``);
 the ``simple`` instance (the first port's kernel) runs only when asked
 for by name, to hold the other against it.  Each call is one launch:
 ``window_reduce.launches`` counts them all,
-``window_reduce.simple_launches`` those of the simple instance.
+``window_reduce.simple_launches`` those of the simple instance.  Each
+call of :func:`sliding_reduce` reports its bytes and operations
+(``kernels.cost.window_reduce``) to an active ``obs.costmodel.analyze``.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, span
+from repro_torch.kernels import build, cost, span
 from repro_torch.kernels.window_reduce.ref import sliding_reduce_ref
 
 F32_MIN = torch.finfo(torch.float32).min
@@ -75,9 +77,12 @@ def sliding_reduce(xp: torch.Tensor, window: int, stride: int, nw: int,
     if instance is not None and instance not in INSTANCES:
         raise ValueError(f"window_reduce: instance {instance!r}, want one "
                          f"of {sorted(INSTANCES)}")
-    if not xp.is_cuda:
-        return sliding_reduce_ref(xp, window, stride, nw, op)
-    return _launch(xp.contiguous(), window, stride, nw, op, instance or "span")
+    with cost.counted("window_reduce", cost.window_reduce, d, window,
+                      stride, nw):
+        if not xp.is_cuda:
+            return sliding_reduce_ref(xp, window, stride, nw, op)
+        return _launch(xp.contiguous(), window, stride, nw, op,
+                       instance or "span")
 
 
 def _launch(xp: torch.Tensor, window: int, stride: int, nw: int, op: str,

@@ -37,8 +37,9 @@ from repro_torch.core.pipeline import DataDrivenPipeline
 from repro_torch.data import ringbuffer as rbuf
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_tick import fused_tick
+from repro_torch.obs import costmodel as OC
 from repro_torch.obs import latency as OL
-from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.stream import ingest as I
 from repro_torch.stream import windows as W
 
@@ -181,6 +182,36 @@ def _scalar(v, dtype: torch.dtype, device) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v.to(device=device, dtype=dtype)
     return torch.full((), v, dtype=dtype, device=device)
+
+
+def clone_state(tree):
+    """A copy of a (nested) NamedTuple of tensors, every tensor cloned."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return type(tree)(*(clone_state(x) for x in tree))
+
+
+#: what a tick changes on an executor besides its state: restored by
+#: :func:`cost_of`
+_HOST_SIDE = ("_lat_hist", "_lineage", "last_step_seconds", "_skip_feed",
+              "tracer")
+
+
+def cost_of(executor, tick, *args) -> dict:
+    """``obs.costmodel.analyze`` of ``tick(*args)`` with a recording
+    tracer installed on ``executor`` (its stage spans attribute the
+    cost), and the executor's host-side counters restored afterwards:
+    the tick runs once, so hand it a copy of the state."""
+    saved = {k: getattr(executor, k) for k in _HOST_SIDE}
+    tr = Tracer()
+    executor.tracer = tr
+    try:
+        return OC.analyze(tick, *args, tracer=tr)
+    finally:
+        for k, v in saved.items():
+            setattr(executor, k, v)
 
 
 def _count(mask: torch.Tensor) -> torch.Tensor:
@@ -443,6 +474,21 @@ class StreamExecutor:
         """Per-stage event-time latency percentiles (one host transfer
         of the lineage bank) over ``obs.latency.LINEAGE_STAGES``."""
         return OL.lineage_percentiles(self._lineage, qs)
+
+    def step_cost(self, state: StreamState, items, ts) -> dict:
+        """Cost of ONE tick at these operands (``obs.costmodel.analyze``):
+        total FLOPs and bytes plus the per-stage breakdown.  The tick runs
+        once on a copy of ``state`` with the executor's latency
+        histogram, lineage bank and step clock restored afterwards, so
+        nothing is consumed: the next ``step`` is the one it would have
+        been."""
+        dev = self.device
+        return cost_of(
+            self, self._step, clone_state(state),
+            torch.as_tensor(items, device=dev), torch.as_tensor(ts, device=dev),
+            _scalar(self._effective_budget(), torch.int32, dev),
+            _scalar(0.0, torch.float32, dev), _scalar(0.0, torch.float32, dev),
+            _scalar(I.MODE_LIVE, torch.int32, dev))
 
     @property
     def core_budget(self) -> int | None:

@@ -1,6 +1,14 @@
-"""The edge fleet's data plane: S stream shards in ``(region, edge)``
-layout ticking on one card (port of ``repro.stream.fleet``; its control
-plane, ``control.py``, is not ported yet)."""
+"""The edge fleet: S stream shards in ``(region, edge)`` layout ticking
+on one card, and the host-side control plane that keeps them correct
+through stalls and churn (port of ``repro.stream.fleet``)."""
+from repro_torch.stream.fleet.control import (  # noqa: F401
+    Churn,
+    ControlDecision,
+    Fault,
+    FaultInjector,
+    FaultSchedule,
+    FleetController,
+)
 from repro_torch.stream.fleet.executor import (  # noqa: F401
     FleetConfig,
     FleetExecutor,

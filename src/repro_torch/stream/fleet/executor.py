@@ -34,9 +34,8 @@ ring keeps draining on its own rows); ``remesh`` changes the width and
 migrates the state (a departed shard's unconsumed ring rows come back
 to the host).  Backup replay rides the per-shard ``mode`` operand.
 
-Left out: ``step_cost`` (the cost model has no port yet) and the
-reference's trace counts (PyTorch runs eagerly; see the stream
-executor).
+Left out: the reference's trace counts (PyTorch runs eagerly; see the
+stream executor).
 """
 from __future__ import annotations
 
@@ -60,7 +59,8 @@ from repro_torch.stream import ingest as SI
 from repro_torch.stream.executor import (META_COLS, StepOutput, StreamConfig,
                                          StreamExecutor, StreamMetrics,
                                          StreamState, _scalar,
-                                         advance_metrics, ingest_and_window)
+                                         advance_metrics, clone_state,
+                                         cost_of, ingest_and_window)
 from repro_torch.stream.fleet import federation as F
 from repro_torch.stream.fleet import routing as FR
 
@@ -421,6 +421,34 @@ class FleetExecutor:
         """The fleet-pooled lineage bank, ``[n_stages, buckets]`` int64
         on the host (one transfer, summed over shards)."""
         return self._lineage.cpu().numpy().astype(np.int64).sum(axis=0)
+
+    def step_cost(self, state: FleetState, items, ts) -> dict:
+        """Cost of ONE fleet tick at these operands
+        (``obs.costmodel.analyze``): total FLOPs and bytes plus the
+        per-stage breakdown (exchange, core compute, commit, ...) and
+        what each hand kernel reported.  Every shard offers its whole
+        batch as live traffic under the current masks and budgets.  The
+        tick runs once on a copy of ``state`` with the executor's latency
+        histogram, lineage banks and step clock restored afterwards, so
+        nothing is consumed: the next ``step`` is the one it would have
+        been."""
+        dev, s = self.device, self.cfg.num_shards
+        items = torch.as_tensor(items, device=dev)
+
+        def tick(*args):
+            self._fleet_step(*args)
+            self._lat_hist = OL.histogram_update(
+                self._lat_hist, _scalar(0.0, torch.float32, dev))
+        return cost_of(
+            self, tick, clone_state(state), items,
+            torch.as_tensor(ts, device=dev),
+            torch.ones(items.shape[:2], dtype=torch.bool, device=dev),
+            torch.zeros((s,), dtype=torch.int32, device=dev),
+            torch.as_tensor(self._healthy, device=dev),
+            torch.as_tensor(self._active, device=dev),
+            _scalar(self._budget, torch.int32, dev),
+            torch.as_tensor(self._region_budget, device=dev),
+            _scalar(0.0, torch.float32, dev))
 
     # -- state ------------------------------------------------------------
     def init_state(self, feature_dim: int) -> FleetState:

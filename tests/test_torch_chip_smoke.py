@@ -63,10 +63,13 @@ def test_ar_fails_without_kernel_launches(smoke, monkeypatch):
 
 
 def test_armatch_ops_counts_each_used_slot_pair(smoke):
-    """The bound's operation count against a count pair by pair."""
+    """The bound's operation count (``kernels.cost.armatch_ops``, which
+    ``chip_smoke.py`` bounds armatch with) against a count pair by
+    pair."""
     import numpy as np
     from repro_torch.core import profiles as P
     from repro_torch.kernels.checks import random_profiles
+    from repro_torch.kernels.cost import armatch_ops
     rng = np.random.default_rng(3)
     kw = dict(wildcard=0.1, bad_vkind=0.1, zero_rows=0.1)
     data = random_profiles(rng, 23, **kw)
@@ -85,8 +88,8 @@ def test_armatch_ops_counts_each_used_slot_pair(smoke):
                 want += 1
                 for ds in row[row[:, P.L_USED] > 0]:
                     want += cost.get(int(ps[P.L_VKIND]), 0)
-    assert smoke.armatch_ops(torch.from_numpy(data),
-                             torch.from_numpy(ints)) == want
+    assert armatch_ops(torch.from_numpy(data),
+                       torch.from_numpy(ints)) == want
 
 
 def _serve_sizes(smoke, monkeypatch, **kw):
@@ -456,3 +459,104 @@ def test_fleet_sizes_are_the_full_width(smoke):
         (65536, 16, 64, 32, 1 << 22)
     assert fz.core_budget // fz.num_core == sz.batch // sz.stride // 4
     assert fz.ticks == 16 and smoke.FLEET_CORE[1:] == (1e-6, 1e-6)
+
+
+# -- phase 8: the controlled fleet --------------------------------------------
+
+def _control_sizes(smoke, monkeypatch):
+    """Phase 8 at a tiny size: 512 rows a shard (check 3 at 256), budgets
+    scaled with the windows, 16 ticks of the hot/cold feed; each call of
+    fused_tick's plain version counted as the card counts a launch."""
+    from repro_torch.kernels.fused_tick import ops as FT
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(smoke, "_card_line", lambda: "CPU rehearsal")
+    real = FT.fused_tick_ref
+
+    def counted(*a, **k):
+        FT.fused_tick.launches += 1
+        return real(*a, **k)
+    monkeypatch.setattr(FT, "fused_tick_ref", counted)
+    sz = smoke.Sizes(batch=512, d=16, window=64, stride=32,
+                     capacity=1 << 12, ticks=16, cpu_ticks=2, dedupe=0,
+                     warmup=1)
+    fz = smoke.FleetSizes(regions=2, edges=4, num_core=2, core_budget=16,
+                          fog_budget=12, ticks=16, checks=(0, 4))
+    monkeypatch.setattr(smoke, "SMALL", sz._replace(batch=256))
+    monkeypatch.setattr(smoke, "FLEET_SMALL",
+                        fz._replace(core_budget=8, fog_budget=6))
+    return sz, fz
+
+
+def test_control_phase_runs_and_checks_itself(smoke, monkeypatch, capsys):
+    """Phase 8 on the CPU: every check runs and holds, and the fused_tick
+    entry of the kernels line gains the controlled run's launches."""
+    sz, fz = _control_sizes(smoke, monkeypatch)
+    rows = [{"name": "fused_tick"}, {"name": "window_reduce"}]
+    smoke.run_control_phase(sz, fz, "cpu", rows)
+    out = capsys.readouterr().out
+    for line in ("phase 8 controlled fleet", "phase 8 elastic budgets",
+                 "phase 8 card vs CPU", "phase 8 step_cost",
+                 "phase 8 roofline", "phase 8 timing"):
+        assert line in out and "CPU rehearsal" in out, line
+    assert rows[0]["control_launches_a_tick"] == fz.shards
+    assert rows[0]["control_launches"] % fz.shards == 0
+    assert "control_launches" not in rows[1]
+
+
+def test_control_vs_oracle_states_the_stall_window(smoke, monkeypatch):
+    """Check 1 returns the arc's numbers: the stalled shard and the
+    backup counted late-excluded rows, the rows replayed, one fused_tick
+    launch a shard a tick."""
+    sz, fz = _control_sizes(smoke, monkeypatch)
+    arc = smoke.control_vs_oracle(sz, fz, "cpu", assert_bitwise,
+                                  assert_close)
+    stalled = smoke.CONTROL_FAULT[0]
+    assert arc["late_excluded"][stalled] > 0
+    assert arc["late_excluded"][arc["backup"]] > 0
+    assert arc["backup"] // fz.edges == smoke.CONTROL_CHURN[0] // fz.edges
+    assert arc["replayed"] == 6 * sz.batch      # the six departed ticks
+    assert arc["launches"]["fused_tick"] == fz.shards * arc["ticks"]
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("launches", "launched fused_tick"),
+    ("handoff", "controlled vs oracle stream 5"),
+    ("budgets", "elastic budgets"),
+])
+def test_control_phase_fails_on_a_broken_check(smoke, monkeypatch, fault,
+                                               match):
+    """Phase 8 fails when the path launched no kernel, when the churn
+    skips the carry handoff (the replayed stream's sliding windows
+    smear), or when the elastic budgets never move."""
+    from repro_torch.stream.fleet import FleetController
+    sz, fz = _control_sizes(smoke, monkeypatch)
+    if fault == "launches":
+        monkeypatch.setattr(smoke, "read_launches", lambda: {
+            "fused_tick": 0, "window_reduce": 0})
+    if fault == "handoff":
+        monkeypatch.setattr(FleetController, "begin_replay_carry",
+                            lambda self, st, stream, backup: st)
+        monkeypatch.setattr(FleetController, "end_replay_carry",
+                            lambda self, st, stream, backup: st)
+    if fault == "budgets":
+        fz = fz._replace(core_budget=10_000, fog_budget=10_000)
+    with pytest.raises((RuntimeError, AssertionError), match=match):
+        if fault == "budgets":
+            smoke.control_elastic(sz, fz, "cpu")
+        else:
+            smoke.control_vs_oracle(sz, fz, "cpu", assert_bitwise,
+                                    assert_close)
+
+
+def test_main_fails_without_a_result_when_phase_8_fails(smoke, monkeypatch,
+                                                        capsys):
+    """A failed phase 8 check makes ``main()`` return 1 and print neither
+    the kernels line nor the ``ok`` line."""
+    sz, fz = _control_sizes(smoke, monkeypatch)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(smoke, "run", lambda: smoke.control_elastic(
+        sz, fz._replace(core_budget=10_000, fog_budget=10_000), "cpu"))
+    assert smoke.main() == 1
+    captured = capsys.readouterr()
+    assert '"ok"' not in captured.out and '"kernels"' not in captured.out
+    assert "elastic budgets" in captured.err

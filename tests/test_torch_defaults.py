@@ -82,6 +82,30 @@ CONSTRUCTORS = {
 }
 
 
+def _controller():
+    """A controller over a fleet built without ``device``: its executor's
+    knobs are host numpy, so the card is where its executor lives."""
+    from repro_torch.stream.fleet import FleetController
+    from repro_torch.core import pipeline, rules
+    engine = rules.RuleEngine([rules.threshold_rule(
+        "hot", 0, ">=", 1.0, rules.C_SEND_CORE)])
+    ex = FleetExecutor(
+        FleetConfig(stream=StreamConfig(micro_batch=8, window=4, stride=4,
+                                        capacity=16), num_shards=2),
+        engine, pipeline.two_tier_pipeline(lambda p, b: (b, b[:, :5]),
+                                           lambda p, b: (b, b[:, :5]),
+                                           engine))
+    ctl = FleetController(ex)
+    st = ex.init_state(2)
+    st, _ = ex.step(st, np.zeros((2, 8, 2), np.float32),
+                    np.tile(np.arange(8, dtype=np.float32), (2, 1)))
+    ctl.tick(st, step_times=np.full(2, 0.1))
+    return ctl.begin_replay_carry(st, 0, 1).shard.carry
+
+
+CONSTRUCTORS["FleetController"] = _controller
+
+
 @pytest.mark.parametrize("name", sorted(CONSTRUCTORS))
 def test_constructor_defaults_to_the_card(name):
     if torch.cuda.is_available():
@@ -89,3 +113,31 @@ def test_constructor_defaults_to_the_card(name):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             CONSTRUCTORS[name]()
+
+
+@pytest.mark.parametrize("kind", ["stream", "fleet"])
+def test_step_cost_runs_on_the_executors_device(kind, monkeypatch):
+    """``step_cost`` moves numpy operands to the executor's own device
+    and runs the tick there: every tensor the analysis sees is on it."""
+    from repro_torch.core import pipeline, rules
+    from repro_torch.obs import costmodel
+    from repro_torch.stream import StreamExecutor
+    engine = rules.RuleEngine([rules.threshold_rule(
+        "hot", 0, ">=", 1.0, rules.C_SEND_CORE)])
+    pipe = pipeline.two_tier_pipeline(lambda p, b: (b, b[:, :5]),
+                                      lambda p, b: (b, b[:, :5]), engine)
+    cfg = StreamConfig(micro_batch=8, window=4, stride=4, capacity=16)
+    ex = StreamExecutor(cfg, engine, pipe, device="cpu") if kind == "stream" \
+        else FleetExecutor(FleetConfig(stream=cfg, num_shards=2), engine,
+                           pipe, device="cpu")
+    items = np.zeros((8, 2) if kind == "stream" else (2, 8, 2), np.float32)
+    ts = np.zeros(items.shape[:-1], np.float32)
+    seen = set()
+    real = costmodel._Analysis.count
+
+    def count(self, func, args, kwargs, out):
+        seen.update(t.device.type for t in costmodel._tensors((args, out)))
+        return real(self, func, args, kwargs, out)
+    monkeypatch.setattr(costmodel._Analysis, "count", count)
+    assert ex.step_cost(ex.init_state(2), items, ts)["bytes_accessed"] > 0
+    assert seen == {ex.device.type}

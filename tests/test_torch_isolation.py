@@ -22,8 +22,17 @@ _PROBE = textwrap.dedent("""
                  if m == "repro" or m.startswith(("repro.", "jax", "jaxlib")))
     bad = [m for m in bad if sys.modules[m] is not None]
     print(len(names), "modules;", "leaked:", bad)
+    print(" ".join(names))
     sys.exit(1 if bad else 0)
 """)
+
+#: modules the import walk must reach (the control plane's slice among
+#: them), beside its count
+CONTROL_SLICE = ("repro_torch.stream.fleet.control",
+                 "repro_torch.runtime.straggler", "repro_torch.runtime.health",
+                 "repro_torch.obs.events", "repro_torch.obs.slo",
+                 "repro_torch.obs.export", "repro_torch.obs.costmodel",
+                 "repro_torch.kernels.cost")
 
 
 def test_every_port_module_imports_without_jax_or_repro():
@@ -31,7 +40,8 @@ def test_every_port_module_imports_without_jax_or_repro():
     r = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[0]) >= 20, r.stdout
+    assert int(r.stdout.split()[0]) >= 81, r.stdout
+    assert set(CONTROL_SLICE) <= set(r.stdout.splitlines()[1].split())
 
 
 def _imported_roots(path: Path) -> set[str]:
