@@ -110,7 +110,30 @@ Phases, in order; any failure raises and the exit code is not 0:
    fleet tick, the fused_tick bytes its wrappers reported, the stage
    table and the roofline at the card's peaks; (5) the controller's tick
    p50/p99 beside the step's, 8 fused_tick launches a tick, which join
-   the fused_tick entry of the kernels line (``control_launches``).
+   the fused_tick entry of the kernels line (``control_launches``);
+9. training, once phase 8's fleet is freed: Yi-6B at full width cut to
+   16 of its 32 layers (float32 AdamW state is 16 bytes a parameter:
+   52.7 GB at 16 layers, 97.0 GB at 32), float32 params, bfloat16
+   compute, trained through ``launch.train.run`` for 8 steps of
+   ``SyntheticTokens`` (batch 2 x seq 4,096 in 2 microbatches, lr 3e-4
+   under ``train.py``'s cosine schedule), each check failing the run:
+   every loss finite, the optimizer step 8, two more steps on a repeated
+   batch lowering its loss, no launch of any hand kernel in those steps
+   (the training path computes attention, GEMMs, norms, the loss and
+   AdamW in plain PyTorch, as the reference computes them in jnp); then
+   the learning witness: the same weights on the same 8 fresh batches
+   at peak lrs 1e-4, 3e-5, 1e-5 and 3e-6, one model at a time, every
+   loss finite and, at the last lr, the mean of the last 4 losses under
+   the first 4's (whether the lr-3e-4 run's fall is printed); then,
+   at Yi-6B's smoke config in float32, 3 steps on the card against the
+   CPU from the same weights (losses within 1e-5 relative, parameters
+   within 1e-5 of each leaf's largest), 1 against 2 microbatches on the
+   card (loss within 1e-6, gradients within 1e-5 of each leaf's
+   largest), and a checkpoint at step 2 restored plus 2 steps against 4
+   uninterrupted steps (parameters within 1e-6).  It prints step
+   p50/p99, tokens/s, the peak of ``torch.cuda.max_memory_allocated``
+   and the model FLOPs of a step, each beside the card's name and power
+   limit.
 
 The line before the last is a JSON object of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -1445,13 +1468,15 @@ def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
     profile_ticks(sz, device)
     profile_ar(ar_sz, ar)
     profile_serve(sv)
-    del sv, res
+    del sv, res, results, ar
     _free()
     kernels["kernels"].append(run_families(rg_sz, device, errs))
     _free()
     run_fleet_phase(sz, FLEET, device, kernels["kernels"])
     _free()
     run_control_phase(sz, FLEET, device, kernels["kernels"])
+    _free()
+    run_train_phase(TRAIN_FULL, TRAIN_SMALL, device)
     return kernels
 
 
@@ -2359,6 +2384,338 @@ def run_control_phase(sz: Sizes, fz: FleetSizes, device, rows: list) -> None:
             n = arc["launches"]["fused_tick"]
             row["control_launches"] = n
             row["control_launches_a_tick"] = n / arc["ticks"]
+
+
+# ---- phase 9: training Yi-6B at full width ---------------------------------
+
+class TrainSizes(NamedTuple):
+    steps: int          # train steps of ``train.run``
+    batch: int          # sequences a step
+    seq: int            # tokens a sequence
+    microbatches: int = 1
+    layers: int | None = None   # None: the configuration's depth
+    compute: str = "bfloat16"   # compute_dtype (params stay float32)
+    lr: float = 3e-4            # AdamW's, under train.py's cosine schedule
+    arch: str = "yi_6b"
+    smoke: bool = False         # its smoke config, not the full one
+    witness: tuple = ()         # lower peak lrs of the learning witness
+
+
+#: Yi-6B at full width (``src/repro/configs/yi_6b.py``, the default
+#: ``--arch`` of ``launch/train.py``), its depth cut from 32 to 16
+#: layers: AdamW in float32 holds 16 bytes a parameter (parameters,
+#: gradients, two moments), 97.0 GB at 32 layers, 52.7 GB at 16.  Seq
+#: 4,096 is ``train_4k``'s; a batch of 2 in 2 microbatches; 8 steps of
+#: ``train.py``'s cosine schedule (warmup 10, total 80) at lr 3e-4.
+#: The learning witness then trains the same weights on the same 8
+#: fresh batches at lower peak lrs under the same schedule.
+TRAIN_FULL = TrainSizes(steps=8, batch=2, seq=4096, microbatches=2,
+                        layers=16, witness=(1e-4, 3e-5, 1e-5, 3e-6))
+#: Yi-6B's smoke config in float32 for the card-against-CPU,
+#: microbatch and resume checks: ``tests/test_system.py``'s batch and
+#: sequence
+TRAIN_SMALL = TrainSizes(steps=3, batch=8, seq=32, compute="float32",
+                         lr=2e-3, smoke=True)
+#: card against CPU, float32, 3 steps from the same weights: each loss
+#: relative; the parameters within this of each leaf's largest
+#: magnitude (the stated tolerance of ``tests/test_torch_checkpoint.py``)
+TRAIN_CARD_VS_CPU = 1e-5
+#: 1 microbatch against 2 on the card: the loss relative and each
+#: gradient leaf of its largest magnitude (the reference's
+#: ``test_microbatched_grads_match_full`` tolerances)
+MICRO_LOSS, MICRO_GRAD = 1e-6, 1e-5
+#: a checkpoint at step 2, a restore and 2 more steps against 4
+#: uninterrupted ones: each parameter leaf of its largest magnitude
+RESUME_PARAM = 1e-6
+
+
+def train_config(tz: TrainSizes):
+    """``tz.arch`` (its full or smoke config) cut to ``tz``'s depth and
+    compute dtype."""
+    import dataclasses
+    from repro_torch import configs
+    cfg = (configs.smoke_config if tz.smoke else configs.get_config)(tz.arch)
+    return dataclasses.replace(
+        cfg, n_layers=tz.layers or cfg.n_layers,
+        compute_dtype=getattr(torch, tz.compute))
+
+
+def train_flops(cfg, n: int, batch: int, seq: int) -> dict:
+    """The model FLOPs of one train step of ``batch`` x ``seq`` tokens,
+    ``n`` the model's non-embedding parameters: 6 x ``n`` x tokens,
+    attention (its two products over the causal, chunk-truncated keys
+    ``causal_attention`` reads, forward and backward: 3x the forward),
+    and the unembedding (6 x d_model x vocab x tokens); remat's extra
+    forward passes apart: each layer's (2 x its parameters x tokens plus
+    its attention) and each query chunk's again inside it."""
+    tokens = batch * seq
+    hd = cfg.n_heads * cfg.d_head
+    cq = min(cfg.chunk_q, seq)
+    while seq % cq:
+        cq -= 1
+    pairs = 0                   # (query, key) pairs the chunks compute
+    for i in range(seq // cq):
+        hi = (i + 1) * cq
+        pairs += cq * (hi - (0 if cfg.window is None
+                             else max(0, hi - cfg.window - cq)))
+    n_attn = sum(k.startswith("attn") for k in cfg.layer_kinds())
+    attn_fwd = 4 * hd * pairs * batch * n_attn
+    out = {"params": 6 * n * tokens, "attention": 3 * attn_fwd,
+           "unembed": 6 * cfg.d_model * cfg.vocab * tokens,
+           "non_embedding_params": n,
+           "remat": 2 * n * tokens + 2 * attn_fwd}
+    out["model"] = out["params"] + out["attention"] + out["unembed"]
+    return out
+
+
+def _leaf_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest difference of two tensors over ``b``'s largest
+    magnitude."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _params_err(a, b) -> float:
+    """The largest :func:`_leaf_err` over two models' parameters."""
+    return max(_leaf_err(x, y) for x, y in zip(a.parameters(),
+                                               b.parameters()))
+
+
+def _train_batch(cfg, tz: TrainSizes, step: int, device) -> dict:
+    from repro_torch.data import SyntheticTokens
+    b = SyntheticTokens(cfg.vocab, tz.seq, tz.batch).batch_at(step)
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def _falls(losses) -> bool:
+    """Whether fresh-batch losses fall: the mean of the last half under
+    the mean of the first half."""
+    h = len(losses) // 2
+    return float(np.mean(losses[-h:])) < float(np.mean(losses[:h]))
+
+
+def run_train(tz: TrainSizes, device) -> dict:
+    """The training run of phase 9 through the port's entry point
+    (``train.run``), the launch counts zeroed just before: fails unless
+    every loss is finite, the optimizer took ``tz.steps`` steps and no
+    hand kernel launched.  Then two more steps on the run's last batch
+    must lower its loss (``tests/test_archs_smoke.py``'s check), also
+    launching no hand kernel."""
+    from repro_torch import optim
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import cosine_with_warmup
+    cfg = train_config(tz)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, seed=0, device=device, trainable=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    zero_launches()
+    res = train.run(cfg, tz.steps, tz.batch, tz.seq,
+                    microbatches=tz.microbatches, lr=tz.lr, device=device,
+                    model=model)
+    launches = read_launches()
+    if not np.isfinite(res.losses).all():
+        _fail(f"train: non-finite losses {res.losses}")
+    if int(res.opt_state.step) != tz.steps:
+        _fail(f"train: the optimizer step reads {int(res.opt_state.step)}, "
+              f"want {tz.steps}")
+    step = steps.build_train_step(
+        cfg, optim.AdamWConfig(lr=tz.lr), num_microbatches=tz.microbatches,
+        schedule=lambda s: cosine_with_warmup(s, warmup=10,
+                                              total=tz.steps * 10))
+    batch = _train_batch(cfg, tz, tz.steps - 1, device)
+    repeat, state = [], res.opt_state
+    for _ in range(2):
+        model, state, m = step(model, state, batch)
+        repeat.append(float(m["loss"]))
+    every = read_launches()
+    if any(every.values()) or any(read_simple().values()) or \
+            _wrappers()["decode_attn"].generic_launches:
+        _fail(f"train: hand kernels launched in the training steps: "
+              f"{every}, simple {read_simple()}")
+    if not repeat[1] < repeat[0]:
+        _fail(f"train: a second step on a repeated batch did not lower "
+              f"its loss: {repeat}")
+    n = sum(p.numel() for name, p in model.named_parameters()
+            if name not in ("embed", "unembed"))
+    return dict(cfg=cfg, res=res, launches=launches, repeat=repeat,
+                init_s=init_s, peak=torch.cuda.max_memory_allocated(),
+                flops=train_flops(cfg, n, tz.batch, tz.seq),
+                step=int(state.step), fn=step, state=[model, state, batch])
+
+
+def train_witness(tz: TrainSizes, device) -> list:
+    """The learning witness: for each lr of ``tz.witness``, in turn, the
+    run's weights (seed 0) trained by ``train.run`` on the run's fresh
+    batches under the same schedule, one model at a time.  Fails unless
+    every loss is finite and, at the last lr, the losses fall
+    (:func:`_falls`).  Returns ``[(lr, losses), ...]``."""
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    cfg, out = train_config(tz), []
+    for lr in tz.witness:
+        model = T.init_params(cfg, seed=0, device=device, trainable=True)
+        res = train.run(cfg, tz.steps, tz.batch, tz.seq,
+                        microbatches=tz.microbatches, lr=lr, device=device,
+                        model=model)
+        out.append((lr, res.losses))
+        del model, res
+        _free()
+        if not np.isfinite(out[-1][1]).all():
+            _fail(f"train witness: non-finite losses at lr {lr}: "
+                  f"{out[-1][1]}")
+    if out and not _falls(out[-1][1]):
+        _fail(f"train witness: the fresh-batch losses at lr {out[-1][0]} "
+              f"did not fall: {out[-1][1]}")
+    return out
+
+
+def profile_train(tr: dict) -> None:
+    """Where a train step's time goes: ``torch.profiler`` over one more
+    step of the run's step function on its last batch."""
+    model, state, batch = tr["state"]
+    box = [state]
+
+    def one(i):
+        _, box[0], _ = tr["fn"](model, box[0], batch)
+    _profile("train", 1, "step", one)
+
+
+def train_card_vs_cpu(tz: TrainSizes, device) -> dict:
+    """``tz.steps`` train steps on the card and on the CPU from the same
+    weights (drawn on the card, copied): losses and parameters within
+    :data:`TRAIN_CARD_VS_CPU`."""
+    import copy
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    cfg = train_config(tz)
+    model = T.init_params(cfg, seed=1, device=device, trainable=True)
+    cpu_model = copy.deepcopy(model).cpu()
+    kw = dict(microbatches=tz.microbatches, lr=tz.lr)
+    card = train.run(cfg, tz.steps, tz.batch, tz.seq, device=device,
+                     model=model, **kw)
+    cpu = train.run(cfg, tz.steps, tz.batch, tz.seq, device="cpu",
+                    model=cpu_model, **kw)
+    loss = max(abs(a - b) / abs(b) for a, b in zip(card.losses, cpu.losses))
+    params = _params_err(card.model, cpu.model)
+    if loss > TRAIN_CARD_VS_CPU or params > TRAIN_CARD_VS_CPU:
+        _fail(f"train card vs CPU: losses {card.losses} vs {cpu.losses} "
+              f"({loss}), parameters {params} of the largest > "
+              f"{TRAIN_CARD_VS_CPU}")
+    return dict(loss=loss, params=params, steps=tz.steps)
+
+
+def train_microbatches(tz: TrainSizes, device) -> dict:
+    """One batch's loss and gradients on the card in 1 and in 2
+    microbatches: within :data:`MICRO_LOSS` and :data:`MICRO_GRAD`."""
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import microbatched_grads
+    cfg = train_config(tz)
+    model = T.init_params(cfg, seed=2, device=device, trainable=True)
+    batch = _train_batch(cfg, tz, 0, device)
+
+    def loss_fn(m, b):
+        return T.loss_fn(cfg, m, b)
+
+    l1, _, g1 = microbatched_grads(loss_fn, model, batch, 1)
+    l2, _, g2 = microbatched_grads(loss_fn, model, batch, 2)
+    loss = abs(float(l2) - float(l1)) / abs(float(l1))
+    grad = max(_leaf_err(g2[n], g) for n, g in g1.items())
+    if loss > MICRO_LOSS or grad > MICRO_GRAD:
+        _fail(f"train microbatches: 1 vs 2 microbatches: loss {loss} "
+              f"(> {MICRO_LOSS}?), grads {grad} (> {MICRO_GRAD}?)")
+    return dict(loss=loss, grad=grad)
+
+
+def train_resume(tz: TrainSizes, device) -> dict:
+    """A ``CheckpointManager`` save at step 2 (``train.run`` with
+    ``ckpt_every=2``), a restore and 2 more steps against 4
+    uninterrupted steps: parameters within :data:`RESUME_PARAM`.  The
+    checkpoints go to ``build/`` (git-ignored) and are removed."""
+    import shutil
+    from repro_torch.launch import train
+    cfg = train_config(tz)
+    ckpt = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(lr=tz.lr, device=device, microbatches=tz.microbatches)
+    try:
+        full = train.run(cfg, 4, tz.batch, tz.seq, **kw)
+        first = train.run(cfg, 2, tz.batch, tz.seq, ckpt_dir=str(ckpt),
+                          ckpt_every=2, **kw)
+        rest = train.run(cfg, 4, tz.batch, tz.seq, ckpt_dir=str(ckpt),
+                         ckpt_every=2, resume=True, **kw)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if first.checkpoints != [2] or rest.start_step != 2:
+        _fail(f"train resume: checkpoints {first.checkpoints}, resumed at "
+              f"{rest.start_step}, want [2] and 2")
+    params = _params_err(rest.model, full.model)
+    if params > RESUME_PARAM:
+        _fail(f"train resume: 2 + 2 steps differ from 4 by {params} of the "
+              f"largest parameter > {RESUME_PARAM}")
+    return dict(params=params,
+                losses=(first.losses + rest.losses, full.losses))
+
+
+def run_train_phase(tz: TrainSizes, small: TrainSizes, device) -> None:
+    """Phase 9: the full-width training run and its checks, each failing
+    the run, then the smoke config's card against CPU, microbatch and
+    resume checks; its lines carry the card's name and power limit."""
+    t0 = time.perf_counter()
+    card = _card_line()
+    tr = run_train(tz, device)
+    cfg, res, fl = tr["cfg"], tr["res"], tr["flops"]
+    print(f"phase 9 train path: {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} KV heads "
+          f"of {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, float32 "
+          f"params, compute {tz.compute}), {tz.steps} steps of {tz.batch} x "
+          f"{tz.seq} tokens in {tz.microbatches} microbatches, lr {tz.lr} "
+          f"under cosine(warmup 10, total {tz.steps * 10}); init "
+          f"{tr['init_s']:.2f} s; losses {[round(x, 4) for x in res.losses]}"
+          f", all finite; grad norms "
+          f"{[round(x, 4) for x in res.grad_norms]}; fresh-batch losses "
+          f"fall: {'yes' if _falls(res.losses) else 'no'}; optimizer step "
+          f"{int(res.opt_state.step)}; a repeated batch's loss "
+          f"{tr['repeat'][0]:.4f} -> {tr['repeat'][1]:.4f} (optimizer step "
+          f"{tr['step']}); hand-kernel launches {tr['launches']} (none); "
+          f"{card}")
+    secs = np.asarray(res.secs)
+    q = np.quantile(secs, [0.5, 0.99])
+    tokens = tz.batch * tz.seq
+    print(f"path train: step p50 {q[0] * 1e3:.3f} ms, p99 {q[1] * 1e3:.3f} "
+          f"ms over {len(secs)} steps (first {secs[0] * 1e3:.3f} ms), "
+          f"{tokens * len(secs) / secs.sum():.1f} tokens/s (all tokens over "
+          f"all steps), peak memory {tr['peak'] / 2**30:.2f} GiB "
+          f"(max_memory_allocated); {card}")
+    print(f"path train FLOPs a step: model {fl['model']:.6g} = 6 x "
+          f"{fl['non_embedding_params']} non-embedding params x {tokens} "
+          f"tokens {fl['params']:.6g} + attention {fl['attention']:.6g} + "
+          f"unembed {fl['unembed']:.6g}; remat's extra forward "
+          f"{fl['remat']:.6g} apart; model FLOPs / step p50 "
+          f"{fl['model'] / q[0] / 1e12:.3f} TFLOP/s; {card}")
+    profile_train(tr)
+    del tr, res
+    _free()
+    wit = train_witness(tz, device)
+    print(f"phase 9 train witness: the same weights and {tz.steps} fresh "
+          f"batches under the same schedule, by peak lr: "
+          + "; ".join(f"lr {lr}: losses {[round(x, 4) for x in ls]}, fall "
+                      f"{'yes' if _falls(ls) else 'no'}" for lr, ls in wit)
+          + f"; {card}")
+    cc = train_card_vs_cpu(small, device)
+    mb = train_microbatches(small, device)
+    rs = train_resume(small, device)
+    print(f"phase 9 train checks at {small.arch}'s smoke config "
+          f"({small.compute}, {small.batch} x {small.seq} tokens): card == "
+          f"CPU over {cc['steps']} steps, losses within {cc['loss']:.3e} "
+          f"relative, parameters within {cc['params']:.3e} of each leaf's "
+          f"largest; 1 vs 2 microbatches on the card, loss within "
+          f"{mb['loss']:.3e}, gradients within {mb['grad']:.3e}; a "
+          f"checkpoint at step 2 restored + 2 steps == 4 steps, parameters "
+          f"within {rs['params']:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s; {card}")
 
 
 def main() -> int:

@@ -1,8 +1,9 @@
 """PyTorch + CUDA port of the edge stream-analytics system in ``repro``.
 
 The package mirrors ``repro``'s subpackage layout (``data/``,
-``stream/``, ``core/``, ``obs/``, ``runtime/``, ``kernels/``) so every
-module has an obvious reference.  It imports ``torch`` and never
+``stream/``, ``core/``, ``obs/``, ``runtime/``, ``kernels/``,
+``models/``, ``configs/``, ``optim/``, ``checkpoint/``, ``launch/``) so
+every module has an obvious reference.  It imports ``torch`` and never
 ``jax`` or ``repro``.
 
 Entry points run on the CUDA card unless the caller asks for the CPU

@@ -17,7 +17,15 @@ Representation differences handled here:
   port keeps one layer module a layer; the decode caches likewise
   (``[repeat, B, S, Hkv, D]`` a stack against ``[B, S, Hkv, D]`` a
   layer), and an attention layer's ``{"attn": {k, v}}`` is the port's
-  ``{k, v}`` (the recurrent kinds' states keep their nesting).
+  ``{k, v}`` (the recurrent kinds' states keep their nesting);
+* the training state: the port names a parameter as its module does
+  (``layers.3.attn.p.wq``) and keys the AdamW moments by those names;
+  the reference's ``(params, AdamWState)`` tree nests them by group and
+  stacks each stack's layers (``['stacks'][0]['pos0']['attn']['wq']``,
+  row 3).  ``train_state_tree`` lays the port's state out as the
+  reference's tree (so a checkpoint of it is the reference's), and
+  ``train_model_from_numpy`` with ``adamw_state_from_numpy`` builds the
+  port's state from such a tree.
 """
 from __future__ import annotations
 
@@ -28,12 +36,16 @@ from repro_torch import resolve_device
 from repro_torch.core.store import ShardStore
 from repro_torch.data.ringbuffer import RingBuffer
 from repro_torch.models import transformer as T
+from repro_torch.optim import AdamWState
 from repro_torch.stream.executor import StreamMetrics, StreamState
 from repro_torch.stream.fleet.executor import FleetState
 from repro_torch.stream.ingest import AdmissionState
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(resolve_device(device), dtype or a.dtype,
+                             copy=True)
     a = np.array(a, copy=True)
     if a.dtype.name == "bfloat16":      # ml_dtypes' type, from a JAX array
         return torch.as_tensor(a.astype(np.float32),
@@ -176,8 +188,22 @@ def _layer_slices(cfg):
 def model_from_numpy(cfg, tree, device: str | torch.device | None = None
                      ) -> T.Transformer:
     """The reference's ``init_params`` tree (numpy leaves, layers stacked
-    a stack) -> the port's ``Transformer`` on ``device``, its layers cast
-    to ``cfg.compute_dtype`` as the model casts them."""
+    a stack) -> the port's serving ``Transformer`` on ``device``, its
+    layers cast to ``cfg.compute_dtype`` as the model casts them."""
+    return _model(cfg, tree, device, trainable=False)
+
+
+def train_model_from_numpy(cfg, tree,
+                           device: str | torch.device | None = None
+                           ) -> T.Transformer:
+    """The reference's ``init_params`` tree -> the port's trainable
+    ``Transformer`` on ``device``: every leaf in its own dtype
+    (``param_dtype``), taking a gradient.  Leaves may be numpy arrays
+    or tensors (a restored checkpoint's)."""
+    return _model(cfg, tree, device, trainable=True)
+
+
+def _model(cfg, tree, device, trainable: bool) -> T.Transformer:
     dev = resolve_device(device)
 
     def tens(a):
@@ -188,17 +214,117 @@ def model_from_numpy(cfg, tree, device: str | torch.device | None = None
                 for k, v in g.items()}
 
     layers = [T.make_layer(cfg, kind,
-                           group(_index(tree["stacks"][si][key], r)))
+                           group(_index(tree["stacks"][si][key], r)),
+                           trainable=trainable)
               for (si, r, key), kind in zip(_layer_slices(cfg),
                                             cfg.layer_kinds())]
     unembed = None if cfg.tie_embeddings else tens(tree["unembed"])
     return T.Transformer(cfg, tens(tree["embed"]), group(tree["final_norm"]),
-                         unembed, layers)
+                         unembed, layers, trainable=trainable)
 
 
 def _index(g, r):
-    return {k: _index(v, r) if isinstance(v, dict) else np.asarray(v)[r]
-            for k, v in g.items()}
+    if not isinstance(g, dict):
+        return g[r] if isinstance(g, torch.Tensor) else np.asarray(g)[r]
+    return {k: _index(v, r) for k, v in g.items()}
+
+
+def _ref_slots(cfg, names):
+    """(port name, path in the reference's params tree, row) of each
+    parameter name (``named_parameters()`` order); the row is the layer's
+    index in its stack, ``None`` outside the stacks."""
+    slices = list(_layer_slices(cfg))
+    for name in names:
+        head, *rest = name.split(".")
+        if head != "layers":
+            yield name, tuple(name.split(".")), None
+            continue
+        si, r, key = slices[int(rest[0])]
+        # module attributes ``p`` hold a group's leaves: not a tree level
+        yield name, ("stacks", si, key) + tuple(
+            k for k in rest[1:] if k != "p"), r
+
+
+def _ref_tree(cfg, named: dict) -> dict:
+    """Port-named leaves -> the reference's params tree, each stack's
+    layers stacked (``torch.stack``) on a leading row dim."""
+    tree: dict = {"stacks": [{} for _ in cfg.stacks()]}
+    rows: dict = {}
+    for name, path, r in _ref_slots(cfg, named):
+        if r is None:
+            _put(tree, path, named[name])
+        else:
+            rows.setdefault(path, []).append(named[name])
+    for path, leaves in rows.items():
+        _put(tree, path, torch.stack(leaves))
+    return tree
+
+
+def _put(tree, path: tuple, leaf) -> None:
+    for k in path[:-1]:
+        tree = tree[k] if isinstance(tree, list) else tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
+def _get(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def train_state_tree(cfg, model: T.Transformer, opt_state: AdamWState):
+    """The port's training state as the reference's ``(params,
+    AdamWState(m, v, step))`` tree of tensors (copies, on the model's
+    device), layers stacked per ``cfg.stacks()``: what
+    ``CheckpointManager.save`` writes, leaf for leaf the reference's."""
+    with torch.no_grad():
+        params = _ref_tree(cfg, {n: p.detach()
+                                 for n, p in model.named_parameters()})
+        return params, AdamWState(_ref_tree(cfg, opt_state.m),
+                                  _ref_tree(cfg, opt_state.v),
+                                  opt_state.step.clone())
+
+
+def train_state_to_numpy(cfg, model: T.Transformer, opt_state: AdamWState):
+    """:func:`train_state_tree` with numpy leaves (bfloat16 as float32),
+    to compare with the reference's state leaf for leaf."""
+    with torch.no_grad():
+        params = _ref_tree(cfg, {n: p.detach()
+                                 for n, p in model.named_parameters()})
+    return _map(_np, params), adamw_state_to_numpy(cfg, opt_state)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def adamw_state_from_numpy(cfg, model: T.Transformer, ref_state,
+                           device: str | torch.device | None = None
+                           ) -> AdamWState:
+    """The reference's ``AdamWState`` (numpy or tensor leaves: a
+    restored checkpoint's) -> the port's, keyed by ``model``'s parameter
+    names, on ``device``, each moment in its leaf's dtype."""
+    dev = resolve_device(device)
+    names = [n for n, _ in model.named_parameters()]
+
+    def moments(tree):
+        return {name: _t(_get(tree, path) if r is None
+                         else _index(_get(tree, path), r), dev)
+                for name, path, r in _ref_slots(cfg, names)}
+
+    return AdamWState(moments(ref_state.m), moments(ref_state.v),
+                      _t(ref_state.step, dev, torch.int32))
+
+
+def adamw_state_to_numpy(cfg, state: AdamWState) -> AdamWState:
+    """The port's ``AdamWState`` -> the reference's layout, numpy leaves
+    (bfloat16 as float32)."""
+    return AdamWState(_map(_np, _ref_tree(cfg, state.m)),
+                      _map(_np, _ref_tree(cfg, state.v)), _np(state.step))
 
 
 def caches_from_numpy(cfg, caches, device: str | torch.device | None = None

@@ -444,7 +444,10 @@ def check_decode_attn(device, *serve) -> float:
     :func:`plan_for` names: the generic one for the unaligned view and
     float32 at D 256, a fast one elsewhere, and at a serve shape the
     fast instance of its dtype and D (``bf16_d256`` at RecurrentGemma's
-    D 256)."""
+    D 256).  A second call on the same inputs must give the same bits.
+    A comparison that fails names the largest difference of the kernel
+    and of each plain version from :func:`decode_attn_f64`, so that the
+    message says which side is off."""
     dev = torch.device(device)
     gen = torch.Generator(dev).manual_seed(6)
     err = 0.0
@@ -493,10 +496,50 @@ def check_decode_attn(device, *serve) -> float:
                 raise AssertionError(f"{what}: {out.dtype} {out.shape}")
             if kind != "ragged" and bool((out[0] != 0).any()):
                 raise AssertionError(f"{what}: a length-0 row is not zero")
-            err = max(err, max_err_within(out, plain, tol, f"{what} kernel"))
+            again = _counted(lambda: decode_attention(q, k, v, lengths,
+                                                      num_kv_heads=hkv),
+                             decode_attention, q, f"{what} again")
+            if not torch.equal(again, out):
+                raise AssertionError(f"{what}: a second call on the same "
+                                     "inputs gives other bits")
+            held = [("kernel", "plain", plain)]
             if dev.type == "cuda":
-                cpu = decode_attention(q.cpu(), k.cpu(), v.cpu(),
-                                       lengths.cpu(), num_kv_heads=hkv)
-                err = max(err, max_err_within(out, cpu, tol,
-                                              f"{what} card vs CPU"))
+                held.append(("card vs CPU", "cpu", decode_attention(
+                    q.cpu(), k.cpu(), v.cpu(), lengths.cpu(),
+                    num_kv_heads=hkv)))
+            for name, _, want in held:
+                try:
+                    err = max(err, max_err_within(out, want, tol,
+                                                  f"{what} {name}"))
+                except AssertionError as e:
+                    off = f64_errors(q, k, v, lengths, hkv, kernel=out,
+                                     **{side: w for _, side, w in held})
+                    raise AssertionError(f"{e}; largest difference of each "
+                                         f"from float64: {off}") from None
     return err
+
+
+def decode_attn_f64(q, k, v, lengths, hkv: int) -> torch.Tensor:
+    """The decode attention of :func:`decode_attn_ref` in float64 on the
+    CPU, [B, H, D]: the exact answer that the kernel and both plain
+    versions round."""
+    b, h, d = q.shape
+    qd = q.cpu().double().reshape(b, hkv, h // hkv, d) / d ** 0.5
+    kd, vd = (x.cpu().double().transpose(1, 2) for x in (k, v))
+    scores = torch.einsum("bhgd,bhsd->bhgs", qd, kd)
+    mask = (torch.arange(k.shape[1])[None, None, None, :]
+            < lengths.cpu()[:, None, None, None])
+    scores = torch.where(mask, scores, -torch.inf)
+    p = torch.where(mask, torch.exp(scores - scores.amax(-1, keepdim=True)),
+                    0.0)
+    denom = p.sum(-1, keepdim=True)
+    p = p / torch.where(denom == 0, 1.0, denom)
+    return torch.einsum("bhgs,bhsd->bhgd", p, vd).reshape(b, h, d)
+
+
+def f64_errors(q, k, v, lengths, hkv: int, **outs) -> dict:
+    """Each of ``outs``' largest absolute difference from
+    :func:`decode_attn_f64`: which side of a failed comparison is off."""
+    exact = decode_attn_f64(q, k, v, lengths, hkv)
+    return {name: float((o.cpu().double() - exact).abs().max())
+            for name, o in outs.items()}

@@ -1,2 +1,3 @@
-"""Entry points of the port's serving path (``serve.py``) and the step
-functions it resolves through the function registry (``steps.py``)."""
+"""Entry points of the port: serving (``serve.py``, which resolves its
+decode step through the function registry) and training (``train.py``),
+and the step functions both build (``steps.py``)."""

@@ -6,7 +6,9 @@
   moe         — the MoE FFN and its sort-based dispatch plan
   rwkv        — RWKV-6 time mix and channel mix
   griffin     — the RG-LRU recurrent block (RecurrentGemma)
-  transformer — the decoder stack: init, forward, prefill, decode_step
+  transformer — the decoder stack: init (serving and trainable builds),
+                forward, loss_fn, prefill, decode_step
 
-Training (``loss_fn`` and the optimizer) waits for ROADMAP item 13b.
+The optimizer lives in ``repro_torch.optim``, the train step in
+``repro_torch.launch.steps``.
 """

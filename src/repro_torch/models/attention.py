@@ -2,7 +2,8 @@
 
 Port of ``repro.models.attention``.  The forward path computes the
 reference's query chunks with causal KV truncation in plain torch,
-without its sharding constraints.  The decode step writes the new K/V
+without its sharding constraints, each chunk rematerialized in the
+backward pass when autograd records it.  The decode step writes the new K/V
 row into the ring cache in place and attends through the
 ``decode_attn`` wrapper (the CUDA kernel on a card tensor, its plain
 version on a CPU one); ``use_kernel=False`` takes the reference's
@@ -87,23 +88,30 @@ def causal_attention(p, x: torch.Tensor, positions: torch.Tensor,
     cq = min(cfg.chunk_q, t)
     while t % cq:          # fall back to a divisor (odd test lengths)
         cq -= 1
-    kf, vf = k.float(), v.float()
-    outs = []
-    # query chunks with causal KV truncation: chunk i reads keys [lo, hi)
-    for i in range(t // cq):
-        hi = (i + 1) * cq
-        lo = 0 if cfg.window is None else max(0, hi - cfg.window - cq)
-        qc = q[:, i * cq:hi].reshape(b, cq, hkv, g, dh).float() * scale
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qc, kf[:, lo:hi])
-        qp = torch.arange(i * cq, hi, device=x.device)
-        kp = torch.arange(lo, hi, device=x.device)
+
+    def chunk_fn(qc, kc, vc, q0: int, lo: int):
+        # qc: [B, cq, H, dh]; kc/vc: [B, L, hkv, dh], the causal KV slice
+        qc = qc.reshape(b, cq, hkv, g, dh).float() * scale
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qc, kc.float())
+        qp = torch.arange(q0, q0 + cq, device=x.device)
+        kp = torch.arange(lo, lo + kc.shape[1], device=x.device)
         mask = qp[:, None] >= kp[None, :]
         if cfg.window is not None:
             mask &= (qp[:, None] - kp[None, :]) < cfg.window
         s = torch.where(mask, s, NEG_INF)
         w = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhgqk,bkhd->bqhgd", w, vf[:, lo:hi])
-        outs.append(o.reshape(b, cq, h * dh).to(x.dtype))
+        o = torch.einsum("bhgqk,bkhd->bqhgd", w, vc.float())
+        return o.reshape(b, cq, h * dh).to(x.dtype)
+
+    outs = []
+    # query chunks with causal KV truncation: chunk i reads keys [lo, hi);
+    # each chunk is rematerialized in the backward pass (the reference's
+    # jax.checkpoint of chunk_fn), so no chunk's float32 scores outlive it
+    for i in range(t // cq):
+        hi = (i + 1) * cq
+        lo = 0 if cfg.window is None else max(0, hi - cfg.window - cq)
+        outs.append(L.remat(chunk_fn, q[:, i * cq:hi], k[:, lo:hi],
+                            v[:, lo:hi], i * cq, lo))
     out = torch.cat(outs, dim=1)
     return out @ p["wo"], {"k": k, "v": v}
 

@@ -1,5 +1,5 @@
-"""Shared model layers: norms, dense init, the dense FFN kinds and the
-chunked scan of the recurrent kinds.
+"""Shared model layers: norms, dense init, the dense FFN kinds, the
+chunked scan of the recurrent kinds and ``remat``.
 
 Port of ``repro.models.layers``.  Norms and FFNs are plain functions
 on tensors; a parameter group is any mapping of names to tensors (a
@@ -12,6 +12,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint as _checkpoint
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -57,7 +58,8 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
 
 def frozen(params: dict) -> nn.ParameterDict:
     """A parameter group as an ``nn.ParameterDict`` of tensors that take
-    no gradient (the port serves; it does not train yet)."""
+    no gradient: the serving build's.  The trainable build turns them on
+    (``transformer.Transformer(..., trainable=True)``)."""
     return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
                              for k, v in params.items()})
 
@@ -107,8 +109,31 @@ class FFN(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Time-chunked scan
+# Rematerialization and the time-chunked scan
 # ---------------------------------------------------------------------------
+
+def remat(fn: Callable, *args):
+    """``fn(*args)`` with its intermediates recomputed in the backward
+    pass (``torch.utils.checkpoint``, non-reentrant: the reference's
+    ``jax.checkpoint``) when autograd records the call, that is when
+    grad is enabled and some tensor argument requires grad; a plain call
+    otherwise (serving), so a call that records no graph is unchanged.
+    Tensors ``fn`` reaches through its closure (parameters) are saved by
+    reference, not copied."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad
+            for a in _flat(args)):
+        return _checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _flat(args):
+    for a in args:
+        if isinstance(a, (tuple, list)):
+            yield from _flat(a)
+        else:
+            yield a
+
 
 def _stack(ys: list):
     """A list of step outputs (tensors, or tuples of them) -> the outputs
@@ -123,22 +148,33 @@ def chunked_scan(body: Callable, init, xs, *, chunk: int):
     ``chunk`` steps: ``body(carry, x_t) -> (carry, y_t)``, where ``xs``
     is a tensor or a tuple of tensors and ``x_t`` its slices at step t.
     Returns ``(carry, ys)``, the ``y_t`` stacked along a new leading
-    axis.  The leading axis must be a multiple of ``chunk``.  The
-    reference wraps each chunk in ``jax.checkpoint`` for its backward
-    pass; the port serves, so it keeps the chunking contract only."""
+    axis.  The leading axis must be a multiple of ``chunk``.  Each chunk
+    runs under :func:`remat`, as the reference wraps it in
+    ``jax.checkpoint``: the backward pass keeps only the chunks' carries
+    and recomputes each chunk's steps (flash-style memory for
+    recurrences).  A call that records no graph (serving) runs its
+    chunks plainly."""
     seq = isinstance(xs, (tuple, list))
     t = (xs[0] if seq else xs).shape[0]
     if t % chunk:
         raise ValueError(f"chunked_scan: {t} steps are not a multiple of "
                          f"chunk {chunk}")
-    carry, chunks = init, []
-    for c in range(t // chunk):
+
+    def run_chunk(carry, xc):
         ys = []
-        for i in range(c * chunk, (c + 1) * chunk):
-            x_t = tuple(a[i] for a in xs) if seq else xs[i]
+        for i in range(chunk):
+            x_t = tuple(a[i] for a in xc) if seq else xc[i]
             carry, y = body(carry, x_t)
             ys.append(y)
-        chunks.append(_stack(ys))
+        return carry, _stack(ys)
+
+    carry, chunks = init, []
+    for c in range(t // chunk):
+        lo = c * chunk
+        xc = tuple(a[lo:lo + chunk] for a in xs) if seq \
+            else xs[lo:lo + chunk]
+        carry, ys = remat(run_chunk, carry, xc)
+        chunks.append(ys)
     if isinstance(chunks[0], (tuple, list)):
         return carry, type(chunks[0])(torch.cat(col) for col in zip(*chunks))
     return carry, torch.cat(chunks)

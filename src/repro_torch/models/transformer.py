@@ -10,19 +10,28 @@ embedding, the final norm, the unembedding and one layer module a layer
 stacked layers with ``lax.scan``).
 
 Casts.  The reference casts every layer's parameters to
-``compute_dtype`` on each call (``_cast_params``); the port casts them
-once, when the model is built, to the same values.  As in the
-reference, ``embed`` stays in ``param_dtype`` and is gathered before the
-cast, ``final_norm`` stays uncast, and ``unembed`` is cast to the
-activations' dtype (``compute_dtype``), here once.
+``compute_dtype`` on each call (``_cast_params``).  The serving build
+casts them once, when the model is built, to the same values, and its
+parameters take no gradient.  The trainable build
+(``init_params(..., trainable=True)``, ``convert.train_model_from_numpy``)
+keeps the ``param_dtype`` master weights with ``requires_grad`` and
+casts each layer's on every call, inside the autograd graph, so that
+gradients land in ``param_dtype``; each layer then runs under
+``layers.remat`` when autograd records it (the reference's per-group
+``jax.checkpoint``).  In both builds, as in the reference, ``embed``
+stays in ``param_dtype`` and is gathered before the cast,
+``final_norm`` stays uncast, and ``unembed`` is cast to the
+activations' dtype (``compute_dtype``): once when serving, on every
+call when training (from ``embed.t()`` when tied).
 
 Caches: one a layer, ``{k, v}`` ring buffers for attention,
 ``{"tmix": {"shift", "wkv"}, "cmix"}`` for RWKV6 and
 ``{"rec": {"h", "conv"}}`` for RG-LRU; a decode step updates them in
 place.
 
-Entry points: ``forward``, ``prefill`` and ``decode_step``.
-``loss_fn`` waits for the training slice (ROADMAP item 13b).
+Entry points: ``forward``, ``loss_fn``, ``prefill`` and ``decode_step``.
+The training forward is the cache-free path: nothing on it writes in
+place into a tensor that autograd saved.
 """
 from __future__ import annotations
 
@@ -115,7 +124,11 @@ class ArchConfig:
 # Modules
 # ---------------------------------------------------------------------------
 
-def _cast(params: dict, dtype: torch.dtype) -> dict:
+def _cast(params: dict, dtype: torch.dtype | None) -> dict:
+    """``params`` with its floating leaves cast to ``dtype`` (``None``:
+    as they are, the trainable build's)."""
+    if dtype is None:
+        return params
     return {k: _cast(v, dtype) if isinstance(v, dict)
             else v.to(dtype) if v.is_floating_point() else v
             for k, v in params.items()}
@@ -130,11 +143,11 @@ def _dense_ffn(cfg: ArchConfig) -> str:
 class DecoderLayer(nn.Module):
     """One attention layer, ``attn+dense`` or ``attn+moe``: pre-norm
     residual attention, then the dense FFN or the MoE, its parameters
-    cast to ``cfg.compute_dtype`` once, here."""
+    cast to ``dt`` once, here (``None``: kept as given)."""
 
-    def __init__(self, cfg: ArchConfig, params: dict, kind: str) -> None:
+    def __init__(self, cfg: ArchConfig, params: dict, kind: str,
+                 dt: torch.dtype | None) -> None:
         super().__init__()
-        dt = cfg.compute_dtype
         self.cfg, self.kind = cfg, kind
         self.norm1 = L.frozen(_cast(params["norm1"], dt))
         self.norm2 = L.frozen(_cast(params["norm2"], dt))
@@ -180,9 +193,9 @@ class RWKVLayer(nn.Module):
 
     kind = "rwkv"
 
-    def __init__(self, cfg: ArchConfig, params: dict) -> None:
+    def __init__(self, cfg: ArchConfig, params: dict,
+                 dt: torch.dtype | None) -> None:
         super().__init__()
-        dt = cfg.compute_dtype
         self.cfg = cfg
         self.norm1 = L.frozen(_cast(params["norm1"], dt))
         self.norm2 = L.frozen(_cast(params["norm2"], dt))
@@ -210,9 +223,9 @@ class RecurrentLayer(nn.Module):
 
     kind = "rec"
 
-    def __init__(self, cfg: ArchConfig, params: dict) -> None:
+    def __init__(self, cfg: ArchConfig, params: dict,
+                 dt: torch.dtype | None) -> None:
         super().__init__()
-        dt = cfg.compute_dtype
         self.cfg = cfg
         self.norm1 = L.frozen(_cast(params["norm1"], dt))
         self.norm2 = L.frozen(_cast(params["norm2"], dt))
@@ -234,36 +247,47 @@ class RecurrentLayer(nn.Module):
             None
 
 
-def make_layer(cfg: ArchConfig, kind: str, params: dict) -> nn.Module:
+def make_layer(cfg: ArchConfig, kind: str, params: dict, *,
+               trainable: bool = False) -> nn.Module:
     """The layer module of ``kind`` over ``params`` (the reference's
-    names for one layer)."""
+    names for one layer): cast to ``compute_dtype`` for serving, kept as
+    given for training."""
+    dt = None if trainable else cfg.compute_dtype
     if kind.startswith("attn"):
-        return DecoderLayer(cfg, params, kind)
+        return DecoderLayer(cfg, params, kind, dt)
     if kind == "rwkv":
-        return RWKVLayer(cfg, params)
+        return RWKVLayer(cfg, params, dt)
     if kind == "rec":
-        return RecurrentLayer(cfg, params)
+        return RecurrentLayer(cfg, params, dt)
     raise ValueError(f"unknown layer kind {kind!r}")
 
 
 class Transformer(nn.Module):
     """The decoder stack: ``embed`` ``[V, D]`` and ``final_norm`` in
     ``param_dtype``, ``unembed`` ``[D, V]`` (``None`` when tied to the
-    embedding) cast to ``compute_dtype``, and one layer module a layer,
-    of the kinds ``cfg.layer_kinds()`` names."""
+    embedding), and one layer module a layer, of the kinds
+    ``cfg.layer_kinds()`` names.  Serving (``trainable=False``):
+    ``unembed`` and the layers are cast to ``compute_dtype`` and take no
+    gradient.  Training: every parameter is as given (``param_dtype``)
+    and takes a gradient; the casts happen on each call."""
 
     def __init__(self, cfg: ArchConfig, embed: torch.Tensor,
                  final_norm: dict, unembed: torch.Tensor | None,
-                 layers: list[nn.Module]) -> None:
+                 layers: list[nn.Module], *, trainable: bool = False) -> None:
         super().__init__()
         kinds = [layer.kind for layer in layers]
         if kinds != cfg.layer_kinds():
             raise ValueError(f"{cfg.name}: layers {kinds}, want "
                              f"{cfg.layer_kinds()}")
         self.cfg = cfg
+        self.trainable = trainable
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.final_norm = L.frozen(final_norm)
-        if cfg.tie_embeddings:
+        if trainable:
+            # tied: the unembedding is embed.t(), cast on each call
+            self.unembed = None if cfg.tie_embeddings \
+                else nn.Parameter(unembed, requires_grad=False)
+        elif cfg.tie_embeddings:
             # a cast copy of a parameter, not one of its own
             self.register_buffer("unembed", embed.t().to(cfg.compute_dtype),
                                  persistent=False)
@@ -271,6 +295,8 @@ class Transformer(nn.Module):
             self.unembed = nn.Parameter(unembed.to(cfg.compute_dtype),
                                         requires_grad=False)
         self.layers = nn.ModuleList(layers)
+        if trainable:
+            self.requires_grad_(True)
 
 
 def _init_layer(cfg: ArchConfig, kind: str, gen: torch.Generator,
@@ -296,12 +322,14 @@ def _init_layer(cfg: ArchConfig, kind: str, gen: torch.Generator,
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0,
-                device: str | torch.device | None = None) -> Transformer:
+                device: str | torch.device | None = None,
+                trainable: bool = False) -> Transformer:
     """A model with random weights drawn from a ``torch.Generator`` seeded
     with ``seed`` on ``device`` (``None``: the card; ``"meta"`` gives the
     shapes and allocates nothing): the reference's shapes and scales
     (N(0, 0.02) embeddings, N(0, 1/d_in) dense weights, unit norms, zero
-    biases), not its numbers."""
+    biases), not its numbers.  ``trainable``: the training build (see
+    :class:`Transformer`), the same numbers in ``param_dtype``."""
     dev = resolve_device(device)
     gen = torch.Generator("cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
@@ -311,12 +339,13 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
                         device=dev) * 0.02
     unembed = None if cfg.tie_embeddings \
         else L.dense_init(gen, d, cfg.vocab, dt, dev)
-    # each layer is cast as it is drawn, so that a full-width model never
-    # holds all of its float32 layer weights at once
-    layers = [make_layer(cfg, kind, _init_layer(cfg, kind, gen, dev))
+    # each layer is cast as it is drawn, so that a full-width serving
+    # model never holds all of its float32 layer weights at once
+    layers = [make_layer(cfg, kind, _init_layer(cfg, kind, gen, dev),
+                         trainable=trainable)
               for kind in cfg.layer_kinds()]
     return Transformer(cfg, embed.to(dt), L.init_norm(cfg.norm, d, dt, dev),
-                       unembed, layers)
+                       unembed, layers, trainable=trainable)
 
 
 def param_count(cfg: ArchConfig, model: Transformer) -> int:
@@ -399,7 +428,22 @@ def _embed(cfg: ArchConfig, model: Transformer, batch: dict,
 
 def _logits(cfg: ArchConfig, model: Transformer, x: torch.Tensor):
     x = L.apply_norm(cfg.norm, x, model.final_norm, cfg.norm_eps)
-    return x @ model.unembed
+    if not model.trainable:
+        return x @ model.unembed
+    unembed = model.embed.t() if cfg.tie_embeddings else model.unembed
+    return x @ unembed.to(x.dtype)
+
+
+def _layer_call(model: Transformer, layer: nn.Module, *args, **kwargs):
+    """``layer(*args, **kwargs)``; a trainable model's layer sees its
+    parameters cast to ``compute_dtype`` inside the autograd graph (the
+    reference's ``_cast_params`` on every call)."""
+    if not model.trainable:
+        return layer(*args, **kwargs)
+    dt = model.cfg.compute_dtype
+    cast = {n: p.to(dt) if p.is_floating_point() else p
+            for n, p in layer.named_parameters()}
+    return torch.func.functional_call(layer, cast, args, kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -410,17 +454,35 @@ def forward(cfg: ArchConfig, model: Transformer, batch: dict, *,
             want_caches: bool = False):
     """Full-sequence forward.  Returns (logits [B, T, V], aux_loss,
     per-layer caches or None); aux_loss sums the MoE layers'
-    load-balance losses (0 without MoE)."""
+    load-balance losses (0 without MoE).  Each layer is rematerialized
+    in the backward pass when autograd records the call: only its input
+    ``[B, T, D]`` is kept."""
     x, positions = _embed(cfg, model, batch)
     caches = [] if want_caches else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in model.layers:
-        x, c, stats = layer(x, positions)
+        x, c, stats = L.remat(_layer_call, model, layer, x, positions)
         if stats is not None:
             aux = aux + stats["aux_loss"]
         if want_caches:
             caches.append(c)
     return _logits(cfg, model, x), aux, caches
+
+
+def loss_fn(cfg: ArchConfig, model: Transformer, batch: dict):
+    """(loss, {"ce", "aux"}): the mean next-token cross entropy over the
+    positions whose label is >= 0, plus the MoE aux loss.  Memory-lean
+    as the reference's: a float32 logsumexp less the gathered label
+    logit, never the float32 log-probabilities over the vocabulary."""
+    logits, aux, _ = forward(cfg, model, batch)
+    labels = batch["labels"]
+    mask = (labels >= 0).to(torch.float32)
+    lsafe = torch.clamp(labels, min=0).to(torch.int64)
+    lse = torch.logsumexp(logits.to(torch.float32), dim=-1)
+    lab = torch.gather(logits, -1, lsafe[..., None])[..., 0]
+    nll = lse - lab.to(torch.float32)
+    ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def prefill(cfg: ArchConfig, model: Transformer, batch: dict,
@@ -465,5 +527,6 @@ def decode_step(cfg: ArchConfig, model: Transformer, tokens: torch.Tensor,
         positions = lengths[:, None]
     x, _ = _embed(cfg, model, {"tokens": tokens}, positions=positions)
     for layer, cache in zip(model.layers, caches):
-        x, _, _ = layer(x, positions, cache, lengths, use_kernel=use_kernel)
+        x, _, _ = _layer_call(model, layer, x, positions, cache, lengths,
+                              use_kernel=use_kernel)
     return _logits(cfg, model, x)[:, 0, :], caches, lengths + 1

@@ -1,6 +1,6 @@
 """Double-buffered host-to-device ingest staging (port of
-``repro.runtime.overlap.IngestStager``; the training-era
-``microbatched_grads`` belongs to a later slice).
+``repro.runtime.overlap.IngestStager``) and microbatched gradient
+accumulation (``microbatched_grads``).
 
 ``stage(items, ts)`` starts the transfer of micro-batch N+1 and hands
 back the batch staged on the previous call, so batch N's copy hides
@@ -13,11 +13,19 @@ do not: without int8 they are bitwise those of the direct loop.
 ``int8=True`` stages the payload as int8 plus one float32 scale
 (per-batch amax/127, computed on the host so the f32 batch never
 crosses) and dequantizes on the device at hand-off -- lossy, opt-in.
+
+``microbatched_grads`` splits a batch into K slices run one after the
+other, so activation memory is that of one slice; each backward pass
+accumulates into the parameters' float32 ``.grad`` (the reference scans
+the slices and sums into a second float32 copy of the gradients).
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch import resolve_device
 
@@ -88,3 +96,59 @@ class IngestStager:
                                device=q.device)
             return q.to(torch.float32) * scale, ts, mode
         return payload, ts, mode
+
+
+def _microbatch(batch: dict, k: int, i: int) -> dict:
+    """Slice ``i`` of ``k`` of every leaf of ``batch``: along axis 0,
+    along axis 1 for the ``[3, B, T]`` M-RoPE position streams."""
+    out = {}
+    for key, a in batch.items():
+        ax = 1 if key == "mrope_positions" else 0
+        b = a.shape[ax]
+        if b % k:
+            raise ValueError(f"microbatched_grads: {key} has {b} rows on "
+                             f"axis {ax}, not a multiple of {k}")
+        out[key] = a.narrow(ax, i * (b // k), b // k)
+    return out
+
+
+def microbatched_grads(loss_fn: Callable, model: nn.Module, batch: dict,
+                       num_microbatches: int):
+    """Accumulate gradients over K microbatches.  ``loss_fn(model,
+    batch) -> (loss, aux)``; batch leaves are split on axis 0 (axis 1
+    for ``mrope_positions``), which K must divide.  Returns (loss, aux,
+    grads): the mean of the K losses, the last microbatch's aux, and
+    ``{name: gradient}`` over ``model.named_parameters()``, zeros for a
+    parameter the loss does not reach.  K = 1: each gradient in its
+    parameter's dtype.  K > 1: the float32 sum over the microbatches
+    divided by K, as the reference sums.  A float32 parameter's sum is
+    its ``.grad``, which each backward pass adds into (from nothing, so
+    ``0 + g_1 + ... + g_K`` exactly as the reference's scan); another
+    dtype's goes to a float32 buffer beside it.  The call overwrites
+    every ``.grad``."""
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.grad = None
+    k = num_microbatches
+    loss_sum, aux, acc = None, None, {}
+    for i in range(k):
+        with torch.enable_grad():
+            loss, aux = loss_fn(model, batch if k == 1
+                                else _microbatch(batch, k, i))
+        loss.backward()
+        loss = loss.detach()
+        loss_sum = loss if loss_sum is None else loss_sum + loss
+        if k > 1:
+            for n, p in params.items():
+                if p.dtype != torch.float32 and p.grad is not None:
+                    g = p.grad.to(torch.float32)
+                    acc[n] = g if n not in acc else acc[n] + g
+                    p.grad = None
+    grads = {}
+    for n, p in params.items():
+        g = acc.get(n, p.grad)
+        if g is None:
+            g = torch.zeros_like(p, dtype=torch.float32 if k > 1 else None)
+        grads[n] = g.div_(float(k)) if k > 1 else g
+    aux = {key: a.detach() for key, a in aux.items()}
+    return (loss_sum if k == 1 else loss_sum / float(k)), aux, grads

@@ -560,3 +560,131 @@ def test_main_fails_without_a_result_when_phase_8_fails(smoke, monkeypatch,
     captured = capsys.readouterr()
     assert '"ok"' not in captured.out and '"kernels"' not in captured.out
     assert "elastic budgets" in captured.err
+
+
+# -- phase 9: training ----------------------------------------------------------
+
+def _train_on_cpu(smoke, monkeypatch):
+    """Phase 9's sizes at the smoke config, the card's memory counters
+    and ``nvidia-smi`` stubbed."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(smoke, "_card_line", lambda: "CPU rehearsal")
+    monkeypatch.setattr(smoke, "_profile",
+                        lambda tag, steps, unit, fn, kernel=None: fn(0))
+    full = smoke.TrainSizes(steps=3, batch=2, seq=32, microbatches=2,
+                            lr=2e-3, smoke=True, witness=(2e-3, 5e-2))
+    return full, smoke.TRAIN_SMALL._replace(batch=4, seq=16)
+
+
+def test_train_phase_runs_and_checks_itself(smoke, monkeypatch, capsys):
+    """Phase 9 on the CPU: the training run through ``train.run``, its
+    repeated-batch check, and the card-vs-CPU, microbatch and resume
+    checks all run and hold; every line names the card."""
+    full, small = _train_on_cpu(smoke, monkeypatch)
+    smoke.run_train_phase(full, small, "cpu")
+    out = capsys.readouterr().out
+    for line in ("phase 9 train path", "path train:", "path train FLOPs",
+                 "phase 9 train witness", "phase 9 train checks"):
+        assert line in out, line
+    assert all("CPU rehearsal" in l for l in out.splitlines()
+               if l.startswith(("phase 9", "path train")))
+    assert "optimizer step 3" in out and "(none)" in out
+    assert not (ROOT / "build" / "chip_smoke_train_ckpt").exists()
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("launch", "hand kernels launched"),
+    ("repeat", "did not lower"),
+    ("witness", "did not fall"),
+    ("microbatch", "1 vs 2 microbatches"),
+    ("resume", "2 \\+ 2 steps differ from 4"),
+])
+def test_train_phase_fails_on_a_broken_check(smoke, monkeypatch, fault,
+                                             match):
+    """Phase 9 fails when a hand kernel launched in the training steps,
+    when a repeated batch's loss does not fall, when the witness's
+    fresh-batch losses do not fall (a negative lr climbs the loss), when
+    2 microbatches take the same slice twice, or when a resumed run
+    ignores its checkpoint."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.runtime import overlap
+    full, small = _train_on_cpu(smoke, monkeypatch)
+    if fault == "launch":
+        monkeypatch.setattr(smoke, "read_launches", lambda: {
+            "decode_attn": 1})
+    if fault == "repeat":
+        full = full._replace(lr=0.0)
+    if fault == "witness":
+        full = full._replace(witness=(-5e-2,))
+    if fault == "microbatch":
+        real = overlap._microbatch
+        monkeypatch.setattr(overlap, "_microbatch",
+                            lambda b, k, i: real(b, k, 0))
+    if fault == "resume":
+        monkeypatch.setattr(CheckpointManager, "restore",
+                            lambda self, template, step=None: (template, 2))
+    with pytest.raises(RuntimeError, match=match):
+        if fault in ("launch", "repeat"):
+            smoke.run_train(full, "cpu")
+        elif fault == "witness":
+            smoke.train_witness(full, "cpu")
+        elif fault == "microbatch":
+            smoke.train_microbatches(small, "cpu")
+        else:
+            smoke.train_resume(small, "cpu")
+
+
+def test_train_sizes_are_yi_6b_at_full_width(smoke):
+    """Yi-6B's published widths, 16 of its 32 layers: 16 bytes a
+    parameter of float32 AdamW state fit 80 GB at 16 layers, not at 32;
+    the model FLOPs a step as counted."""
+    from repro_torch.models import transformer as T
+    tz = smoke.TRAIN_FULL
+    assert (tz.steps, tz.batch, tz.seq, tz.microbatches, tz.layers,
+            tz.compute, tz.lr) == (8, 2, 4096, 2, 16, "bfloat16", 3e-4)
+    assert tz.witness and max(tz.witness) < tz.lr
+    cfg = smoke.train_config(tz)
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff,
+            cfg.vocab, cfg.rope_theta) == (4096, 32, 4, 128, 11008, 64000,
+                                           5e6)
+    model = T.init_params(cfg, device="meta", trainable=True)
+    n = sum(p.numel() for name, p in model.named_parameters()
+            if name not in ("embed", "unembed"))
+    assert n == 16 * 173_023_232 + 4096          # the layers, final_norm
+    total = T.param_count(cfg, model)
+    assert total == n + 524_288_000
+    assert 16 * total < 80e9 < 16 * (total + n)      # 32 layers do not fit
+    fl = smoke.train_flops(cfg, n, tz.batch, tz.seq)
+    tokens = 2 * 4096
+    pairs = 512 * 512 * sum(range(1, 9))            # causal chunks of 512
+    assert fl["params"] == 6 * n * tokens
+    assert fl["attention"] == 3 * 4 * 4096 * pairs * 2 * 16
+    assert fl["unembed"] == 6 * 4096 * 64000 * tokens
+    assert fl["model"] == fl["params"] + fl["attention"] + fl["unembed"]
+
+
+def test_main_prints_the_kernels_line_then_the_result_line(smoke,
+                                                           monkeypatch,
+                                                           capsys):
+    """The line before the last is the kernels object and the last the
+    contract's ``{"ok": true, "device": {...}}``, phase 9 the last phase
+    of ``run``."""
+    import inspect
+    src = inspect.getsource(smoke.run).rstrip().splitlines()
+    assert src[-2].strip() == \
+        "run_train_phase(TRAIN_FULL, TRAIN_SMALL, device)"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "card")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    row = {k: 0 for k in ("name", "route", "source", "replaces", "launches",
+                          "max_abs_err", "ms", "plain_ms", "bound_ms",
+                          "bound_by", "library_ms")}
+    monkeypatch.setattr(smoke, "run", lambda: {"kernels": [row]})
+    assert smoke.main() == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-2]) == {"kernels": [row]}
+    assert json.loads(lines[-1]) == {"ok": True, "device": {
+        "platform": "gpu", "kind": "card", "count": 1}}

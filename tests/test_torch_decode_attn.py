@@ -8,6 +8,8 @@ Tolerances: float32 1e-5 (the two sides sum the scores and the P.V
 products in other orders); bfloat16 2.5e-2, the reference's own bf16
 tolerance (the output is rounded to bfloat16 on both sides, and one
 bf16 ulp near 1 is 7.8e-3)."""
+import ast
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -139,6 +141,59 @@ def test_check_decode_attn_runs_on_the_cpu_and_catches_errors(monkeypatch):
     monkeypatch.setattr(checks, "decode_attention", nonzero)
     with pytest.raises(AssertionError, match="length-0 row"):
         checks.check_decode_attn("cpu", (2, 8, 2, 32, 64))
+
+
+def test_check_decode_attn_catches_a_call_that_changes_bits(monkeypatch):
+    """A wrapper whose second call on the same inputs gives other bits
+    is caught, though each call lies within the tolerance."""
+    from repro_torch.kernels import checks
+    calls = []
+
+    def drifts(q, k, v, lengths, *, num_kv_heads):
+        out = decode_attention(q, k, v, lengths, num_kv_heads=num_kv_heads)
+        calls.append(1)
+        out[-1, 0, 0] += 1e-7 * len(calls)
+        return out
+    drifts.launches = drifts.generic_launches = 0
+    monkeypatch.setattr(checks, "decode_attention", drifts)
+    with pytest.raises(AssertionError, match="second call"):
+        checks.check_decode_attn("cpu", (2, 8, 2, 32, 64))
+
+
+def test_check_decode_attn_names_the_side_that_is_off(monkeypatch):
+    """A failed comparison reports the kernel's and the plain version's
+    largest differences from float64: the wrong one is the kernel."""
+    from repro_torch.kernels import checks
+
+    def off(q, k, v, lengths, *, num_kv_heads):
+        out = decode_attention(q, k, v, lengths, num_kv_heads=num_kv_heads)
+        out[-1, 0, 0] += 0.1
+        return out
+    off.launches = off.generic_launches = 0
+    monkeypatch.setattr(checks, "decode_attention", off)
+    with pytest.raises(AssertionError, match="from float64") as e:
+        checks.check_decode_attn("cpu", (2, 8, 2, 32, 64))
+    sides = ast.literal_eval(str(e.value).split("from float64: ")[1])
+    assert set(sides) == {"kernel", "plain"}
+    assert sides["kernel"] > 0.09 and sides["plain"] < 1e-6
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 2, 32, 64), (3, 10, 1, 256, 70)])
+def test_decode_attn_f64_is_what_the_plain_version_rounds(shape):
+    """The check's float64 answer agrees with the float32 plain version
+    within float32's rounding, and gives zeros on a length-0 row."""
+    from repro_torch.kernels import checks
+    b, h, hkv, d, s = shape
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn((b, h, d), generator=gen)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen) for _ in range(2))
+    lens = torch.randint(1, s + 1, (b,), generator=gen, dtype=torch.int32)
+    lens[0] = 0
+    exact = checks.decode_attn_f64(q, k, v, lens, hkv)
+    got = decode_attention(q, k, v, lens, num_kv_heads=hkv)
+    assert exact.dtype == torch.float64 and exact.shape == (b, h, d)
+    assert bool((exact[0] == 0).all())
+    assert float((got.double() - exact).abs().max()) < 1e-6
 
 
 def test_check_decode_attn_takes_several_serve_shapes(monkeypatch):

@@ -106,6 +106,50 @@ def _controller():
 CONSTRUCTORS["FleetController"] = _controller
 
 
+def _train_state():
+    """The trainable model built without ``device``; its AdamW state
+    follows the parameters."""
+    from repro_torch import optim
+    model = transformer.init_params(smoke_config("yi_6b"), trainable=True)
+    return optim.init(model, optim.AdamWConfig()).m["embed"]
+
+
+def _from_reference():
+    """``convert``'s training helpers without ``device``, on a tree with
+    the reference's layout (the port's own state written out)."""
+    from repro_torch import optim
+    cfg = smoke_config("yi_6b")
+    model = transformer.init_params(cfg, device="cpu", trainable=True)
+    params, st = convert.train_state_to_numpy(
+        cfg, model, optim.init(model, optim.AdamWConfig()))
+    built = convert.train_model_from_numpy(cfg, params)
+    assert built.embed.device == convert.adamw_state_from_numpy(
+        cfg, built, st).m["embed"].device
+    return built.embed
+
+
+def _prefetched():
+    from repro_torch.data import Prefetcher
+    pf = Prefetcher(iter([{"x": np.zeros(2, np.float32)}]))
+    try:
+        return next(pf)["x"]
+    finally:
+        pf.close()
+
+
+def _trained():
+    from repro_torch.launch import train
+    return train.run(smoke_config("yi_6b"), 1, 2, 8).model.embed
+
+
+CONSTRUCTORS.update({
+    "transformer.init_params[trainable]": _train_state,
+    "convert.train_model_from_numpy": _from_reference,
+    "Prefetcher": _prefetched,
+    "train.run": _trained,
+})
+
+
 @pytest.mark.parametrize("name", sorted(CONSTRUCTORS))
 def test_constructor_defaults_to_the_card(name):
     if torch.cuda.is_available():

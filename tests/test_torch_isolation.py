@@ -26,13 +26,17 @@ _PROBE = textwrap.dedent("""
     sys.exit(1 if bad else 0)
 """)
 
-#: modules the import walk must reach (the control plane's slice among
-#: them), beside its count
+#: modules the import walk must reach (the control plane's and the
+#: training slices among them), beside its count
 CONTROL_SLICE = ("repro_torch.stream.fleet.control",
                  "repro_torch.runtime.straggler", "repro_torch.runtime.health",
                  "repro_torch.obs.events", "repro_torch.obs.slo",
                  "repro_torch.obs.export", "repro_torch.obs.costmodel",
                  "repro_torch.kernels.cost")
+TRAIN_SLICE = ("repro_torch.optim", "repro_torch.optim.adamw",
+               "repro_torch.optim.schedule", "repro_torch.checkpoint",
+               "repro_torch.checkpoint.manager", "repro_torch.data.pipeline",
+               "repro_torch.runtime.compression", "repro_torch.launch.train")
 
 
 def test_every_port_module_imports_without_jax_or_repro():
@@ -40,8 +44,10 @@ def test_every_port_module_imports_without_jax_or_repro():
     r = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[0]) >= 81, r.stdout
-    assert set(CONTROL_SLICE) <= set(r.stdout.splitlines()[1].split())
+    assert int(r.stdout.split()[0]) >= 89, r.stdout
+    walked = set(r.stdout.splitlines()[1].split())
+    assert set(CONTROL_SLICE) <= walked
+    assert set(TRAIN_SLICE) <= walked
 
 
 def _imported_roots(path: Path) -> set[str]:
