@@ -3,7 +3,14 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the exit code is not 0:
+Phases, in order; any failure raises and the exit code is not 0.  The
+stream tick, the fleet tick and every served model's decode step run
+compile-once (``repro_torch.runtime.capture``): the tick is captured as
+a CUDA graph at its first call and replayed after, the decode step is
+captured by the function registry at ``start_function`` after one
+warm-up step on copies of its caches; so phases 3 to 8 time the graphed
+paths (a tick timing leaves out the first tick, which captured), and
+launch counts include the replays' and the warm-up's:
 
 1. build the five hand-written kernels from
    ``src/repro_torch/kernels/csrc/`` (one ``nvcc`` per source, all at
@@ -133,7 +140,21 @@ Phases, in order; any failure raises and the exit code is not 0:
    uninterrupted steps (parameters within 1e-6).  It prints step
    p50/p99, tokens/s, the peak of ``torch.cuda.max_memory_allocated``
    and the model FLOPs of a step, each beside the card's name and power
-   limit.
+   limit;
+10. the compile-once paths at full width, graphed against the same
+   paths under ``capture.disable()`` (eager), each check failing the
+   run: each stream path 64 ticks, then a tick at a new core budget, a
+   backfill tick and 3 live ticks, every ``StepOutput``, the final
+   state and the lineage bitwise, ``trace_count`` 1 and
+   ``_compile_count`` 1, launch counts equal; Yi-6B's decode step as
+   the registry captures it, the first 256 of the serve run's 1,088
+   steps teacher-forced, the logits bitwise at every step, the caches
+   at the end, ``aot_cached`` 1, 32 decode_attn launches a step; the
+   fused 8-shard fleet 16 ticks with a health and a membership flip and
+   both budgets cut after the capture, bitwise, then a remesh to 6
+   shards and ``trace_count`` 2.  It prints each path's p50/p99 and
+   device busy share, eager and graphed, its graph's memory pool, and
+   the card's name and power limit.
 
 The line before the last is a JSON object of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -279,9 +300,26 @@ def _timed(fn, reps: int, tag: str, kernel: str | None = None,
     Otherwise wall time is CUDA events around the loop, which the host's
     launch rate bounds whenever a call's device work is shorter than its
     launch."""
-    from torch.profiler import ProfilerActivity, profile, record_function
     fn()
     torch.cuda.synchronize()
+    for attempt in (1, 2):
+        out = _timed_once(fn, reps, tag, kernel, flush)
+        if isinstance(out, tuple):
+            return out
+        # a capture that traced none or part of the loop's kernels (seen
+        # on an H100 after thousands of graph replays): say so and take
+        # it once more
+        msg = f"{tag}: {out} {kernel}* kernels traced in the timed loop, " \
+            f"want {reps}"
+        if attempt == 2:
+            _fail(msg)
+        print(f"profile {msg}; the capture is taken once more")
+
+
+def _timed_once(fn, reps, tag, kernel, flush):
+    """One capture of :func:`_timed`: its (device ms, wall ms), or the
+    number of ``kernel``'s launches traced where that is not ``reps``."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     start, stop = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
@@ -307,8 +345,7 @@ def _timed(fn, reps: int, tag: str, kernel: str | None = None,
         events = [e for e in events
                   if _base_name(e["name"]).startswith(kernel)]
         if len(events) != reps:
-            _fail(f"{tag}: {len(events)} {kernel}* kernels traced in the "
-                  f"timed loop, want {reps}")
+            return len(events)
     wall_ms = 0.0 if flush is not None else start.elapsed_time(stop) / reps
     return sum(e["dur"] for e in events) * 1e-3 / reps, wall_ms
 
@@ -866,9 +903,15 @@ def run_serve(sz: ServeSizes, device) -> dict:
     generic = _wrappers()["decode_attn"].generic_launches
     steps = sz.prompt_len + sz.tokens
     n_attn = len(attn_caches(cfg, res.caches))
-    if launches["decode_attn"] != n_attn * steps:
+    # on the card the registry captured the step ahead of time, after one
+    # eager warm-up step on copies of the caches; every loop step replayed
+    warm = int(torch.device(device).type == "cuda")
+    if launches["decode_attn"] != n_attn * (steps + warm):
         _fail(f"serve: {launches['decode_attn']} decode_attn launches, want "
-              f"{n_attn} attention layers x {steps} steps")
+              f"{n_attn} attention layers x ({steps} steps + {warm} "
+              "warm-up)")
+    if res.aot_cached != 1:
+        _fail(f"serve: the registry cached {res.aot_cached} steps, want 1")
     if generic:
         _fail(f"serve: {generic} of the decode_attn launches took the "
               "generic instance")
@@ -891,7 +934,8 @@ def run_serve(sz: ServeSizes, device) -> dict:
         _fail(f"serve: kernel vs plain path at step {steps + 1}: {late} of "
               f"the largest logit > {SERVE_KERNEL_VS_PLAIN}")
     return dict(cfg=cfg, res=res, launches=launches, late=late,
-                init_s=init_s, steps=steps, n_attn=n_attn, flips=flips,
+                init_s=init_s, steps=steps, warm=warm, n_attn=n_attn,
+                flips=flips,
                 instance=instance,
                 overflow=[float(st["overflow_frac"]) for st in moe])
 
@@ -1287,12 +1331,13 @@ def time_serve_kernel(sv: dict, errs: dict) -> dict:
                               flush=junk.argmax))
     del junk
     nbytes, ops = cost.decode_attn(b, h, hkv, d, s, kc.element_size())
-    steps = sv["steps"]
+    steps = sv["steps"] + sv["warm"]
     row = _kernel_row(
         "decode_attn", rec, nbytes, ops, PEAK_BF16_OPS_S,
         sv["launches"]["decode_attn"], errs["decode_attn"],
         f"{sv['launches']['decode_attn'] / steps:g} a step on the "
-        f"{cfg.name} serve path, {sv['n_attn']} attention layers")
+        f"{cfg.name} serve path, {sv['n_attn']} attention layers, "
+        f"{sv['steps']} steps and the capture's warm-up step")
     for name, r in (("back to back (L2 warm)", rec),
                     ("after a 192 MB read (L2 cold)", cold)):
         print(f"decode_attn {name} at {cfg.name} [{b} x {s} x {hkv} x "
@@ -1312,7 +1357,7 @@ def time_serve_kernel(sv: dict, errs: dict) -> dict:
 
 
 def _profile(tag: str, steps: int, unit: str, fn,
-             kernel: str | None = None) -> None:
+             kernel: str | None = None) -> dict:
     """``torch.profiler`` over ``steps`` calls of ``fn``: the device's
     busy share of the wall time and the top device ops; given
     ``kernel``, also the device time of the kernels whose function name
@@ -1343,6 +1388,8 @@ def _profile(tag: str, steps: int, unit: str, fn,
           f"device ops a {unit}{own}; top by device time: "
           + "; ".join(f"{n[:60]} {d / steps:.1f} us/{unit}"
                       for n, d in top))
+    return dict(busy_share=busy / wall, ops=len(dev) / steps,
+                busy_ms=busy * 1e3 / steps)
 
 
 def profile_ticks(sz: Sizes, device, ticks=8) -> None:
@@ -1376,15 +1423,14 @@ def profile_ar(sz: ARSizes, ar: dict, steps=8) -> None:
 
 def profile_serve(sv: dict, steps=8, tag="serve") -> None:
     """Where a decode step's time goes, over ``steps`` more steps from
-    the run's final state (the ring cache wraps to its first row)."""
-    from repro_torch.launch import steps as steps_mod
-    cfg, res = sv["cfg"], sv["res"]
-    step = steps_mod.build_serve_step(cfg)
+    the run's final state (the ring cache wraps to its first row),
+    through the run's captured step (replays)."""
+    res = sv["res"]
     box = [res.logits, res.lengths]
 
     def one(i):
         tok = torch.argmax(box[0], dim=-1).to(torch.int32)[:, None]
-        box[0], _, box[1] = step(res.model, tok, res.caches, box[1])
+        box[0], _, box[1] = res.step(res.model, tok, res.caches, box[1])
     _profile(tag, steps, "step", one, kernel="decode_attn_")
 
 
@@ -1449,11 +1495,15 @@ def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
           f"logits within {small['rel']:.3e}; first ids {res.tokens[0, :8]}")
 
     for name in ("staged", "fused"):
-        secs = results[name]["secs"]
+        # the first tick built and captured the step: left out, as the
+        # executor's own histogram leaves it out (warmup_excluded)
+        first, secs = results[name]["secs"][0], results[name]["secs"][1:]
         q = np.quantile(np.asarray(secs), [0.5, 0.99])
         print(f"path {name}: {sz.batch * len(secs) / sum(secs):.0f} "
-              f"items/s (all rows over all ticks), tick p50 {q[0] * 1e3:.3f} ms, p99 "
-              f"{q[1] * 1e3:.3f} ms over {len(secs)} ticks, launches "
+              f"items/s (all rows over the graphed ticks), tick p50 "
+              f"{q[0] * 1e3:.3f} ms, p99 {q[1] * 1e3:.3f} ms over "
+              f"{len(secs)} ticks (the first, which captured, "
+              f"{first * 1e3:.3f} ms, left out), launches "
               f"{results[name]['launches']}")
     q = np.quantile(np.asarray(ar["secs"]), [0.5, 0.99])
     print(f"path ar: {ar_sz.n * len(ar['secs']) / sum(ar['secs']):.0f} "
@@ -1477,6 +1527,8 @@ def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
     run_control_phase(sz, FLEET, device, kernels["kernels"])
     _free()
     run_train_phase(TRAIN_FULL, TRAIN_SMALL, device)
+    _free()
+    run_graph_phase(sz, serve_sz, FLEET, device)
     return kernels
 
 
@@ -1945,14 +1997,18 @@ def print_fleet(sz: Sizes, fz: FleetSizes, fl: dict) -> None:
     s = fz.shards
     for name in ("staged", "fused"):
         r = fl["results"][name]
-        secs = np.asarray(r["secs"])
+        per = {k: v / len(r["secs"])
+               for k, v in _nonzero(r["launches"]).items()}
+        # the first tick built and captured the step: left out
+        secs = np.asarray(r["secs"][1:])
         q = np.quantile(secs, [0.5, 0.99])
-        per = {k: v / len(secs) for k, v in _nonzero(r["launches"]).items()}
         print(f"path fleet {name}: {s} shards ({fz.regions} regions of "
               f"{fz.edges}) x {sz.batch} rows, "
               f"{s * sz.batch * len(secs) / secs.sum():.0f} items/s (all "
-              f"shards' rows over all ticks), tick p50 {q[0] * 1e3:.3f} ms, "
-              f"p99 {q[1] * 1e3:.3f} ms over {len(secs)} ticks, launches a "
+              f"shards' rows over the graphed ticks), tick p50 "
+              f"{q[0] * 1e3:.3f} ms, p99 {q[1] * 1e3:.3f} ms over "
+              f"{len(secs)} ticks (the first, which captured, "
+              f"{r['secs'][0] * 1e3:.3f} ms, left out), launches a "
               f"tick {per}; fog shed / core overflow a tick "
               f"{r['deltas'][:, 0].tolist()} / {r['deltas'][:, 1].tolist()}")
 
@@ -2199,17 +2255,21 @@ def control_elastic(sz: Sizes, fz: FleetSizes, device) -> dict:
     log = EventLog()
     ctl = FleetController(fx, event_log=log)
     s = fz.shards
-    step_s, ctl_s, budgets = [], [], []
+    step_s, ctl_s, budgets, built = [], [], [], 0
     zero_launches()
     for i in range(fz.ticks):
         items, ts = fleet_batch(sz, fz, i, device)
+        before = fx._compile_count()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, _ = fx.step(state, items, ts)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         dec = ctl.tick(state, step_times=np.full(s, 0.1))
-        step_s.append(t1 - t0)
+        if fx._compile_count() == before:   # a tick that captured is
+            step_s.append(t1 - t0)          # left out of the timing
+        else:
+            built += 1
         ctl_s.append(time.perf_counter() - t1)
         budgets.append((dec.budget, dec.region_budgets.tolist()))
     launches = read_launches()
@@ -2220,6 +2280,11 @@ def control_elastic(sz: Sizes, fz: FleetSizes, device) -> dict:
     if not up or not down or not fog:
         _fail(f"elastic budgets: {len(up)} core grows, {len(down)} core "
               f"shrinks, {len(fog)} fog resizes over {budgets}")
+    if not 1 <= fx.trace_count <= ctl.max_trace_count \
+            or fx.trace_count != built:
+        _fail(f"elastic fleet: trace_count {fx.trace_count}, "
+              f"{built} ticks captured, max_trace_count "
+              f"{ctl.max_trace_count}")
     if ctl.resizes != len(core) + len({r["tick"] for r in fog}):
         _fail(f"resizes {ctl.resizes}, the log holds {len(core)} core and "
               f"{len(fog)} fog resizes on {len({r['tick'] for r in fog})} "
@@ -2231,6 +2296,7 @@ def control_elastic(sz: Sizes, fz: FleetSizes, device) -> dict:
     return dict(step_s=step_s, ctl_s=ctl_s, budgets=budgets,
                 resizes=ctl.resizes, retraces=ctl._retraces,
                 max_trace_count=ctl.max_trace_count, core=len(core),
+                trace_count=fx.trace_count,
                 fog=len(fog), launches=launches, state=state, fx=fx)
 
 
@@ -2342,9 +2408,10 @@ def run_control_phase(sz: Sizes, fz: FleetSizes, device, rows: list) -> None:
     el = control_elastic(sz, fz, device)
     print(f"phase 8 elastic budgets: {fz.ticks} ticks of the hot/cold feed, "
           f"{el['core']} core and {el['fog']} fog budget resizes, resizes "
-          f"{el['resizes']}, retraces {el['retraces']}, max_trace_count "
-          f"{el['max_trace_count']} (host counting; the eager tick counts no "
-          f"traces); budgets a tick {el['budgets']}; {card}")
+          f"{el['resizes']}, retraces {el['retraces']}, the executor's "
+          f"trace_count {el['trace_count']} <= max_trace_count "
+          f"{el['max_trace_count']} (the ticks that captured are left out "
+          f"of the step timing); budgets a tick {el['budgets']}; {card}")
     cc = control_card_vs_cpu(SMALL, FLEET_SMALL, device, assert_bitwise,
                              assert_close)
     print(f"phase 8 card vs CPU: the controlled arc at {SMALL.batch} rows a "
@@ -2716,6 +2783,338 @@ def run_train_phase(tz: TrainSizes, small: TrainSizes, device) -> None:
           f"checkpoint at step 2 restored + 2 steps == 4 steps, parameters "
           f"within {rs['params']:.3e}; "
           f"{time.perf_counter() - t0:.1f} s; {card}")
+
+
+# ---- phase 10: the compile-once paths, graphed against eager --------------
+
+#: ticks of each stream path, graphed against ``capture.disable()``
+GRAPH_TICKS = 64
+#: teacher-forced steps of the Yi-6B serve run, graphed against eager
+GRAPH_SERVE_STEPS = 256
+
+
+class _FakeClock:
+    """Stands in for an executor module's ``time`` in phase 10: each
+    ``perf_counter()`` advances a quarter second, so a graphed and an
+    eager run stamp the same wall times into their rings and lineage."""
+
+    def __init__(self):
+        self.t = 100.0
+
+    def perf_counter(self):
+        self.t += 0.25
+        return self.t
+
+
+def _same_clock():
+    """Fresh fake clocks in both executor modules; returns a function
+    that puts the real ``time`` back."""
+    from repro_torch.stream import executor as TX
+    from repro_torch.stream.fleet import executor as FX
+    real = TX.time
+    TX.time, FX.time = _FakeClock(), _FakeClock()
+
+    def restore():
+        TX.time = FX.time = real
+    return restore
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """bfloat16 as its int16 bits (the bitwise check compares numpy)."""
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _tree_bitwise(bitwise, a, b, what: str) -> None:
+    from repro_torch.runtime import capture
+    la, lb = (capture.flatten(x)[0] for x in (a, b))
+    if len(la) != len(lb):
+        _fail(f"{what}: {len(la)} leaves against {len(lb)}")
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if isinstance(x, torch.Tensor):
+            bitwise(_bits(x), _bits(y), f"{what} leaf {i}")
+
+
+def _quant(secs) -> tuple[float, float]:
+    q = np.quantile(np.asarray(secs), [0.5, 0.99]) * 1e3
+    return float(q[0]), float(q[1])
+
+
+def _timed_steps(step, n: int, feed) -> tuple[list, list]:
+    """``n`` calls of ``step(feed(i))``, each between two synchronizes:
+    (outputs, wall seconds)."""
+    outs, secs = [], []
+    for i in range(n):
+        args = feed(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(step(*args))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return outs, secs
+
+
+def graph_stream(sz: Sizes, device, bitwise) -> dict:
+    """Each stream path, ``GRAPH_TICKS`` ticks graphed and the same under
+    ``capture.disable()``, then after the capture a tick at a new core
+    budget, a backfill tick and 3 live ticks: every ``StepOutput``, the
+    final state and the lineage bank bitwise (the latency histogram
+    apart: the graphed run withholds its first tick); the graphed
+    executor built one signature and captured one graph; both launched
+    the path's kernel as often.  Timed, then profiled 8 ticks each."""
+    from contextlib import nullcontext
+    from repro_torch.runtime import capture
+    from repro_torch.stream import ingest as I
+    out = {}
+    for name, fused in (("staged", False), ("fused", True)):
+        runs = {}
+        for mode in ("graphed", "eager"):
+            restore = _same_clock()
+            try:
+                ex, state = make_executor(sz, device, fused=fused)
+                box = [state]
+                sched = [(I.MODE_LIVE, None)] * GRAPH_TICKS + [
+                    (I.MODE_LIVE, ex.cfg.windows_per_step // 8),
+                    (I.MODE_BACKFILL, None)] + [(I.MODE_LIVE, None)] * 3
+
+                def tick(i):
+                    m, budget = sched[i] if i < len(sched) \
+                        else (I.MODE_LIVE, None)
+                    if budget is not None:
+                        ex.set_core_budget(budget)
+                    return (*tick_batch(sz, i, device), m)
+
+                def step(items, ts, m):
+                    box[0], o = ex.step(box[0], items, ts, mode=m)
+                    return o
+                zero_launches()
+                with capture.disable() if mode == "eager" else nullcontext():
+                    outs, secs = _timed_steps(step, len(sched), tick)
+                    launches = read_launches()
+                    prof = _profile(f"graph_{name}_{mode}", 8, "tick",
+                                    lambda i: step(*tick(len(sched) + i)))
+                runs[mode] = dict(outs=outs, secs=secs, state=box[0],
+                                  lineage=ex._lineage, launches=launches,
+                                  trace=ex.trace_count,
+                                  compiles=ex._compile_count(),
+                                  pool=ex._tick_step.pool_bytes, prof=prof)
+                del ex, box
+            finally:
+                restore()
+        g, e = runs["graphed"], runs["eager"]
+        for i, (a, b) in enumerate(zip(g["outs"], e["outs"])):
+            _tree_bitwise(bitwise, a, b, f"graphed vs eager {name} tick {i}")
+        _tree_bitwise(bitwise, g["state"], e["state"],
+                      f"graphed vs eager {name} final state")
+        bitwise(g["lineage"], e["lineage"], f"graphed vs eager {name} lineage")
+        if (g["trace"], g["compiles"]) != (1, 1) or e["trace"] != 0:
+            _fail(f"{name} tick: trace_count {g['trace']}, "
+                  f"_compile_count {g['compiles']} (want 1, 1); eager "
+                  f"{e['trace']}")
+        if g["launches"] != e["launches"]:
+            _fail(f"{name} tick: graphed launches {g['launches']} != eager "
+                  f"{e['launches']}")
+        out[name] = runs
+    return out
+
+
+def graph_serve(sz: ServeSizes, device, bitwise) -> dict:
+    """Yi-6B at ``sz``'s widths and depth: its decode step resolved and
+    captured by the registry as ``serve.run`` does, then the first
+    :data:`GRAPH_SERVE_STEPS` teacher-forced steps replayed; the same
+    steps eagerly (``capture.disable()``) on fresh caches; the logits
+    bitwise at every step, the caches at the end, one cached step, one
+    decode_attn launch an attention layer a step either way.  Timed,
+    then profiled 8 steps each."""
+    from contextlib import nullcontext
+    from repro_torch.core import profiles as P
+    from repro_torch.core.serverless import FunctionRegistry
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import capture
+    cfg = serve_config(sz)
+    b, max_len = sz.requests, sz.prompt_len + sz.tokens
+    steps = GRAPH_SERVE_STEPS
+    model = T.init_params(cfg, seed=0, device=device)
+    prompts = torch.from_numpy(serve.prompts_for(cfg, b, sz.prompt_len)) \
+        .to(device)
+    interest = P.ProfileBuilder().add_single("serve").build()
+    runs = {}
+    for mode in ("graphed", "eager"):
+        reg = FunctionRegistry(device)
+        reg.store_function(f"decode:{cfg.name}", P.profile("serve", cfg.name),
+                           steps_mod.build_serve_step(cfg))
+        caches = T.init_caches(cfg, b, max_len, device)
+        box = [caches, torch.zeros((b,), dtype=torch.int32, device=device)]
+        with capture.disable() if mode == "eager" else nullcontext():
+            zero_launches()
+            [(_, step)] = reg.start_function(
+                interest, model, prompts[:, :1], *box, donate_argnums=(2, 3))
+            warm = read_launches()["decode_attn"]
+
+            def one(tok):
+                logits, box[0], box[1] = step(model, tok, *box)
+                return logits
+            logits, secs = _timed_steps(
+                one, steps, lambda i: (prompts[:, i:i + 1],))
+            launches = read_launches()["decode_attn"] - warm
+            prof = _profile(f"graph_serve_{mode}", 8, "step",
+                            lambda i: one(prompts[:, steps + i:
+                                                  steps + i + 1]))
+        torch.cuda.synchronize()
+        runs[mode] = dict(logits=logits, secs=secs, caches=box[0],
+                          launches=launches, warm=warm, prof=prof,
+                          aot=reg.statistics()["aot_cached"], step=step,
+                          pool=getattr(step, "pool_bytes", 0))
+        del reg, caches, box, step, one
+    g, e = runs["graphed"], runs["eager"]
+    n_attn = len(attn_caches(cfg, g["caches"])) \
+        * int(torch.device(device).type == "cuda")      # none on the CPU
+    for i, (a, c) in enumerate(zip(g["logits"], e["logits"])):
+        bitwise(_bits(a), _bits(c), f"graphed vs eager decode step {i} logits")
+    _tree_bitwise(bitwise, g["caches"], e["caches"],
+                  "graphed vs eager caches after the profiled steps")
+    if g["aot"] != 1 or g["step"].trace_count != 1:
+        _fail(f"serve: aot_cached {g['aot']}, trace_count "
+              f"{g['step'].trace_count}; want 1 and 1")
+    if g["launches"] != e["launches"] or \
+            g["launches"] != n_attn * steps or g["warm"] != n_attn:
+        _fail(f"serve: decode_attn launches graphed {g['launches']} (+ "
+              f"{g['warm']} warm-up), eager {e['launches']}; want "
+              f"{n_attn} a step x {steps} steps")
+    out = dict(cfg=cfg, n_attn=n_attn, **{
+        m: {k: v for k, v in r.items() if k not in ("logits", "caches")}
+        for m, r in runs.items()})
+    del model, runs, g, e
+    return out
+
+
+def graph_fleet(sz: Sizes, fz: FleetSizes, device, bitwise) -> dict:
+    """The fused fleet at ``sz`` a shard, ``fz.ticks`` ticks graphed and
+    eager: shard 3 unhealthy and shard 6 away for ticks 5-11, the core
+    budget cut to a quarter and the fog budgets to two thirds and a
+    sixth (within their slot ceilings) from tick 9;
+    every output and the final state bitwise; one signature; then a
+    remesh to 2 regions of 3 and 2 ticks: ``trace_count`` 2."""
+    from contextlib import nullcontext
+    from repro_torch.runtime import capture
+    s = fz.shards
+    runs = {}
+    for mode in ("graphed", "eager"):
+        restore = _same_clock()
+        try:
+            fx, state = make_fleet(sz, fz, device, fused=True)
+            box = [state]
+
+            def feed(i):
+                if i == 5:
+                    fx.set_health([k != 3 for k in range(s)])
+                    fx.set_active([k != 6 for k in range(s)])
+                if i == 9:
+                    fx.set_core_budget(fz.core_budget // 4)
+                    fx.set_region_budget([fz.fog_budget * 2 // 3,
+                                          fz.fog_budget // 6])
+                if i == 12:
+                    fx.set_health([True] * s)
+                    fx.set_active([True] * s)
+                return fleet_batch(sz, fz, i, device)
+
+            def step(items, ts):
+                box[0], o = fx.step(box[0], items, ts)
+                return o
+            zero_launches()
+            with capture.disable() if mode == "eager" else nullcontext():
+                outs, secs = _timed_steps(step, fz.ticks, feed)
+                launches = read_launches()
+                prof = _profile(f"graph_fleet_{mode}", 4, "tick",
+                                lambda i: step(*feed(fz.ticks + i)))
+            runs[mode] = dict(outs=outs, secs=secs, state=box[0],
+                              launches=launches, trace=fx.trace_count,
+                              compiles=fx._compile_count(),
+                              pool=fx._tick_step.pool_bytes, prof=prof)
+            if mode == "graphed":
+                st, _ = fx.remesh(box[0], 6)
+                for i in range(2):
+                    st, _ = fx.step(st, *fleet_batch(sz, fz, fz.ticks + 4 + i,
+                                                     device, shards=6))
+                runs[mode]["remesh"] = (fx.trace_count, fx._compile_count())
+                del st
+            del fx, box
+        finally:
+            restore()
+    g, e = runs["graphed"], runs["eager"]
+    for i, (a, b) in enumerate(zip(g["outs"], e["outs"])):
+        _tree_bitwise(bitwise, a, b, f"graphed vs eager fleet tick {i}")
+    _tree_bitwise(bitwise, g["state"], e["state"],
+                  "graphed vs eager fleet final state")
+    if (g["trace"], g["compiles"]) != (1, 1) or g["remesh"] != (2, 2):
+        _fail(f"fleet: trace_count {g['trace']}, _compile_count "
+              f"{g['compiles']}, after the remesh {g['remesh']}; want 1, 1 "
+              "and (2, 2)")
+    if g["launches"] != e["launches"]:
+        _fail(f"fleet: graphed launches {g['launches']} != eager "
+              f"{e['launches']}")
+    return runs
+
+
+def _graph_line(tag: str, unit: str, g: dict, e: dict, card: str,
+                skip: int = 1) -> str:
+    """p50/p99 and the busy share, eager and graphed (the graphed run's
+    first ``skip`` calls, which captured, left out), and the graph's
+    pool."""
+    (gp, g99), (ep, e99) = _quant(g["secs"][skip:]), _quant(e["secs"])
+    return (f"phase 10 {tag}: eager {unit} p50 {ep:.3f} ms, p99 {e99:.3f} "
+            f"ms, busy {e['prof']['busy_share']:.4f} of the wall time "
+            f"({e['prof']['ops']:.1f} device ops a {unit}); graphed p50 "
+            f"{gp:.3f} ms, p99 {g99:.3f} ms, busy "
+            f"{g['prof']['busy_share']:.4f} ({g['prof']['ops']:.1f} device "
+            f"ops a {unit}, device busy {g['prof']['busy_ms']:.3f} ms a "
+            f"{unit}); p50 {ep / gp:.2f}x; graph pool "
+            f"{g['pool'] / 2**20:.1f} MiB; {card}")
+
+
+def run_graph_phase(sz: Sizes, serve_sz: ServeSizes, fz: FleetSizes,
+                    device) -> None:
+    """Phase 10: the graphed stream ticks, Yi-6B decode step and fleet
+    tick against ``capture.disable()`` at full width, each check failing
+    the run; p50/p99 and the busy share of each, eager and graphed."""
+    from repro_torch.testing import assert_bitwise
+    t0 = time.perf_counter()
+    card = _card_line()
+    st = graph_stream(sz, device, assert_bitwise)
+    for name in ("staged", "fused"):
+        g = st[name]["graphed"]
+        print(f"phase 10 {name} tick: {GRAPH_TICKS} ticks + a new budget, a "
+              f"backfill and 3 live ticks after the capture, graphed == "
+              f"eager bitwise (every StepOutput, the final state, the "
+              f"lineage); trace_count 1, _compile_count 1; launches "
+              f"{_nonzero(g['launches'])} either way")
+        print(_graph_line(f"{name} tick", "tick", g, st[name]["eager"], card))
+    del st
+    _free()
+    sv = graph_serve(serve_sz, device, assert_bitwise)
+    g, e = sv["graphed"], sv["eager"]
+    print(f"phase 10 serve: {sv['cfg'].name}, {GRAPH_SERVE_STEPS} of "
+          f"{serve_sz.prompt_len + serve_sz.tokens} steps teacher-forced + 8 "
+          f"profiled, graphed == eager bitwise (every step's logits, the "
+          f"caches); aot_cached {g['aot']}; decode_attn "
+          f"{g['launches'] / GRAPH_SERVE_STEPS:g} a step either way "
+          f"(+ {g['warm']} in the capture's warm-up)")
+    # captured at start_function: every timed step replayed
+    print(_graph_line("serve decode step", "step", g, e, card, skip=0))
+    del sv, g, e
+    _free()
+    fl = graph_fleet(sz, fz, device, assert_bitwise)
+    g = fl["graphed"]
+    print(f"phase 10 fleet: {fz.shards} shards fused, {fz.ticks} ticks with "
+          f"a health and a membership flip and both budgets cut after the "
+          f"capture, graphed == eager bitwise; trace_count 1, then 2 after "
+          f"a remesh to 6 shards ({g['remesh']}); launches "
+          f"{_nonzero(g['launches'])} either way")
+    print(_graph_line("fleet tick", "tick", g, fl["eager"], card))
+    del fl, g
+    _free()
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:

@@ -4,16 +4,20 @@ Port of ``repro.core.serverless``.  ``store_function`` registers a
 *function profile* -> callable mapping; ``find`` resolves an interest
 against the registry by associative matching (``matching.
 profile_match``, so the ``armatch`` kernel on the card);
-``start_function`` returns the callables that match and marks them
-running; ``stop_function`` retires them.
+``start_function`` returns the matching functions, compiled ahead of
+time, and marks them running; ``stop_function`` retires them.
 
-PyTorch has no ahead-of-time compile to cache.  ``start_function``
-keeps the reference's cache and its key (function name and the
-abstract signature of the arguments, ``_cache_key``), but caches the
-callable itself; the reference's ``mesh``, ``in_shardings``,
-``out_shardings`` and ``donate_argnums`` have no counterpart and are
-not taken.  ``statistics()["aot_cached"]`` counts the cached entries,
-under the reference's key name.
+The reference AOT-compiles there; the port captures there.  Each
+match's cached step is a ``runtime.capture.Step`` over the stored
+callable, keyed as the reference keys its cache (function name and the
+signature of the arguments, ``_cache_key``; a module by identity, since
+the graph reads its parameters where they lie).  On the card the step
+warms up on copies of the donated arguments and is captured as a CUDA
+graph at ``start_function``, so its first call replays; on the CPU, or
+for abstract (``meta``) arguments, it is built at its first call.
+``statistics()["aot_cached"]`` counts the cached steps.  The
+reference's ``mesh``, ``in_shardings`` and ``out_shardings`` have no
+counterpart on one card and are not taken.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import matching
+from repro_torch.runtime import capture
 
 
 @dataclasses.dataclass
@@ -69,16 +74,21 @@ class FunctionRegistry:
         hits = matching.profile_match(interest[None, :], self._table).cpu()
         return [e for e, h in zip(self._entries, hits.tolist()) if h]
 
-    def start_function(self, interest: np.ndarray, *abstract_args
-                       ) -> list[tuple[FunctionEntry, Any]]:
-        """Match, cache, mark running.  Returns [(entry, callable)] for
-        every match (paper: the function is executed wherever its profile
-        resolves)."""
+    def start_function(self, interest: np.ndarray, *abstract_args,
+                       donate_argnums=()) -> list[tuple[FunctionEntry, Any]]:
+        """Match, capture ahead of time (cached), mark running.  Returns
+        [(entry, step)] for every match (paper: the function is executed
+        wherever its profile resolves).  ``donate_argnums``: the
+        arguments that are the function's state, whose new values it
+        returns as its last outputs, in order (a serve step's caches and
+        lengths), as the reference donates them."""
         out = []
         for e in self.find(interest):
             key = self._cache_key(e, abstract_args)
             if key not in self._aot_cache:
-                self._aot_cache[key] = e.fn
+                self._aot_cache[key] = capture.Step(
+                    e.fn, device=self.device, donate_argnums=donate_argnums,
+                    name=e.name).prepare(*abstract_args)
             e.running = True
             out.append((e, self._aot_cache[key]))
         return out
@@ -103,6 +113,8 @@ class FunctionRegistry:
 
     @staticmethod
     def _sig(a) -> tuple:
+        if isinstance(a, torch.nn.Module):
+            return ("module", type(a).__name__, id(a))
         if hasattr(a, "shape") and hasattr(a, "dtype"):
             return ("arr", tuple(a.shape), str(a.dtype))
         if isinstance(a, (list, tuple)):

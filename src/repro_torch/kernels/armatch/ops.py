@@ -8,15 +8,17 @@ CUDA kernel takes both tables as they are, row-major, and masks its own
 ragged edges.
 
 Dispatch follows the tensor's device: a CUDA tensor launches
-``csrc/armatch.cu`` (or raises), a CPU tensor takes the plain version
-in ``ref.py``.  :func:`plan` picks the kernel's instance from N alone:
+``csrc/armatch.cu`` (or raises), a CPU tensor takes the plain version in
+``ref.py``.  :func:`plan` picks the kernel's instance from N alone:
 ``narrow`` streams the data rows once for a few interests (a query
 against a store, a registry lookup), ``wide`` keeps each data row
 decoded in registers across many interests (the notify match).  The
 ``simple`` instance (the first port's kernel) runs only when asked for
 by name, to hold the others against it.  Each call is one launch:
 ``armatch.launches`` counts them all, ``armatch.simple_launches`` those
-of the simple instance.
+of the simple instance.  A launch inside a captured CUDA graph
+(``runtime.capture``) is counted at each replay: the capture records
+what the counters gained and adds it again.
 """
 from __future__ import annotations
 

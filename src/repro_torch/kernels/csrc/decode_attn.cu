@@ -33,7 +33,11 @@
 //     into the first block's shared memory (distributed shared memory),
 //     arrives at the cluster's barrier and leaves; the first block waits
 //     there and folds them.  No scratch in device memory, no second pass:
-//     one launch a call.
+//     one launch a call.  A block may touch another's shared memory only
+//     once every block of the cluster has started, so each block arrives
+//     at a first cluster barrier as it starts and waits on it just before
+//     its first remote write; the cache streams in between, so the wait
+//     costs nothing once the cluster is resident.
 //   * Every warp streams its own 16-row sub-tiles of K and V through a
 //     two-stage ring in shared memory with 16-byte cp.async copies (rows
 //     past the length zero-filled), starting the next sub-tile's copy before
@@ -335,6 +339,23 @@ __device__ void fold_splits(const Inbox<D>& inbox, const Args& a, int bh,
   }
 }
 
+// The cluster's first barrier phase: every block arrives as it starts
+// (cluster_started_arrive) and waits (cluster_started_wait) before its
+// first write into the leader's shared memory, which the CUDA programming
+// guide allows only once every block of the cluster has started.  Both
+// are .aligned: every thread of every block reaches them (no thread leaves
+// a fast kernel before fold_splits).  fold_splits' arrive and wait are
+// the second phase.
+__device__ __forceinline__ void cluster_started_arrive(const Args& a) {
+  if (a.n_split > 1)
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_started_wait(const Args& a) {
+  if (a.n_split > 1)
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 // The leader's inbox as this block sees it: its own shared memory after
 // the ring in the leader, distributed shared memory elsewhere.
 template <int D>
@@ -368,6 +389,7 @@ __global__ void __launch_bounds__(bf16_warps(D) * 32)
   constexpr int W = bf16_warps(D);
   constexpr int kRow = ring_row<T, D>(), kKs = D / 16;
   extern __shared__ __align__(16) unsigned char smem[];
+  cluster_started_arrive(a);
   int bh, split, start, end;
   block_rows<W>(a, bh, split, start, end);   // every block reaches the fold
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -506,6 +528,7 @@ __global__ void __launch_bounds__(bf16_warps(D) * 32)
     }
   __syncthreads();
   const Inbox<D> inbox = leader_inbox<D>(smem, ring_smem<T, D, W>(), a);
+  cluster_started_wait(a);        // the leader has started: write to it
   fold_warps<T, D, W>(f, inbox, a, bh, split, tid);
   if (a.n_split > 1) fold_splits<T, D>(inbox, a, bh, split, tid, W * 32);
 }
@@ -532,6 +555,7 @@ __global__ void __launch_bounds__(kF32Warps * 32)
   constexpr int kCw = D / 4, kGl = 32 / kCw, kJn = kMaxG / kGl;
   static_assert(D >= 16 && D <= 128, "float32 instance: D in 16 .. 128");
   extern __shared__ __align__(16) unsigned char smem[];
+  cluster_started_arrive(a);
   int bh, split, start, end;
   block_rows<W>(a, bh, split, start, end);   // every block reaches the fold
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -647,6 +671,7 @@ __global__ void __launch_bounds__(kF32Warps * 32)
   __syncthreads();
   const Inbox<D> inbox =
       leader_inbox<D>(smem, ring_bytes<T, D, W>() + f32_extra_bytes<D>(), a);
+  cluster_started_wait(a);        // the leader has started: write to it
   fold_warps<T, D, W>(f, inbox, a, bh, split, tid);
   if (a.n_split > 1) fold_splits<T, D>(inbox, a, bh, split, tid, W * 32);
 }

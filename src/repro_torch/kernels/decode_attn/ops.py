@@ -19,7 +19,9 @@ the shapes, strides, dtype and alignment alone, never from ``lengths``,
 so a call reads nothing back from the card.  Each call is one launch:
 ``decode_attention.launches`` counts them all,
 ``decode_attention.generic_launches`` those that took the generic
-instance.
+instance.  A launch inside a captured CUDA graph (``runtime.capture``)
+is counted at each replay: the capture records what the counters gained
+and adds it again.
 """
 from __future__ import annotations
 

@@ -23,7 +23,9 @@ in shared memory a block (``kernels/span.py``); the ``simple`` instance
 (the first port's kernel) runs only when asked for by name, to hold the
 other against it.  Each call is one launch: ``fused_tick.launches``
 counts them all, ``fused_tick.simple_launches`` those of the simple
-instance.  Each call reports its bytes and operations
+instance.  A launch inside a captured CUDA graph (``runtime.capture``)
+is counted at each replay: the capture records what the counters gained
+and adds it again.  Each call reports its bytes and operations
 (``kernels.cost.fused_tick``) to an active ``obs.costmodel.analyze``.
 """
 from __future__ import annotations

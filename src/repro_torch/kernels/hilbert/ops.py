@@ -8,8 +8,10 @@ CUDA kernel walks the flat batch with a grid-stride loop and masks its
 own tail, so there is no padding here.
 
 Dispatch follows the tensor's device: a CUDA tensor launches
-``csrc/hilbert.cu`` (or raises), a CPU tensor takes the plain version
-in ``ref.py``.  ``hilbert_xy2d.launches`` counts kernel launches.
+``csrc/hilbert.cu`` (or raises), a CPU tensor takes the plain version in
+``ref.py``.  ``hilbert_xy2d.launches`` counts kernel launches.  A launch
+inside a captured CUDA graph (``runtime.capture``) is counted at each
+replay: the capture records what the counters gained and adds it again.
 """
 from __future__ import annotations
 

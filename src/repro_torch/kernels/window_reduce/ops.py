@@ -21,9 +21,12 @@ stages K windows' rows in shared memory a block (``kernels/span.py``);
 the ``simple`` instance (the first port's kernel) runs only when asked
 for by name, to hold the other against it.  Each call is one launch:
 ``window_reduce.launches`` counts them all,
-``window_reduce.simple_launches`` those of the simple instance.  Each
-call of :func:`sliding_reduce` reports its bytes and operations
-(``kernels.cost.window_reduce``) to an active ``obs.costmodel.analyze``.
+``window_reduce.simple_launches`` those of the simple instance.  A
+launch inside a captured CUDA graph (``runtime.capture``) is counted at
+each replay: the capture records what the counters gained and adds it
+again.  Each call of :func:`sliding_reduce` reports its bytes and
+operations (``kernels.cost.window_reduce``) to an active
+``obs.costmodel.analyze``.
 """
 from __future__ import annotations
 

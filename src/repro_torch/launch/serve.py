@@ -8,8 +8,11 @@ Port of ``repro.launch.serve``.  The decode step is registered in the
 serverless ``FunctionRegistry`` under a function profile
 (``decode:<name>``, profile ``serve`` + the model's name); ``run``
 resolves it by associative matching with the ``serve`` interest (the
-``armatch`` kernel on the card), prefills each request by decoding its
-prompt teacher-forced, then generates greedily (argmax).  Any of the
+``armatch`` kernel on the card) and captures it ahead of time there,
+as the reference AOT-compiles it: the decode loop replays that CUDA
+graph every step (``runtime.capture``; on the CPU the step runs
+eagerly).  It prefills each request by decoding its prompt
+teacher-forced, then generates greedily (argmax).  Any of the
 ten configs serves: attention layers keep ring KV caches and attend
 through ``decode_attn``, RWKV6 and RG-LRU layers carry their recurrent
 states.  The model is the port's seeded random init unless the caller
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -38,13 +41,16 @@ class ServeResult(NamedTuple):
     tokens: np.ndarray          # [requests, tokens] generated ids
     secs: list                  # wall seconds of each decode step
     launches: int               # decode_attn kernel launches in the loop
-                                # (0 for a model without attention)
+                                # (0 for a model without attention),
+                                # replays counted by the capture
     finite: bool                # every step's logits were finite
     logits: torch.Tensor        # [requests, vocab] after the last step
     caches: list                # the per-layer caches / states at the end
     lengths: torch.Tensor       # [requests] cache fill at the end
     model: T.Transformer
     resolved: str               # the registry entry that served
+    aot_cached: int             # the registry's captured steps
+    step: Callable              # the captured decode step
 
 
 def prompts_for(cfg, requests: int, prompt_len: int,
@@ -73,8 +79,9 @@ def run(cfg, requests: int, prompt_len: int, tokens: int, *,
     caches = T.init_caches(cfg, b, max_len, dev)
     lengths = torch.zeros((b,), dtype=torch.int32, device=dev)
     tok0 = torch.zeros((b, 1), dtype=torch.int32, device=dev)
-    [(entry, step)] = registry.start_function(interest, tok0, caches,
-                                              lengths)
+    # the caches and lengths are the step's state (donated)
+    [(entry, step)] = registry.start_function(interest, model, tok0, caches,
+                                              lengths, donate_argnums=(2, 3))
 
     prompts = torch.from_numpy(prompts_for(cfg, b, prompt_len, seed)).to(dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -98,7 +105,8 @@ def run(cfg, requests: int, prompt_len: int, tokens: int, *,
         else torch.zeros((b, 0), dtype=torch.int32)
     return ServeResult(out.cpu().numpy(), secs,
                        decode_attention.launches - launches0, bool(finite),
-                       logits, caches, lengths, model, entry.name)
+                       logits, caches, lengths, model, entry.name,
+                       registry.statistics()["aot_cached"], step)
 
 
 def main() -> None:
@@ -117,8 +125,8 @@ def main() -> None:
               device=args.device)
     steps = len(res.secs)
     total = args.requests * steps
-    print(f"resolved {res.resolved} via AR profile; {res.launches} "
-          f"decode_attn kernel launches")
+    print(f"resolved {res.resolved} via AR profile; AOT cache: "
+          f"{res.aot_cached}; {res.launches} decode_attn kernel launches")
     print(f"generated {res.tokens.shape} tokens; {total / sum(res.secs):.0f} "
           f"tok/s total ({sum(res.secs) * 1e3 / steps:.1f} ms/step)")
     print("sample:", res.tokens[0, :16])

@@ -9,6 +9,7 @@ import math
 
 import torch
 
+from repro_torch import device_constant
 
 def rope_freqs(d_head: int, theta: float,
                device: torch.device | None = None) -> torch.Tensor:
@@ -45,10 +46,11 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
     if sum(sections) != d // 2:
         raise ValueError(f"mrope sections {sections} do not sum to {d // 2}")
     inv = rope_freqs(d, theta, x.device)                      # [D/2]
-    # component id per frequency pair: [D/2] in {0,1,2}
-    comp = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))
+    # component id per frequency pair: [D/2] in {0,1,2}, made on the host
+    # once (a captured decode step may not copy from the host)
+    comp = device_constant(
+        tuple(i for i, n in enumerate(sections) for _ in range(n)),
+        torch.int64, x.device)
     pos_sel = positions[comp]                                 # [D/2, B, T]
     return _rotate(x, torch.movedim(pos_sel, 0, -1).float() * inv)
 

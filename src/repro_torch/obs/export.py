@@ -5,10 +5,10 @@ Port of ``repro.obs.export``, with the reference's golden keys:
 * :func:`metrics_snapshot` -- one executor's full observability state:
   ``StreamMetrics``/``FleetMetrics`` counters, the in-step latency
   histogram's percentiles, the lineage percentiles, the tracer's
-  per-stage breakdown, and the trace count, in one dict.  The port's
-  executors run the tick eagerly and count no traces, so
-  ``"trace_count"`` is ``None`` until the tick is captured as a CUDA
-  graph and a capture counter stands in for it.
+  per-stage breakdown, and the trace count, in one dict.
+  ``"trace_count"`` is the executor's own: the tick signatures its
+  compile-once step built (``runtime.capture``), an int, 1 after
+  warmup on a fixed feed as in the reference.
 * :func:`bench_payload` / :func:`write_bench` -- the
   ``BENCH_<suite>.json`` artifact: a suite's CSV rows (``derived``
   parsed into a dict) plus platform provenance, written atomically
@@ -102,11 +102,10 @@ def metrics_snapshot(executor, state, kind: str | None = None) -> dict:
     """One executor's observability state as a stable-schema dict.
 
     ``executor`` is a ``StreamExecutor`` or ``FleetExecutor`` (anything
-    with ``latency_percentiles()``, ``lineage_percentiles()`` and a
-    ``tracer``); ``state`` the matching state whose ``metrics.as_dict()``
+    with ``trace_count``, ``latency_percentiles()``,
+    ``lineage_percentiles()`` and a ``tracer``); ``state`` the matching state whose ``metrics.as_dict()``
     is the counter snapshot.  ``kind`` defaults to the executor class
-    name.  ``trace_count`` is the executor's own where it has one, else
-    ``None`` (the port's eager executors)."""
+    name.  ``trace_count`` is the executor's own (an int)."""
     tracer = getattr(executor, "tracer", None)
     return {
         "schema_version": BENCH_SCHEMA_VERSION,
@@ -116,5 +115,5 @@ def metrics_snapshot(executor, state, kind: str | None = None) -> dict:
         "lineage": executor.lineage_percentiles(),
         "stages": tracer.stage_percentiles()
         if tracer is not None and tracer.enabled else {},
-        "trace_count": getattr(executor, "trace_count", None),
+        "trace_count": int(executor.trace_count),
     }

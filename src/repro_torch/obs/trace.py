@@ -20,6 +20,11 @@ Two export paths:
   host and, on the card, the CUDA activity, written to ``logdir`` as a
   Chrome trace when the context closes.
 
+A span is recorded when its Python runs.  The executors' ticks replay
+a captured CUDA graph on the card (``runtime.capture``), so their stage
+spans are recorded at the warm-up and the capture, while
+``stream.dispatch`` and ``fleet.dispatch`` mark every tick.
+
 The spans open at a moment are kept too (:meth:`Tracer.open_stage`):
 ``obs.costmodel.analyze`` attributes each operation to the innermost
 open ``obs:*`` span.

@@ -10,10 +10,17 @@ through a ``DataDrivenPipeline`` whose rule-gated core stage is
 capacity-bounded.
 
 Each tick is a fixed-shape sequence of tensor ops with no host read of
-a device value (no ``.item()``, no Python branch on a device value),
-so a later change can capture it once as a CUDA graph.  The reference
-counts its jit traces (``trace_count``); PyTorch runs eagerly and has
-no trace to count, so that property has no counterpart here.
+a device value (no ``.item()``, no Python branch on a device value).
+The reference jits it once and counts its traces; here the tick is a
+``runtime.capture.Step``: built once for each signature (``trace_count``;
+``_compile_count`` the CUDA graphs captured), its first call eager, on
+the card captured then and replayed on every later call.  The budget,
+the ingest mode, ``now`` and the fed wall time are operands filled in
+before each replay, never values frozen into the graph.  The stage
+spans of an enabled tracer (``obs:ingest``, ...) run in Python, so on
+the card they are recorded at the warm-up and at the capture only;
+``stream.dispatch`` marks every step.  ``step_cost`` runs the tick
+eagerly on a copy and counts no trace.
 
 Cross-batch window continuity: the executor carries the trailing
 ``window - stride`` samples between steps, so every step emits exactly
@@ -21,7 +28,9 @@ Cross-batch window continuity: the executor carries the trailing
 the stream with no gap and no double count.
 
 State is updated in place where the reference donated it (the ring's
-storage): a ``StreamState`` handed to ``step`` is consumed.
+storage): a ``StreamState`` handed to ``step`` is consumed.  The rest of
+the returned state, and the outputs, are the caller's: the next step
+never overwrites them.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ from repro_torch.kernels.fused_tick import fused_tick
 from repro_torch.obs import costmodel as OC
 from repro_torch.obs import latency as OL
 from repro_torch.obs.trace import NULL_TRACER, Tracer
+from repro_torch.runtime import capture
 from repro_torch.stream import ingest as I
 from repro_torch.stream import windows as W
 
@@ -212,6 +222,16 @@ def cost_of(executor, tick, *args) -> dict:
     finally:
         for k, v in saved.items():
             setattr(executor, k, v)
+
+
+def _check_ring(store: torch.Tensor, want: tuple) -> None:
+    """A ring of another shape than the executor's raises: the tick is
+    built for its own (a foreign ring of the right shape is copied
+    in)."""
+    if tuple(store.shape[-2:]) != want:
+        raise ValueError(f"ring {tuple(store.shape)} does not match the "
+                         f"executor's [..., {want[0]}, {want[1]}] "
+                         "(capacity + 1, 2 + D)")
 
 
 def _count(mask: torch.Tensor) -> torch.Tensor:
@@ -439,6 +459,21 @@ class StreamExecutor:
         self._skip_feed = False
         self.warmup_excluded = 0
         self._step_num = 0
+        # the compile-once tick: state, histogram and lineage donated
+        self._tick_step = capture.Step(self._tick, device=self.device,
+                                       donate_argnums=(0, 1, 2),
+                                       name="stream tick")
+
+    @property
+    def trace_count(self) -> int:
+        """Tick signatures built so far: 1 after the first step of a
+        fixed feed, one more for each new producer batch shape."""
+        return self._tick_step.trace_count
+
+    def _compile_count(self) -> int:
+        """CUDA graphs of the tick captured (>= trace_count; on the CPU,
+        where nothing is captured, equal to it)."""
+        return self._tick_step.compile_count
 
     # -- state ------------------------------------------------------------
     def init_state(self, feature_dim: int) -> StreamState:
@@ -464,7 +499,8 @@ class StreamExecutor:
     def latency_percentiles(self, qs=(50, 95, 99)) -> dict:
         """Step-latency percentiles from the device histogram (one host
         transfer).  A step's wall time feeds the histogram on the next
-        tick; steps that built a kernel are excluded and counted in
+        tick; steps that built a kernel or a tick signature (the first
+        step, a capture) are excluded and counted in
         ``warmup_excluded``."""
         out = OL.histogram_percentiles(self._lat_hist, qs)
         out["warmup_excluded"] = self.warmup_excluded
@@ -481,10 +517,11 @@ class StreamExecutor:
         once on a copy of ``state`` with the executor's latency
         histogram, lineage bank and step clock restored afterwards, so
         nothing is consumed: the next ``step`` is the one it would have
-        been."""
+        been.  It runs eagerly and builds no tick signature."""
         dev = self.device
         return cost_of(
-            self, self._step, clone_state(state),
+            self, self._tick, clone_state(state), self._lat_hist.clone(),
+            self._lineage.clone(),
             torch.as_tensor(items, device=dev), torch.as_tensor(ts, device=dev),
             _scalar(self._effective_budget(), torch.int32, dev),
             _scalar(0.0, torch.float32, dev), _scalar(0.0, torch.float32, dev),
@@ -496,7 +533,8 @@ class StreamExecutor:
         return self._budget
 
     def set_core_budget(self, budget: int) -> None:
-        """Resize the effective core budget between steps.  The static
+        """Resize the effective core budget between steps: an operand
+        of the tick, so no new signature.  The static
         ``pipeline.core_capacity`` stays the compaction shape (and the
         resize ceiling)."""
         if budget < 0:
@@ -510,10 +548,12 @@ class StreamExecutor:
         return self._budget if cap is None else min(self._budget, cap)
 
     # -- one tick -----------------------------------------------------------
-    def _step(self, state: StreamState, items: torch.Tensor,
-              ts: torch.Tensor, budget: torch.Tensor, last_dt: torch.Tensor,
-              now: torch.Tensor, mode: torch.Tensor
-              ) -> tuple[StreamState, StepOutput]:
+    def _tick(self, state: StreamState, lat_hist: torch.Tensor,
+              lineage: torch.Tensor, items: torch.Tensor, ts: torch.Tensor,
+              budget: torch.Tensor, last_dt: torch.Tensor, now: torch.Tensor,
+              mode: torch.Tensor):
+        """The tick as a function of its operands: (out, state,
+        histogram, lineage bank), the last three the donated ones."""
         ing = ingest_and_window(self.cfg, self.engine, state, items, ts,
                                 mode=mode, now=now, tracer=self.tracer)
         # non-emitted windows (count < min_count) enter the pipeline
@@ -527,10 +567,10 @@ class StreamExecutor:
             metrics = advance_metrics(
                 state.metrics, ing, n_esc, _count(result.stored),
                 _count(result.dropped), overflow)
-            self._lat_hist = OL.histogram_update(self._lat_hist, last_dt)
+            lat_hist = OL.histogram_update(lat_hist, last_dt)
         with self.tracer.span("obs:lineage"):
             w_lat = now - ing.w_birth
-            self._lineage = OL.lineage_update(self._lineage, {
+            lineage = OL.lineage_update(lineage, {
                 "queueing": (ing.q_lat, ing.q_mask),
                 "window": (w_lat, ing.emit),
                 "e2e": (w_lat, ing.emit),
@@ -538,9 +578,16 @@ class StreamExecutor:
         new_state = StreamState(
             rb=ing.rb, carry=ing.carry, carry_valid=ing.carry_valid,
             max_ts=ing.max_ts, metrics=metrics, adm=ing.adm)
-        return new_state, StepOutput(ing.aggregates, ing.features,
-                                     ing.window_count, ing.consequence,
-                                     result.escalated, result.outputs)
+        return StepOutput(ing.aggregates, ing.features, ing.window_count,
+                          ing.consequence, result.escalated,
+                          result.outputs), new_state, lat_hist, lineage
+
+    def _static_key(self) -> tuple:
+        """What the tick's shapes and code depend on besides its
+        operands: the config, the rule table and the compaction shape."""
+        table = self.engine.table()
+        return (id(self.cfg), table if table is not None else id(self.engine),
+                self.pipeline.core_capacity)
 
     # -- public API ---------------------------------------------------------
     def step(self, state: StreamState, items, ts,
@@ -560,26 +607,33 @@ class StreamExecutor:
         ``last_step_seconds`` records the host wall time of the call --
         the enqueue time unless the caller synchronizes.  The previous
         step's wall time feeds the device latency histogram, except
-        after a step that built a kernel (``warmup_excluded``)."""
+        after a step that built a kernel or a tick signature
+        (``warmup_excluded``).  A ring other than ``[capacity + 1,
+        2 + D]`` raises."""
         self._step_num += 1
         feed = 0.0 if self._skip_feed else self.last_step_seconds
         if self._skip_feed and self.last_step_seconds > 0.0:
             self.warmup_excluded += 1
-        builds_before = build.builds
+        builds_before, compiles_before = build.builds, self._compile_count()
         dev = self.device
         items = torch.as_tensor(items, device=dev)
         ts = torch.as_tensor(ts, device=dev)
+        _check_ring(state.rb.store, (self.cfg.capacity + 1,
+                                     META_COLS + items.shape[-1]))
         t0 = time.perf_counter()
         with self.tracer.step_annotation("stream_step", self._step_num), \
                 self.tracer.span("stream.dispatch", step=self._step_num):
-            state, out = self._step(
-                state, items, ts,
-                _scalar(self._effective_budget(), torch.int32, dev),
-                _scalar(feed, torch.float32, dev),
-                _scalar(time.perf_counter() - self._t0, torch.float32, dev),
-                _scalar(mode, torch.int32, dev))
+            out, state, self._lat_hist, self._lineage = self._tick_step(
+                state, self._lat_hist, self._lineage, items, ts,
+                capture.Scalar(self._effective_budget(), torch.int32),
+                capture.Scalar(feed, torch.float32),
+                capture.Scalar(time.perf_counter() - self._t0,
+                               torch.float32),
+                capture.Scalar(mode, torch.int32),
+                static_key=self._static_key())
         self.last_step_seconds = time.perf_counter() - t0
-        self._skip_feed = build.builds > builds_before
+        self._skip_feed = build.builds > builds_before \
+            or self._compile_count() > compiles_before
         return state, out
 
     def run(self, state: StreamState, producer: Iterable
@@ -589,8 +643,10 @@ class StreamExecutor:
 
         With ``cfg.overlap_ingest`` the host stages batch N+1
         (``runtime.overlap.IngestStager``, optionally int8) while the
-        device computes batch N.  Without int8 the outputs are bitwise
-        those of the direct loop, and each batch keeps its mode."""
+        device computes batch N; ``step`` copies the staged batch into
+        the tick's static items buffer on the compute stream.  Without
+        int8 the outputs are bitwise those of the direct loop, and each
+        batch keeps its mode."""
         outs = []
         if not self.cfg.overlap_ingest:
             for items, ts, *m in producer:

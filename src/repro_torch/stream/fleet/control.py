@@ -20,10 +20,11 @@ device:
   the device.
 * :meth:`~FleetController.remesh` takes a shard count where the
   reference takes a device list (``FleetExecutor.remesh``).
-* :attr:`~FleetController.max_trace_count` is host counting alone,
-  ``1 + retraces + remeshes``: the bound a capture counter will be held
-  to once the tick is captured as a CUDA graph.  PyTorch runs the tick
-  eagerly, so the executor has no trace count to hold to it yet.
+* :attr:`~FleetController.max_trace_count` is ``1 + retraces +
+  remeshes``, host counting as in the reference, and it bounds the
+  executor's own ``trace_count`` (the tick signatures its compile-once
+  step built): ``trace_count <= max_trace_count``, and before any
+  remesh ``max_trace_count <= 1 + resizes``.
 
 The paper's edge tier is Raspberry-Pi-class hardware that slows down,
 stalls, and churns; the data plane alone assumes a healthy fleet (a
@@ -50,8 +51,9 @@ data path's *shapes*:
   ``FleetMetrics``) feed an ``runtime.elastic.ElasticBudget`` policy;
   sustained pressure grows the budget, idle ticks shrink it.  The
   budget is an operand of the tick, so resizes within the slot ceiling
-  change no shape; growing past the ceiling grows the core batch once
-  (the reference re-traces there: ``trace_count <= 1 + resizes``).
+  change no shape; growing past the ceiling grows the core batch once,
+  and the executor builds the tick anew for it: ``trace_count <= 1 +
+  resizes``.
 * **Straggler-aware watermark** — per-shard step wall-times and
   per-shard max event times feed two ``runtime.straggler``
   detectors (wall-clock slowness; event-time lag behind the fleet
@@ -635,11 +637,11 @@ class FleetController:
 
     @property
     def max_trace_count(self) -> int:
-        """Upper bound a trace (capture) count of the tick must respect:
+        """Upper bound the executor's ``trace_count`` respects:
         ``1 + (#resizes that grew the slot ceiling) + (#re-meshes)``.
-        Membership flips (leave/join within the mesh width) are
-        operands and contribute nothing.  Host counting only: the port's
-        executors run the tick eagerly and count no traces."""
+        Membership flips (leave/join within the mesh width), health
+        masks and budgets within the ceilings are operands of the
+        compile-once tick and contribute nothing."""
         return 1 + self._retraces + self.executor.remeshes
 
 

@@ -34,8 +34,17 @@ ring keeps draining on its own rows); ``remesh`` changes the width and
 migrates the state (a departed shard's unconsumed ring rows come back
 to the host).  Backup replay rides the per-shard ``mode`` operand.
 
-Left out: the reference's trace counts (PyTorch runs eagerly; see the
-stream executor).
+The tick compiles once, as the reference's does: it is a
+``runtime.capture.Step`` (``trace_count``, ``_compile_count``), eager at
+its first call and on the card captured then as a CUDA graph and
+replayed.  The masks, the modes, both budgets, ``now`` and the fed wall
+time are operands copied into static buffers before each replay.  A new
+signature comes only from a ``remesh`` (which drops the old graphs), a
+budget grown past its slot ceiling, or a new producer batch shape: the
+bound ``FleetController.max_trace_count`` holds the count to.  An
+enabled tracer's stage spans run in Python, so on the card they come
+from the warm-up and the capture only; ``fleet.dispatch`` marks every
+tick.
 """
 from __future__ import annotations
 
@@ -54,11 +63,11 @@ from repro_torch.data.ringbuffer import RingBuffer
 from repro_torch.kernels import build
 from repro_torch.obs import latency as OL
 from repro_torch.obs.trace import NULL_TRACER
-from repro_torch.runtime import elastic
+from repro_torch.runtime import capture, elastic
 from repro_torch.stream import ingest as SI
 from repro_torch.stream.executor import (META_COLS, StepOutput, StreamConfig,
                                          StreamExecutor, StreamMetrics,
-                                         StreamState, _scalar,
+                                         StreamState, _check_ring, _scalar,
                                          advance_metrics, clone_state,
                                          cost_of, ingest_and_window)
 from repro_torch.stream.fleet import federation as F
@@ -302,6 +311,22 @@ class FleetExecutor:
         # True: step() synchronizes before its clock stops, so
         # last_step_seconds measures the device's work too
         self.measure_steps = True
+        # the compile-once tick: state, histogram and lineage donated
+        self._tick_step = capture.Step(self._tick, device=self.device,
+                                       donate_argnums=(0, 1, 2),
+                                       name="fleet tick")
+
+    @property
+    def trace_count(self) -> int:
+        """Fleet-tick signatures built so far: 1 after the first tick,
+        one more after each remesh or slot-ceiling growth that a tick
+        followed, or a new producer batch shape."""
+        return self._tick_step.trace_count
+
+    def _compile_count(self) -> int:
+        """CUDA graphs of the fleet tick captured (>= trace_count; on
+        the CPU equal to it)."""
+        return self._tick_step.compile_count
 
     # -- control-plane knobs (host-side, between ticks) --------------------
     @property
@@ -315,12 +340,16 @@ class FleetExecutor:
         return self._slots
 
     def set_core_budget(self, budget: int) -> None:
-        """Resize the fleet core budget between ticks; growing past the
-        slot ceiling grows the core batch from the next tick on."""
+        """Resize the fleet core budget between ticks (an operand);
+        growing past the slot ceiling grows the core batch from the next
+        tick on, whose tick builds a new signature (the old graphs are
+        dropped)."""
         budget = int(budget)
         if budget < 0:
             raise ValueError(f"core_budget must be >= 0, got {budget}")
-        self._slots = max(self._slots, budget)
+        if budget > self._slots:
+            self._slots = budget
+            self._tick_step.clear()
         self._budget = budget
 
     @property
@@ -342,7 +371,9 @@ class FleetExecutor:
             (self.cfg.num_regions,)).copy()
         if (budgets < 0).any():
             raise ValueError(f"fog budgets must be >= 0, got {budgets}")
-        self._fog_slots = max(self._fog_slots, int(budgets.max()))
+        if int(budgets.max()) > self._fog_slots:
+            self._fog_slots = int(budgets.max())
+            self._tick_step.clear()
         self._region_budget = budgets
 
     def set_health(self, healthy) -> None:
@@ -391,8 +422,8 @@ class FleetExecutor:
     def latency_percentiles(self, qs=(50, 95, 99)) -> dict:
         """Fleet-tick latency percentiles from the device histogram (one
         host transfer).  A tick's wall time feeds the histogram on the
-        next tick; ticks that built a kernel are excluded and counted
-        in ``warmup_excluded``."""
+        next tick; ticks that built a kernel or a tick signature are
+        excluded and counted in ``warmup_excluded``."""
         out = OL.histogram_percentiles(self._lat_hist, qs)
         out["warmup_excluded"] = self.warmup_excluded
         return out
@@ -428,19 +459,14 @@ class FleetExecutor:
         per-stage breakdown (exchange, core compute, commit, ...) and
         what each hand kernel reported.  Every shard offers its whole
         batch as live traffic under the current masks and budgets.  The
-        tick runs once on a copy of ``state`` with the executor's latency
-        histogram, lineage banks and step clock restored afterwards, so
-        nothing is consumed: the next ``step`` is the one it would have
-        been."""
+        tick runs eagerly, once, on a copy of ``state``, the histogram and
+        the lineage banks, and builds no tick signature: nothing is
+        consumed, the next ``step`` is the one it would have been."""
         dev, s = self.device, self.cfg.num_shards
         items = torch.as_tensor(items, device=dev)
-
-        def tick(*args):
-            self._fleet_step(*args)
-            self._lat_hist = OL.histogram_update(
-                self._lat_hist, _scalar(0.0, torch.float32, dev))
         return cost_of(
-            self, tick, clone_state(state), items,
+            self, self._tick, clone_state(state), self._lat_hist.clone(),
+            self._lineage.clone(), items,
             torch.as_tensor(ts, device=dev),
             torch.ones(items.shape[:2], dtype=torch.bool, device=dev),
             torch.zeros((s,), dtype=torch.int32, device=dev),
@@ -448,6 +474,7 @@ class FleetExecutor:
             torch.as_tensor(self._active, device=dev),
             _scalar(self._budget, torch.int32, dev),
             torch.as_tensor(self._region_budget, device=dev),
+            _scalar(0.0, torch.float32, dev),
             _scalar(0.0, torch.float32, dev))
 
     # -- state ------------------------------------------------------------
@@ -483,12 +510,36 @@ class FleetExecutor:
                                         device=dev))
 
     # -- one fleet tick ---------------------------------------------------
-    def _fleet_step(self, state: FleetState, items: torch.Tensor,
-                    ts: torch.Tensor, offered: torch.Tensor,
-                    mode: torch.Tensor, healthy: torch.Tensor,
-                    active: torch.Tensor, budget: torch.Tensor,
-                    region_budget: torch.Tensor, now: torch.Tensor
-                    ) -> tuple[FleetState, StepOutput]:
+    def _tick(self, state: FleetState, lat_hist: torch.Tensor,
+              lineage: torch.Tensor, items: torch.Tensor, ts: torch.Tensor,
+              offered: torch.Tensor, mode: torch.Tensor,
+              healthy: torch.Tensor, active: torch.Tensor,
+              budget: torch.Tensor, region_budget: torch.Tensor,
+              now: torch.Tensor, last_dt: torch.Tensor):
+        """The fleet tick as a function of its operands: (out, state,
+        histogram, lineage banks), the last three the donated ones; the
+        histogram takes the previous tick's wall time after the tick."""
+        new_state, out, lineage = self._fleet_step(
+            state, lineage, items, ts, offered, mode, healthy, active,
+            budget, region_budget, now)
+        lat_hist = OL.histogram_update(lat_hist, last_dt)
+        return out, new_state, lat_hist, lineage
+
+    def _static_key(self) -> tuple:
+        """What the tick's shapes and code depend on besides its
+        operands: the config (a remesh replaces it), both slot ceilings,
+        the rule table."""
+        table = self.engine.table()
+        return (id(self.cfg), self._slots, self._fog_slots,
+                table if table is not None else id(self.engine))
+
+    def _fleet_step(self, state: FleetState, lineage: torch.Tensor,
+                    items: torch.Tensor, ts: torch.Tensor,
+                    offered: torch.Tensor, mode: torch.Tensor,
+                    healthy: torch.Tensor, active: torch.Tensor,
+                    budget: torch.Tensor, region_budget: torch.Tensor,
+                    now: torch.Tensor
+                    ) -> tuple[FleetState, StepOutput, torch.Tensor]:
         cfg, tr = self.cfg, self.tracer
         rr, ee, s = cfg.num_regions, cfg.edges_per_region, cfg.num_shards
         sh = state.shard
@@ -558,7 +609,7 @@ class FleetExecutor:
         with tr.span("obs:lineage"):
             w_lat = now - w_birth
             emit = _stack(ings, "emit")
-            self._lineage = OL.lineage_update(self._lineage, {
+            lineage = OL.lineage_update(lineage, {
                 "queueing": (_stack(ings, "q_lat"), _stack(ings, "q_mask")),
                 "window": (w_lat, emit),
                 "hop1": (now - taps.hop1_birth, taps.hop1_mask),
@@ -608,7 +659,7 @@ class FleetExecutor:
             _stack(ings, "aggregates"), _stack(ings, "features"),
             _stack(ings, "window_count"), stacked.consequence, core_live,
             result.outputs.reshape((s, n) + result.outputs.shape[1:]))
-        return new_state, out
+        return new_state, out, lineage
 
     # -- public API ---------------------------------------------------------
     def step(self, state: FleetState, items, ts, offered=None,
@@ -655,35 +706,41 @@ class FleetExecutor:
         offered = torch.ones(items.shape[:2], dtype=torch.bool, device=dev) \
             if offered is None else torch.as_tensor(offered, device=dev) \
             .to(torch.bool)
+        _check_ring(state.shard.rb.store, (cfg.stream.capacity + 1,
+                                           META_COLS + items.shape[-1]))
         self._step_num += 1
         feed = 0.0 if self._skip_feed else self.last_step_seconds
         if self._skip_feed and self.last_step_seconds > 0.0:
             self.warmup_excluded += 1
-        builds_before = build.builds
+        builds_before, compiles_before = build.builds, self._compile_count()
         t0 = time.perf_counter()
         with self.tracer.step_annotation("fleet_tick", self._step_num):
             with self.tracer.span("fleet.dispatch", step=self._step_num):
-                out = self._fleet_step(
-                    state, items, ts, offered,
+                # the masks and budgets are small cached constants
+                # (device_constant), copied into the tick's static
+                # buffers before a replay
+                out, state, self._lat_hist, self._lineage = self._tick_step(
+                    state, self._lat_hist, self._lineage, items, ts, offered,
                     device_constant(tuple(mode.tolist()), torch.int32, dev),
                     device_constant(tuple(self._healthy.tolist()),
                                     torch.bool, dev),
                     device_constant(tuple(self._active.tolist()),
                                     torch.bool, dev),
-                    _scalar(self._budget, torch.int32, dev),
+                    capture.Scalar(self._budget, torch.int32),
                     device_constant(tuple(self._region_budget.tolist()),
                                     torch.int32, dev),
-                    _scalar(time.perf_counter() - self._t0, torch.float32,
-                            dev))
-                self._lat_hist = OL.histogram_update(
-                    self._lat_hist, _scalar(feed, torch.float32, dev))
+                    capture.Scalar(time.perf_counter() - self._t0,
+                                   torch.float32),
+                    capture.Scalar(feed, torch.float32),
+                    static_key=self._static_key())
             if self.measure_steps and dev.type == "cuda":
                 with self.tracer.span("fleet.device_execute",
                                       step=self._step_num):
                     torch.cuda.synchronize(dev)
         self.last_step_seconds = time.perf_counter() - t0
-        self._skip_feed = build.builds > builds_before
-        return out
+        self._skip_feed = build.builds > builds_before \
+            or self._compile_count() > compiles_before
+        return state, out
 
     # -- a change of width ------------------------------------------------
     def remesh(self, state: FleetState, num_shards: int, *,
@@ -810,4 +867,5 @@ class FleetExecutor:
             [lin[k] if k is not None else torch.zeros_like(lin[0])
              for k in keep])
         self._remeshes += 1
+        self._tick_step.clear()         # the next tick builds anew
         return new_state, departed

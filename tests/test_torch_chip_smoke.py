@@ -340,6 +340,19 @@ def test_timed_counts_only_the_loop_range(smoke, monkeypatch, tmp_path):
         smoke._device_events(Prof(trace[:1]), "t", after=smoke.TIMED_RANGE)
 
 
+def test_timed_takes_a_short_capture_once_more(smoke, monkeypatch, capsys):
+    """A capture that traced fewer of the loop's kernels than calls is
+    taken once more, and a second short one fails."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    got = iter([0, (1.0, 2.0)])
+    monkeypatch.setattr(smoke, "_timed_once", lambda *a: next(got))
+    assert smoke._timed(lambda: None, 5, "t", kernel="k") == (1.0, 2.0)
+    assert "0 k* kernels traced" in capsys.readouterr().out
+    monkeypatch.setattr(smoke, "_timed_once", lambda *a: 3)
+    with pytest.raises(RuntimeError, match="3 k\\* kernels traced"):
+        smoke._timed(lambda: None, 5, "t", kernel="k")
+
+
 # -- phase 7: the fleet -------------------------------------------------------
 
 def _fleet_sizes(smoke):
@@ -670,12 +683,13 @@ def test_main_prints_the_kernels_line_then_the_result_line(smoke,
                                                            monkeypatch,
                                                            capsys):
     """The line before the last is the kernels object and the last the
-    contract's ``{"ok": true, "device": {...}}``, phase 9 the last phase
-    of ``run``."""
+    contract's ``{"ok": true, "device": {...}}``, phase 10 the last phase
+    of ``run``, after phase 9 and its memory are freed."""
     import inspect
     src = inspect.getsource(smoke.run).rstrip().splitlines()
-    assert src[-2].strip() == \
-        "run_train_phase(TRAIN_FULL, TRAIN_SMALL, device)"
+    assert [x.strip() for x in src[-4:-1]] == [
+        "run_train_phase(TRAIN_FULL, TRAIN_SMALL, device)", "_free()",
+        "run_graph_phase(sz, serve_sz, FLEET, device)"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "card")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
@@ -688,3 +702,70 @@ def test_main_prints_the_kernels_line_then_the_result_line(smoke,
     assert json.loads(lines[-2]) == {"kernels": [row]}
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "card", "count": 1}}
+
+
+def _graph_rehearsal(smoke, monkeypatch):
+    """Phase 10's sizes cut for the CPU, its card-only pieces stubbed:
+    the profiler gives fixed numbers, the card line a fixed string."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(smoke, "_card_line", lambda: "card, 700.00 W")
+
+    def profile(tag, steps, unit, fn, kernel=None):
+        for i in range(steps):
+            fn(i)
+        return dict(busy_share=0.5, ops=10.0, busy_ms=1.0)
+    monkeypatch.setattr(smoke, "_profile", profile)
+    monkeypatch.setattr(smoke, "GRAPH_TICKS", 3)
+    monkeypatch.setattr(smoke, "GRAPH_SERVE_STEPS", 4)
+    sz, fz, _, _ = _fleet_sizes(smoke)
+    return sz, fz._replace(ticks=14), _serve_sizes(smoke, monkeypatch,
+                                                   prompt_len=12, tokens=2)
+
+
+def test_graph_phase_runs_and_checks_itself(smoke, monkeypatch, capsys):
+    """Phase 10 on the CPU at a tiny size: each stream path, Yi-6B's
+    smoke decode step and the fleet built once and run against
+    ``capture.disable()``; every comparison runs and holds, the
+    signature and graph counts are the card's (one each, two after the
+    fleet's remesh), and each path prints its eager and graphed line."""
+    sz, fz, serve_sz = _graph_rehearsal(smoke, monkeypatch)
+    seen = []
+
+    def bitwise(a, b, what):
+        assert_bitwise(a, b, what)
+        seen.append(what)
+    st = smoke.graph_stream(sz, "cpu", bitwise)
+    for name in ("staged", "fused"):
+        g = st[name]["graphed"]
+        assert (g["trace"], g["compiles"]) == (1, 1)
+        assert len(g["secs"]) == smoke.GRAPH_TICKS + 5
+    assert "graphed vs eager fused tick 7 leaf 5" in seen
+    sv = smoke.graph_serve(serve_sz, "cpu", bitwise)
+    assert sv["graphed"]["aot"] == 1 == sv["graphed"]["step"].trace_count
+    assert "graphed vs eager decode step 3 logits" in seen
+    fl = smoke.graph_fleet(sz, fz, "cpu", bitwise)
+    assert fl["graphed"]["remesh"] == (2, 2)
+    assert "graphed vs eager fleet tick 13 leaf 0" in seen
+    smoke.run_graph_phase(sz, serve_sz, fz, "cpu")
+    out = capsys.readouterr().out
+    for tag in ("staged tick", "fused tick", "serve decode step",
+                "fleet tick"):
+        line = next(x for x in out.splitlines()
+                    if x.startswith(f"phase 10 {tag}: eager"))
+        assert "graphed p50" in line and line.endswith("card, 700.00 W")
+
+
+def test_graph_phase_fails_when_graphed_and_eager_differ(smoke, monkeypatch):
+    """A tick that differs between the graphed and the eager run fails
+    phase 10, naming the path and the tick."""
+    sz, _, _ = _graph_rehearsal(smoke, monkeypatch)
+    from repro_torch.runtime import capture
+    real = capture.Step._replay
+
+    def off(self, e, leaves):
+        out = real(self, e, leaves)
+        out[0].aggregates.add_(1.0)
+        return out
+    monkeypatch.setattr(capture.Step, "_replay", off)
+    with pytest.raises(AssertionError, match="graphed vs eager staged tick 1"):
+        smoke.graph_stream(sz, "cpu", assert_bitwise)

@@ -22,8 +22,10 @@ and drift in the event log.
 Held per tick: every ``ControlDecision`` field and every ``FleetState``
 leaf bitwise, ``metrics.as_dict()`` equal, core outputs within 1e-6; at
 the end the event log less its ``wall_time`` stamps, ``resizes``,
-``_retraces``, ``max_trace_count`` and the lineage banks.  No trace
-count is compared: the port runs the tick eagerly.
+``_retraces``, ``max_trace_count`` and the lineage banks.  The port's
+executor's own ``trace_count`` is held to ``max_trace_count`` (the JAX
+executor's is not compared: under this jax its subprocess fleet counts
+a second trace the reference's tests do not expect).
 """
 import json
 import os
@@ -426,13 +428,30 @@ def _make(stream, fleet, spec, tiers="scale"):
         tpipe.two_tier_pipeline(edge, core, engine), device="cpu")
 
 
+#: the port's executors and controllers of the arc being run: each
+#: executor's ``trace_count`` is held to its controller's bound
+_BUILT: list = []
+
+
+def _make_kept(stream, fleet, spec, tiers="scale"):
+    ex = _make(stream, fleet, spec, tiers)
+    _BUILT.append(ex)
+    return ex
+
+
+class _Controller(FleetController):
+    def __post_init__(self):
+        super().__post_init__()
+        _BUILT.append(self)
+
+
 #: the port's side of the arcs, on the CPU
 PORT = type("Port", (), dict(
-    FleetController=FleetController, ElasticBudget=ElasticBudget,
+    FleetController=_Controller, ElasticBudget=ElasticBudget,
     StragglerDetector=StragglerDetector, EventLog=EventLog, SLO=SLO,
     Fault=Fault, Churn=Churn, FaultSchedule=FaultSchedule,
     FaultInjector=FaultInjector, AdmissionPlan=AdmissionPlan,
-    DataContract=DataContract, make=staticmethod(_make),
+    DataContract=DataContract, make=staticmethod(_make_kept),
     step=staticmethod(lambda ex, st, items, ts, **kw:
                       ex.step(st, items, ts, **kw)),
     remesh=staticmethod(lambda ctl, st, n, **kw: ctl.remesh(st, n, **kw)),
@@ -472,7 +491,12 @@ def _json(a) -> object:
 @pytest.mark.parametrize("arc", list(_NS["ARCS"]))
 def test_control_arc_matches_the_jax_controller(ref, clock, arc):
     got = {}
+    _BUILT.clear()
     _NS["ARCS"][arc](PORT, got)
+    ex, ctl = (next(x for x in _BUILT if isinstance(x, cls))
+               for cls in (FleetExecutor, FleetController))
+    assert 1 <= ex.trace_count <= ctl.max_trace_count, \
+        (ex.trace_count, ctl.max_trace_count)
     keys = sorted(k for k in ref if k.startswith(arc + "/"))
     assert keys and keys == sorted(k for k in got
                                    if k.startswith(arc + "/"))
@@ -679,7 +703,9 @@ def test_control_tick_reads_the_device_once(clock, monkeypatch):
 
 def test_max_trace_count_is_host_counting(clock):
     """``max_trace_count`` is ``1 + retraces + remeshes`` from host
-    counters alone; a resize past the slot ceiling counts one retrace."""
+    counters; a resize past the slot ceiling counts one retrace, and the
+    executor's own ``trace_count`` meets the bound once a tick has
+    followed each retrace and the remesh."""
     ex = _make(_NS["TUMBLING"], dict(num_shards=4, num_core=1,
                                      core_budget=2, core_budget_max=2),
                [("always", 0, ">=", -1e9, "C_SEND_CORE", 0)])
@@ -691,6 +717,11 @@ def test_max_trace_count_is_host_counting(clock):
         st, _ = ex.step(st, *_NS["feed_tick"](rng, 4, t))
         dec = ctl.tick(st, step_times=np.full(4, 0.1))
     assert dec.retraced and ctl._retraces >= 1 and ex.core_slots > 2
+    st, _ = ex.step(st, *_NS["feed_tick"](rng, 4, 2))
+    # every retrace was followed by a tick: the bound is met exactly
+    assert ex.trace_count == 1 + ctl._retraces == ctl.max_trace_count
     st, _ = ctl.remesh(st, 2)
     assert ctl.max_trace_count == 1 + ctl._retraces + 1
     assert ex.cfg.num_shards == 2
+    st, _ = ex.step(st, *_NS["feed_tick"](rng, 2, 3))
+    assert ex.trace_count == ctl.max_trace_count

@@ -283,15 +283,32 @@ def test_bench_payload_and_snapshot_keys_are_the_reference(tmp_path, rng):
     for s in ("", "a=1;b=2.5;c=x;d", "r=2..64"):
         assert TO.parse_derived(s) == JO.parse_derived(s)
 
+    import jax.numpy as jnp
+    from repro.core import pipeline as jpipe
+    from repro.core import rules as jrules
+    from repro.stream import executor as JX
     ex, state = _stream_executor()
+    engine = jrules.RuleEngine([
+        jrules.threshold_rule("hot", 0, ">=", 0.5, jrules.C_SEND_CORE)])
+    edge_fn = lambda p, b: (b, b[:, :5])  # noqa: E731
+    jx = JX.StreamExecutor(
+        JX.StreamConfig(micro_batch=32, window=16, stride=16, capacity=128),
+        engine, jpipe.two_tier_pipeline(edge_fn, edge_fn, engine))
+    js = jx.init_state(D)
     tr = TO.Tracer()
     ex.set_tracer(tr)
     for i in range(3):
         items = rng.standard_normal((32, D)).astype(np.float32)
-        state, _ = ex.step(state, items, i * 32 + np.arange(32.0))
+        ts = i * 32 + np.arange(32.0)
+        state, _ = ex.step(state, items, ts)
+        js, _ = jx.step(js, jnp.asarray(items), jnp.asarray(ts, jnp.float32))
     snap = TO.metrics_snapshot(ex, state)
     assert tuple(snap) == export.SNAPSHOT_KEYS == JOX.SNAPSHOT_KEYS
-    assert snap["kind"] == "StreamExecutor" and snap["trace_count"] is None
+    # the tick built once, as the reference traced once on the same feed
+    assert snap["kind"] == "StreamExecutor"
+    assert snap["trace_count"] == 1 == JO.metrics_snapshot(
+        jx, js)["trace_count"]
+    assert isinstance(snap["trace_count"], int)
     assert snap["metrics"]["steps"] == 3
     assert snap["stages"]["stream.dispatch"]["count"] == 3
     json.dumps(snap)
