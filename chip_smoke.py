@@ -154,7 +154,30 @@ launch counts include the replays' and the warm-up's:
    both budgets cut after the capture, bitwise, then a remesh to 6
    shards and ``trace_count`` 2.  It prints each path's p50/p99 and
    device busy share, eager and graphed, its graph's memory pool, and
-   the card's name and power limit.
+   the card's name and power limit;
+11. ``launch/`` and the examples: the host mesh (``make_host_mesh()``,
+   one NCCL rank, printed with its backend); Yi-6B at full width and
+   depth (phase 3's config and seed-0 weights, bf16 compute), 16
+   requests, 32 steps through ``launch/serve`` on the mesh (weights
+   placed by ``param_shardings``) and 32 without, the ids, the final
+   logits and caches bitwise, every step's logits bitwise when both
+   resolved steps replay the run, 32 decode_attn launches a step and
+   none generic, ``aot_cached`` 1 with the mesh in the key; Yi-6B's
+   smoke config in float32, 3 train steps with the mesh and
+   ``sequence_shard`` against 3 without, bitwise (deterministic
+   algorithms on); the five ``examples/*_torch.py`` through
+   ``main(device="cuda")`` against ``main(device="cpu")`` (run in a
+   second process at the same time; the model examples from the same
+   CPU-drawn weights), every result number equal, the
+   disaster-recovery scores and federated losses within 1e-5 relative
+   with the configs in float32 and 4 bf16 ulps as shipped, a threshold
+   decision differing only within that of the threshold, the kernels
+   each example reaches launched (their counts join the kernels line as
+   ``example_launches``, the mesh run's decode_attn count as
+   ``mesh_launches``); and the dry run's probe sweep (``python -m
+   repro_torch.launch.dryrun --arch all --shape all --probe``, on
+   ``meta``, host only, in a third process): every applicable cell OK
+   and every other SKIP, one line a cell, its seconds.
 
 The line before the last is a JSON object of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -1529,6 +1552,8 @@ def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
     run_train_phase(TRAIN_FULL, TRAIN_SMALL, device)
     _free()
     run_graph_phase(sz, serve_sz, FLEET, device)
+    _free()
+    run_launch_phase(MESH_SERVE, device, kernels["kernels"])
     return kernels
 
 
@@ -3115,6 +3140,402 @@ def run_graph_phase(sz: Sizes, serve_sz: ServeSizes, fz: FleetSizes,
     del fl, g
     _free()
     print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+
+
+# ---- phase 11: launch/ on the card and the five examples -----------------
+
+#: Yi-6B at full width and depth through the host mesh: 24 prompt ids
+#: teacher-forced and 8 generated, 32 decode steps
+MESH_SERVE = ServeSizes(requests=16, prompt_len=24, tokens=8)
+#: each example (``examples/<name>.py``) and the kernels it reaches on
+#: the card; the disaster-recovery example's models run the
+#: full-sequence forward, which no hand kernel serves
+EXAMPLES = {"quickstart_torch": ("armatch", "hilbert"),
+            "edge_stream_analytics_torch": ("window_reduce",),
+            "fleet_stream_analytics_torch": ("window_reduce",),
+            "disaster_recovery_torch": (),
+            "federated_stream_train_torch": ("armatch", "hilbert")}
+#: the model examples, also run with their configs computing in float32,
+#: and the seeds of their models' weights
+MODEL_EXAMPLES = {"disaster_recovery_torch": (0, 1),
+                  "federated_stream_train_torch": (0,)}
+#: their scores and losses, card against CPU, relative: float32; and
+#: bfloat16 as shipped, 4 ulps (cuBLAS and the CPU round bfloat16
+#: products at different points)
+EXAMPLE_REL = {"float32": 1e-5, "bfloat16": 4 * 2.0 ** -8}
+DR_THRESHOLD = 3.19
+
+
+def _example(name: str):
+    import importlib
+    path = str(ROOT / "examples")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(name)
+
+
+def _float32_configs(mod) -> dict:
+    """The model example's config globals in float32 compute (the
+    globals to restore are returned)."""
+    import dataclasses
+    old = {k: getattr(mod, k) for k in ("cfg", "edge_cfg", "core_cfg")
+           if hasattr(mod, k)}
+    for k, cfg in old.items():
+        setattr(mod, k, dataclasses.replace(cfg, compute_dtype=torch.float32))
+    return old
+
+
+def _cpu_weights(mod) -> tuple:
+    """The model example's weights, drawn by the port's init on the CPU
+    (a card's generator draws other numbers from the same seed) and laid
+    out as the reference's tree, one a model."""
+    from repro_torch import convert, optim
+    from repro_torch.models import transformer as T
+    cfgs = [mod.edge_cfg, mod.core_cfg] if hasattr(mod, "edge_cfg") \
+        else [mod.cfg]
+    trees = []
+    for cfg, seed in zip(cfgs, MODEL_EXAMPLES[mod.__name__]):
+        model = T.init_params(cfg, seed=seed, device="cpu", trainable=True)
+        trees.append(convert.train_state_tree(
+            cfg, model, optim.init(model, optim.AdamWConfig()))[0])
+    return tuple(trees)
+
+
+def run_examples(device) -> dict:
+    """Each example's ``main(device=...)``, its printing kept out of this
+    script's output, then the model examples once more in float32:
+    ``{(name, compute): (result, launches)}``.  The model examples take
+    the same CPU-drawn weights on every device."""
+    import contextlib
+    import io
+    out = {}
+    runs = [(n, "bfloat16") for n in EXAMPLES] + \
+        [(n, "float32") for n in MODEL_EXAMPLES]
+    for name, compute in runs:
+        mod = _example(name)
+        old = _float32_configs(mod) if compute == "float32" else {}
+        try:
+            kw = {}
+            if name in MODEL_EXAMPLES:
+                w = _cpu_weights(mod)
+                kw["params"] = w if len(w) > 1 else w[0]
+            zero_launches()
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = mod.main(device=device, **kw)
+            out[(name, compute)] = (res, read_launches())
+        finally:
+            for k, v in old.items():
+                setattr(mod, k, v)
+    return out
+
+
+def examples_on_cpu(path: str) -> None:
+    """:func:`run_examples` on the CPU, pickled to ``path`` (phase 11
+    runs it in a second process, beside the card's runs)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.save(run_examples("cpu"), path)
+
+
+def _rel_err(x, ref) -> float:
+    """The largest ``|x - ref| / |ref|``: 0 where both are 0, infinite
+    where only ``ref`` is, and infinite for a NaN on either side."""
+    x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+    d = np.abs(x - ref)
+    err = np.max(np.divide(d, np.abs(ref), out=np.where(d == 0, 0.0, np.inf),
+                           where=ref != 0), initial=0.0)
+    return np.inf if np.isnan(err) else float(err)
+
+
+def _compare_examples(card: dict, cpu: dict) -> list:
+    """Card against CPU: every result number equal; the model examples'
+    scores and losses within :data:`EXAMPLE_REL`, a threshold decision
+    differing only where its score lies within that of the threshold.
+    Returns one line a run."""
+    lines = []
+    for key, (res, launches) in card.items():
+        name, compute = key
+        ref = cpu[key][0]
+        rel = EXAMPLE_REL[compute]
+        note = ""
+        if name == "disaster_recovery_torch":
+            f, rf = res["features"], ref["features"]
+            err = _rel_err(f, rf)
+            if err > rel:
+                _fail(f"{name} ({compute}): features off the CPU by {err:.3e}"
+                      f" relative (tolerance {rel})")
+            near = np.abs(rf[:, 0] - DR_THRESHOLD) <= rel * np.abs(rf[:, 0])
+            flip = np.asarray(res["decisions"]) != np.asarray(ref["decisions"])
+            if (flip & ~near).any() or res["dropped"] != ref["dropped"] or \
+                    abs(res["escalated"] - ref["escalated"]) > flip.sum():
+                _fail(f"{name} ({compute}): decisions differ away from the "
+                      f"threshold: card {res['escalated']}/{res['stored']}/"
+                      f"{res['dropped']}, CPU {ref['escalated']}/"
+                      f"{ref['stored']}/{ref['dropped']}")
+            note = (f"escalated/stored/dropped {res['escalated']}/"
+                    f"{res['stored']}/{res['dropped']} (CPU "
+                    f"{ref['escalated']}/{ref['stored']}/{ref['dropped']}), "
+                    f"scores within {err:.3e} relative, {int(flip.sum())} "
+                    f"decision(s) differ, all within {rel:g} of the "
+                    f"threshold ({int(near.sum())} frame(s) there)")
+        elif name == "federated_stream_train_torch":
+            l, rl = np.asarray(res["losses"]), np.asarray(ref["losses"])
+            err = _rel_err(l, rl) if len(l) == len(rl) else np.inf
+            if (res["admitted"], res["rejected"], len(l)) != \
+                    (ref["admitted"], ref["rejected"], len(rl)) or err > rel:
+                _fail(f"{name} ({compute}): admitted {res['admitted']}, "
+                      f"rejected {res['rejected']}, {len(l)} steps, losses "
+                      f"{err:.3e} relative; CPU {ref['admitted']}, "
+                      f"{ref['rejected']}, {len(rl)}")
+            np.testing.assert_array_equal(res["ranks"], ref["ranks"])
+            note = (f"admitted {res['admitted']}, rejected "
+                    f"{res['rejected']}, {len(l)} steps, loss {l[0]:.3f} -> "
+                    f"{l[-1]:.3f}, losses within {err:.3e} relative")
+        else:
+            if res != ref:
+                _fail(f"{name}: card {res} != CPU {ref}")
+            if name == "quickstart_torch":
+                note = f"query hits {res['query_hits']}, rank {res['rank']}"
+            else:
+                m = res["metrics"]
+                m = m.get("fleet", m)
+                note = (f"{m['windows_emitted']} windows -> "
+                        f"{m['windows_escalated']} escalated")
+                if "core_processed" in res["metrics"]:
+                    note += (f", core processed "
+                             f"{sum(res['metrics']['core_processed'])}, "
+                             f"per-bridge "
+                             f"{res['metrics']['shard']['windows_escalated']}")
+        missing = [k for k in EXAMPLES[name] if not launches[k]]
+        if missing:
+            _fail(f"{name}: {missing} never launched on the card "
+                  f"({launches})")
+        lines.append(f"phase 11 example {name} ({compute}): card == CPU; "
+                     f"{note}; kernels launched {_nonzero(launches)}")
+    return lines
+
+
+def mesh_serve(sz: ServeSizes, mesh, device, bitwise) -> dict:
+    """Yi-6B at ``sz`` through ``launch/serve`` twice from the same
+    weights, on the host ``mesh`` (parameters placed by
+    ``param_shardings``) and without one: the ids, the final logits and
+    caches bitwise, every layer of every step through decode_attn (none
+    generic), one cached step keyed on the mesh; then both resolved
+    steps replay the run from fresh caches, every step's logits
+    bitwise."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = serve_config(sz)
+    model = T.init_params(cfg, seed=0, device=device)
+    n_attn = len(attn_caches(cfg, T.init_caches(cfg, 1, 1, "meta")))
+    steps = sz.prompt_len + sz.tokens
+    runs = {}
+    for name, m in (("mesh", mesh), ("meshless", None)):
+        zero_launches()
+        res = serve.run(cfg, sz.requests, sz.prompt_len, sz.tokens,
+                        device=device, model=model, mesh=m)
+        generic = _wrappers()["decode_attn"].generic_launches
+        if res.launches != n_attn * steps or generic or res.aot_cached != 1:
+            _fail(f"mesh serve ({name}): {res.launches} decode_attn launches "
+                  f"({generic} generic), aot_cached {res.aot_cached}; want "
+                  f"{n_attn} a step x {steps} steps, 0, 1")
+        feed = torch.cat([torch.from_numpy(serve.prompts_for(
+            cfg, sz.requests, sz.prompt_len)), torch.from_numpy(res.tokens)],
+            dim=1).to(device)
+        caches = T.init_caches(cfg, sz.requests, steps, device)
+        lengths = torch.zeros((sz.requests,), dtype=torch.int32,
+                              device=device)
+        logits = []
+        for t in range(steps):
+            out, caches, lengths = res.step(model, feed[:, t:t + 1], caches,
+                                            lengths)
+            logits.append(out.clone())
+        bitwise(_bits(logits[-1]), _bits(res.logits),
+                f"mesh serve ({name}): replayed last logits")
+        runs[name] = dict(res=res, logits=logits, caches=caches)
+    a, b = runs["mesh"], runs["meshless"]
+    np.testing.assert_array_equal(a["res"].tokens, b["res"].tokens)
+    for t, (x, y) in enumerate(zip(a["logits"], b["logits"])):
+        bitwise(_bits(x), _bits(y), f"mesh vs meshless step {t} logits")
+    _tree_bitwise(bitwise, a["res"].caches, b["res"].caches,
+                  "mesh vs meshless caches at the end")
+    out = dict(cfg=cfg, n_attn=n_attn, steps=steps, launches=
+               a["res"].launches, secs={k: r["res"].secs
+                                        for k, r in runs.items()})
+    del model, runs, a, b
+    return out
+
+
+def mesh_train(mesh, device, bitwise, steps: int = 3) -> str:
+    """Yi-6B's smoke config in float32: ``steps`` train steps with the
+    host mesh and ``sequence_shard=True`` against the same steps without
+    a mesh, from the same weights and batches, bitwise (losses, grad
+    norms, parameters), under deterministic algorithms (the embedding
+    gradient's scatter-add otherwise adds in no fixed order)."""
+    from repro_torch import optim
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import transformer as T
+    cfg = train_config(TRAIN_SMALL)
+    batches = [_train_batch(cfg, TRAIN_SMALL, i, device)
+               for i in range(steps)]
+    runs = []
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for m in (mesh, None):
+            model = T.init_params(cfg, seed=0, device=device, trainable=True)
+            if m is not None:
+                model = shd.place(model, shd.param_shardings(cfg, m, model),
+                                  m)
+            opt_cfg = optim.AdamWConfig(lr=TRAIN_SMALL.lr)
+            state = optim.init(model, opt_cfg)
+            step = steps_mod.build_train_step(cfg, opt_cfg, mesh=m,
+                                              sequence_shard=m is not None)
+            met = []
+            for b in batches:
+                model, state, mt = step(model, state, b)
+                met.append(torch.stack([mt["loss"], mt["grad_norm"]]))
+            runs.append((model, torch.stack(met)))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    (ma, a), (mb, b) = runs
+    bitwise(a, b, "mesh vs meshless train losses and grad norms")
+    pb = dict(mb.named_parameters())
+    for name, p in ma.named_parameters():
+        bitwise(p.detach(), pb[name].detach(), f"mesh vs meshless {name}")
+    return (f"{cfg.name} float32, {steps} steps of {TRAIN_SMALL.batch} x "
+            f"{TRAIN_SMALL.seq}, losses {a[:, 0].tolist()}")
+
+
+def _gib(rec: dict, key: str) -> str:
+    return "-" if key not in rec else f"{rec[key] / 2**30:.3f}"
+
+
+def dryrun_lines(out_dir: Path) -> list:
+    """The single-pod probe sweep's records: every applicable cell OK,
+    every other SKIP (the reference's rule); one line a cell."""
+    from repro_torch.configs.registry import (ARCH_IDS, SHAPES, get_config,
+                                              shape_applicable)
+    lines = []
+    for arch in ARCH_IDS:
+        for shape in SHAPES:
+            rec = json.loads((out_dir / f"{arch}__{shape}__sp.json")
+                             .read_text())
+            want = "OK" if shape_applicable(get_config(arch), shape) \
+                else "SKIP"
+            if rec["status"] != want:
+                _fail(f"dry run {arch} {shape}: {rec['status']} (want "
+                      f"{want}): {rec.get('error')}")
+            if want == "SKIP":
+                lines.append(f"phase 11 dryrun {arch} {shape}: SKIP "
+                             f"({rec['reason']})")
+                continue
+            lines.append(
+                f"phase 11 dryrun {arch} {shape} 16x16: OK, GiB a device "
+                f"params {_gib(rec, 'param_bytes_per_device')} optimizer "
+                f"{_gib(rec, 'opt_bytes_per_device')} cache "
+                f"{_gib(rec, 'cache_bytes_per_device')}, flops "
+                f"{rec['flops']:.4e}, useful_flops_ratio "
+                f"{rec['useful_flops_ratio']:.4f}")
+    return lines
+
+
+def run_launch_phase(sz: ServeSizes, device, rows: list) -> None:
+    """Phase 11: the host mesh on the card (Yi-6B served through it and
+    without it, the train step with it and without it, bitwise), the
+    five examples card against CPU (the CPU runs in a second process)
+    with their kernels launched, and the dry run's probe sweep in a
+    third process; ``mesh_launches`` and ``example_launches`` join the
+    kernels line's entries."""
+    import os
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import (axis_sizes, make_host_mesh,
+                                         release_host_mesh)
+    from repro_torch.testing import assert_bitwise
+    t0 = time.perf_counter()
+    card = _card_line()
+    build = ROOT / "build"
+    out_dir = build / "dryrun_phase11"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cpu_path = build / "examples_cpu.pt"
+    cpu_path.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    dry_cmd = ("import runpy, sys, time; t = time.perf_counter(); "
+               "sys.argv = ['dryrun', '--arch', 'all', '--shape', 'all', "
+               f"'--probe', '--out', {str(out_dir)!r}]; "
+               "runpy.run_module('repro_torch.launch.dryrun', "
+               "run_name='__main__'); "
+               "print('DRYRUN_SECONDS', time.perf_counter() - t)")
+    procs = [subprocess.Popen([sys.executable, "-c", dry_cmd], cwd=ROOT,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True),
+             subprocess.Popen([sys.executable, "-c",
+                               "import chip_smoke; chip_smoke."
+                               f"examples_on_cpu({str(cpu_path)!r})"],
+                              cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE, text=True)]
+    try:
+        mesh = make_host_mesh(device=device)
+        print(f"phase 11 host mesh: {mesh} {axis_sizes(mesh)}, backend "
+              f"{dist.get_backend()}, world size {dist.get_world_size()}")
+        sv = mesh_serve(sz, mesh, device, assert_bitwise)
+        q = {k: _quant(v) for k, v in sv["secs"].items()}
+        print(f"phase 11 mesh serve: {sv['cfg'].name} ({sv['cfg'].n_layers} "
+              f"layers, {sz.compute} compute), {sz.requests} requests, "
+              f"{sv['steps']} steps through launch/serve on the host mesh "
+              f"== without it bitwise (ids, final logits and caches; every "
+              f"step's logits replayed); decode_attn {sv['n_attn']} a step "
+              f"either way, none generic; aot_cached 1 with the mesh in "
+              f"its key; step p50/p99 {q['mesh'][0]:.3f}/{q['mesh'][1]:.3f} "
+              f"ms on the mesh, {q['meshless'][0]:.3f}/{q['meshless'][1]:.3f}"
+              f" ms without; {card}")
+        _free()
+        print(f"phase 11 mesh train: "
+              f"{mesh_train(mesh, device, assert_bitwise)}; with the host "
+              f"mesh and sequence_shard == without bitwise")
+        t_ex = time.perf_counter()
+        ex_card = run_examples(device)
+        card_s = time.perf_counter() - t_ex
+        _free()
+        err = procs[1].communicate(timeout=600)[1]
+        if procs[1].returncode != 0:
+            _fail(f"the examples on the CPU failed: {err[-3000:]}")
+        ex_cpu = torch.load(cpu_path, weights_only=False)
+        for line in _compare_examples(ex_card, ex_cpu):
+            print(line)
+        print(f"phase 11 examples: {len(ex_card)} runs on the card in "
+              f"{card_s:.1f} s, the same on the CPU in a second process")
+        out, err = procs[0].communicate(timeout=600)
+        if procs[0].returncode != 0:
+            _fail(f"the dry run failed: {err[-3000:]}")
+        secs = float(out.split("DRYRUN_SECONDS")[-1])
+        for line in dryrun_lines(out_dir):
+            print(line)
+        print(f"phase 11 dryrun: python -m repro_torch.launch.dryrun --arch "
+              f"all --shape all --probe, torch {torch.__version__}, "
+              f"{secs:.1f} s in its own process (host only)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        release_host_mesh()
+    ex_launches: dict = {}
+    for _, launches in ex_card.values():
+        for k, v in launches.items():
+            ex_launches[k] = ex_launches.get(k, 0) + v
+    seen = set()
+    for row in rows:         # the first entry of each kernel
+        name = row["name"]
+        if name in seen:
+            continue
+        seen.add(name)
+        if name == "decode_attn":
+            row["mesh_launches"] = sv["launches"]
+        if ex_launches.get(name):
+            row["example_launches"] = ex_launches[name]
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s; {card}")
 
 
 def main() -> int:

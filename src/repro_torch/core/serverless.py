@@ -10,14 +10,16 @@ time, and marks them running; ``stop_function`` retires them.
 The reference AOT-compiles there; the port captures there.  Each
 match's cached step is a ``runtime.capture.Step`` over the stored
 callable, keyed as the reference keys its cache (function name and the
-signature of the arguments, ``_cache_key``; a module by identity, since
-the graph reads its parameters where they lie).  On the card the step
+signature of the arguments and the mesh's axes, ``_cache_key``; a
+module by identity, since the graph reads its parameters where they
+lie).  On the card the step
 warms up on copies of the donated arguments and is captured as a CUDA
 graph at ``start_function``, so its first call replays; on the CPU, or
 for abstract (``meta``) arguments, it is built at its first call.
-``statistics()["aot_cached"]`` counts the cached steps.  The
-reference's ``mesh``, ``in_shardings`` and ``out_shardings`` have no
-counterpart on one card and are not taken.
+``statistics()["aot_cached"]`` counts the cached steps.  ``mesh`` (a
+``launch.mesh`` mesh) keys the cache; ``in_shardings`` and
+``out_shardings`` are taken as the reference takes them and change no
+placement: on the one-rank host mesh every shard is the whole tensor.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import matching
+from repro_torch.launch.mesh import axis_sizes
 from repro_torch.runtime import capture
 
 
@@ -75,6 +78,7 @@ class FunctionRegistry:
         return [e for e, h in zip(self._entries, hits.tolist()) if h]
 
     def start_function(self, interest: np.ndarray, *abstract_args,
+                       mesh=None, in_shardings=None, out_shardings=None,
                        donate_argnums=()) -> list[tuple[FunctionEntry, Any]]:
         """Match, capture ahead of time (cached), mark running.  Returns
         [(entry, step)] for every match (paper: the function is executed
@@ -84,11 +88,15 @@ class FunctionRegistry:
         lengths), as the reference donates them."""
         out = []
         for e in self.find(interest):
-            key = self._cache_key(e, abstract_args)
+            key = self._cache_key(e, abstract_args, mesh)
             if key not in self._aot_cache:
-                self._aot_cache[key] = capture.Step(
-                    e.fn, device=self.device, donate_argnums=donate_argnums,
-                    name=e.name).prepare(*abstract_args)
+                step = capture.Step(e.fn, device=self.device,
+                                    donate_argnums=donate_argnums,
+                                    name=e.name)
+                # without arguments nothing is built ahead of time, as
+                # the reference lowers nothing then
+                self._aot_cache[key] = step.prepare(*abstract_args) \
+                    if abstract_args else step
             e.running = True
             out.append((e, self._aot_cache[key]))
         return out
@@ -124,5 +132,9 @@ class FunctionRegistry:
                                 for k, v in a.items()))
         return ("obj", str(a))
 
-    def _cache_key(self, e: FunctionEntry, args) -> tuple:
-        return (e.name, self._sig(args))
+    def _cache_key(self, e: FunctionEntry, args, mesh) -> tuple:
+        mesh_key = None
+        if mesh is not None:
+            sizes = axis_sizes(mesh)
+            mesh_key = (tuple(sizes), tuple(sizes.values()))
+        return (e.name, self._sig(args), mesh_key)

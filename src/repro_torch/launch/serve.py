@@ -16,8 +16,10 @@ teacher-forced, then generates greedily (argmax).  Any of the
 ten configs serves: attention layers keep ring KV caches and attend
 through ``decode_attn``, RWKV6 and RG-LRU layers carry their recurrent
 states.  The model is the port's seeded random init unless the caller
-hands one in.  Runs on the CUDA card unless the caller asks for the
-CPU.
+hands one in; given a host mesh, its parameters are laid out by
+``launch.sharding``'s rules (one rank: every shard is the whole tensor,
+so nothing moves) and the registry keys the captured step on the mesh.
+Runs on the CUDA card unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -33,7 +35,9 @@ from repro_torch.configs.registry import ARCH_IDS, get_config, smoke_config
 from repro_torch.core import profiles as P
 from repro_torch.core.serverless import FunctionRegistry
 from repro_torch.kernels.decode_attn import decode_attention
+from repro_torch.launch import sharding as shd
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.mesh import axis_sizes, make_host_mesh
 from repro_torch.models import transformer as T
 
 
@@ -62,26 +66,30 @@ def prompts_for(cfg, requests: int, prompt_len: int,
 
 def run(cfg, requests: int, prompt_len: int, tokens: int, *,
         device: str | torch.device | None = None, seed: int = 0,
-        model: T.Transformer | None = None) -> ServeResult:
+        model: T.Transformer | None = None, mesh=None) -> ServeResult:
     """Serve ``requests`` prompts of ``prompt_len`` ids (seeded) and
-    generate ``tokens`` ids each.  Every step is timed with a
-    synchronize on the card; nothing is read back inside the loop."""
+    generate ``tokens`` ids each, on the host ``mesh`` if given.  Every
+    step is timed with a synchronize on the card; nothing is read back
+    inside the loop."""
     dev = resolve_device(device)
     if model is None:
         model = T.init_params(cfg, seed=seed, device=dev)
+    if mesh is not None:
+        model = shd.place(model, shd.param_shardings(cfg, mesh, model), mesh)
     b, max_len = requests, prompt_len + tokens
 
     # serverless front door: register the decode topology under a profile
     registry = FunctionRegistry(dev)
     registry.store_function(f"decode:{cfg.name}", P.profile("serve", cfg.name),
-                            steps_mod.build_serve_step(cfg))
+                            steps_mod.build_serve_step(cfg, mesh=mesh))
     interest = P.ProfileBuilder().add_single("serve").build()
     caches = T.init_caches(cfg, b, max_len, dev)
     lengths = torch.zeros((b,), dtype=torch.int32, device=dev)
     tok0 = torch.zeros((b, 1), dtype=torch.int32, device=dev)
     # the caches and lengths are the step's state (donated)
     [(entry, step)] = registry.start_function(interest, model, tok0, caches,
-                                              lengths, donate_argnums=(2, 3))
+                                              lengths, mesh=mesh,
+                                              donate_argnums=(2, 3))
 
     prompts = torch.from_numpy(prompts_for(cfg, b, prompt_len, seed)).to(dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -121,8 +129,10 @@ def main() -> None:
     args = ap.parse_args()
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    mesh = make_host_mesh(device=args.device)
+    print(f"mesh: {axis_sizes(mesh)}  arch: {cfg.name}")
     res = run(cfg, args.requests, args.prompt_len, args.tokens,
-              device=args.device)
+              device=args.device, mesh=mesh)
     steps = len(res.secs)
     total = args.requests * steps
     print(f"resolved {res.resolved} via AR profile; AOT cache: "

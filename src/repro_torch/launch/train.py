@@ -3,11 +3,13 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi_6b \
         --smoke --steps 50 --batch 8 --seq 128 [--device cpu]
 
-Port of ``repro.launch.train`` on one device (the mesh and the
-shardings wait for ROADMAP item 14): a trainable model (the port's
-seeded random init unless the caller hands one in) and AdamW state,
+Port of ``repro.launch.train``: a trainable model (the port's seeded
+random init unless the caller hands one in) and AdamW state, laid out
+by ``launch.sharding``'s rules on the host mesh when given one (one
+rank: every shard is the whole tensor, so nothing moves),
 the ``SyntheticTokens`` stream behind a ``Prefetcher``, the train step
-of ``launch.steps`` under the reference's cosine schedule, checkpoints
+of ``launch.steps`` (on the mesh) under the reference's cosine
+schedule, checkpoints
 every ``ckpt_every`` steps in the reference's format (the reference's
 ``(params, AdamWState)`` tree, ``convert.train_state_tree``), resume
 from the latest one, and the health and straggler bookkeeping.  A
@@ -30,7 +32,9 @@ from repro_torch import convert, optim, resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.registry import ARCH_IDS, get_config, smoke_config
 from repro_torch.data import Prefetcher, SyntheticTokens
+from repro_torch.launch import sharding as shd
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.mesh import axis_sizes, make_host_mesh
 from repro_torch.models import transformer as T
 from repro_torch.optim.schedule import cosine_with_warmup
 from repro_torch.runtime import HealthMonitor, StragglerDetector
@@ -49,16 +53,19 @@ class TrainResult(NamedTuple):
 def run(cfg, steps: int, batch: int, seq: int, *, microbatches: int = 1,
         lr: float = 3e-4, ckpt_dir: str | None = None, ckpt_every: int = 10,
         resume: bool = False, device: str | torch.device | None = None,
-        model: T.Transformer | None = None) -> TrainResult:
+        model: T.Transformer | None = None, mesh=None) -> TrainResult:
     """Train ``cfg`` for steps ``[start, steps)`` on ``batch`` x ``seq``
     tokens a step.  ``ckpt_dir`` (``None``: no checkpoints) is written
     every ``ckpt_every`` steps; ``resume`` restores its latest step
-    first, in place of ``model``'s weights.  Every step is timed with a
-    synchronize on the card; the loss and grad norm are read after the
-    step's time is taken."""
+    first, in place of ``model``'s weights.  ``mesh``: the host mesh the
+    parameters are laid out on and the step runs on (``None``: none).
+    Every step is timed with a synchronize on the card; the loss and
+    grad norm are read after the step's time is taken."""
     dev = resolve_device(device)
     if model is None:
         model = T.init_params(cfg, seed=0, device=dev, trainable=True)
+    if mesh is not None:
+        model = shd.place(model, shd.param_shardings(cfg, mesh, model), mesh)
     opt_cfg = optim.AdamWConfig(lr=lr)
     opt_state = optim.init(model, opt_cfg)
 
@@ -76,7 +83,8 @@ def run(cfg, steps: int, batch: int, seq: int, *, microbatches: int = 1,
         return cosine_with_warmup(s, warmup=10, total=steps * 10)
 
     step_fn = steps_mod.build_train_step(
-        cfg, opt_cfg, num_microbatches=microbatches, schedule=sched)
+        cfg, opt_cfg, num_microbatches=microbatches, schedule=sched,
+        mesh=mesh, sequence_shard=False)
 
     source = SyntheticTokens(cfg.vocab, seq, batch)
     data = Prefetcher((source.batch_at(s) for s in range(start, steps)),
@@ -136,12 +144,14 @@ def main() -> None:
     args = ap.parse_args()
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    print(f"arch: {cfg.name}  device: {resolve_device(args.device)}")
+    mesh = make_host_mesh(device=args.device)
+    print(f"mesh: {axis_sizes(mesh)}  arch: {cfg.name}  device: "
+          f"{resolve_device(args.device)}")
     t0 = time.time()
     res = run(cfg, args.steps, args.batch, args.seq,
               microbatches=args.microbatches, lr=args.lr,
               ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-              resume=args.resume, device=args.device)
+              resume=args.resume, device=args.device, mesh=mesh)
     print(f"done: {args.steps - res.start_step} steps in "
           f"{time.time() - t0:.1f}s; checkpoints at {args.ckpt_dir}: "
           f"{res.checkpoints}")

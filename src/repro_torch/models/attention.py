@@ -2,12 +2,13 @@
 
 Port of ``repro.models.attention``.  The forward path computes the
 reference's query chunks with causal KV truncation in plain torch,
-without its sharding constraints, each chunk rematerialized in the
-backward pass when autograd records it.  The decode step writes the new K/V
-row into the ring cache in place and attends through the
-``decode_attn`` wrapper (the CUDA kernel on a card tensor, its plain
-version on a CPU one); ``use_kernel=False`` takes the reference's
-split-KV jnp branch instead, written out in torch.
+each chunk rematerialized in the backward pass when autograd records
+it, and places the reference's ``shardctx`` constraints (identities
+outside a sharding context and on plain tensors).  The decode step
+writes the new K/V row into the ring cache in place and attends
+through the ``decode_attn`` wrapper (the CUDA kernel on a card tensor,
+its plain version on a CPU one); ``use_kernel=False`` takes the
+reference's split-KV jnp branch instead, written out in torch.
 
 Supports: GQA/MQA/MHA, optional QKV bias (Qwen2), sliding windows,
 RoPE / M-RoPE.
@@ -20,6 +21,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.decode_attn import decode_attention
+from repro_torch.launch import shardctx
 from repro_torch.models import layers as L
 from repro_torch.models import positional as pos_mod
 
@@ -88,6 +90,10 @@ def causal_attention(p, x: torch.Tensor, positions: torch.Tensor,
     cq = min(cfg.chunk_q, t)
     while t % cq:          # fall back to a divisor (odd test lengths)
         cq -= 1
+    # sequence-parallel layout: queries sharded along T; K/V replicated
+    q = shardctx.constrain(q, ("dp", "seq", None, None))
+    k = shardctx.constrain(k, ("dp", None, None, None))
+    v = shardctx.constrain(v, ("dp", None, None, None))
 
     def chunk_fn(qc, kc, vc, q0: int, lo: int):
         # qc: [B, cq, H, dh]; kc/vc: [B, L, hkv, dh], the causal KV slice
@@ -112,7 +118,7 @@ def causal_attention(p, x: torch.Tensor, positions: torch.Tensor,
         lo = 0 if cfg.window is None else max(0, hi - cfg.window - cq)
         outs.append(L.remat(chunk_fn, q[:, i * cq:hi], k[:, lo:hi],
                             v[:, lo:hi], i * cq, lo))
-    out = torch.cat(outs, dim=1)
+    out = shardctx.constrain(torch.cat(outs, dim=1), ("dp", "seq", None))
     return out @ p["wo"], {"k": k, "v": v}
 
 
@@ -149,9 +155,13 @@ def decode_attention_step(p, x: torch.Tensor, cache: dict,
     else:
         g = h // hkv
         qg = q.reshape(b, hkv, g, dh).float() / (dh ** 0.5)
-        kt = cache["k"].transpose(1, 2).float()      # [B, Hkv, S, dh]
-        vt = cache["v"].transpose(1, 2).float()
-        scores = torch.einsum("bhgd,bhsd->bhgs", qg, kt)
+        # split-KV: the cache stays sharded along S ("seq")
+        kt = shardctx.constrain(cache["k"].transpose(1, 2),
+                                ("dp", None, "seq", None)).float()
+        vt = shardctx.constrain(cache["v"].transpose(1, 2),
+                                ("dp", None, "seq", None)).float()
+        scores = shardctx.constrain(torch.einsum("bhgd,bhsd->bhgs", qg, kt),
+                                    ("dp", None, None, "seq"))
         pos = torch.arange(s_cache, device=x.device)[None, None, None, :]
         mask = pos < valid[:, None, None, None]
         scores = torch.where(mask, scores, NEG_INF)

@@ -26,8 +26,9 @@ class RGLRUConfig(NamedTuple):
     conv_width: int = 4
     c: float = 8.0
     chunk: int = 256
-    # the reference's loop-free cost-analysis stand-in (launch/probe.py,
-    # not ported): kept so that configs copy over; the port refuses it
+    # probe mode (dry-run cost analysis only, launch/probe.py): a
+    # loop-free, FLOP-isomorphic stand-in for the recurrence.  NOT a
+    # valid forward pass.
     probe: bool = False
 
 
@@ -74,12 +75,9 @@ def rglru_block_apply(p, x: torch.Tensor, cfg: RGLRUConfig,
                       state: dict | None = None
                       ) -> tuple[torch.Tensor, dict]:
     """x: [B, T, D_model].  state: {"h": [B,Dr] f32, "conv": [B,W-1,Dr]}
-    (``None``: zeros).  Returns (out [B, T, D_model], the new state)."""
-    if cfg.probe:
-        raise NotImplementedError(
-            "RGLRUConfig(probe=True) is the reference's cost-analysis "
-            "stand-in for launch/probe.py, which is not ported (ROADMAP "
-            "item 14)")
+    (``None``: zeros).  Returns (out [B, T, D_model], the new state).
+    ``cfg.probe``: the reference's cost-analysis stand-in, not a valid
+    model (see :class:`RGLRUConfig`)."""
     b, t, _ = x.shape
     dr = cfg.d_rnn
     if state is None:
@@ -99,7 +97,11 @@ def rglru_block_apply(p, x: torch.Tensor, cfg: RGLRUConfig,
     drive = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * gated_in
 
     a_t, d_t = a.movedim(1, 0), drive.movedim(1, 0)          # [T,B,Dr]
-    if t == 1:
+    if cfg.probe:
+        # per step: a*h + drive -> one mult + add over [T,B,Dr]
+        ys = a_t * d_t + d_t
+        h = state["h"] + ys[-1]
+    elif t == 1:
         h, ys = _step(state["h"], (a_t[0], d_t[0]))
         ys = ys[None]
     else:

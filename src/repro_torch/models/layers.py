@@ -74,7 +74,7 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def ffn_apply(kind: str, p, x: torch.Tensor) -> torch.Tensor:
-    """Dense FFN forward; MoE lives in ``repro.models.moe`` (not ported)."""
+    """Dense FFN forward; MoE lives in ``models/moe.py``."""
     if kind == "swiglu":
         return (F.silu(x @ p["w_gate"]) * (x @ p["w_in"])) @ p["w_out"]
     if kind == "geglu":

@@ -1,6 +1,7 @@
 """Mixture-of-Experts FFN with capacity-bounded dispatch.
 
-Port of ``repro.models.moe`` without its sharding constraints.  The
+Port of ``repro.models.moe``, its ``shardctx`` constraints in place
+(identities outside a sharding context and on plain tensors).  The
 dispatch is the reference's own sort-based plan (``dispatch_plan``),
 not ``core/routing.make_plan``: a stable sort of each (token, k)
 choice's expert, a running max of the segment starts, and each choice's
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.launch import shardctx
 from repro_torch.models import layers as L
 
 
@@ -134,7 +136,7 @@ def moe_apply(p, x: torch.Tensor, cfg: MoEConfig,
     e, k = cfg.num_experts, cfg.top_k
     g = num_groups or _pick_groups(n)
     ng = n // g
-    xt = x.reshape(g, ng, d)
+    xt = shardctx.constrain(x.reshape(g, ng, d), ("dp", None, None))
     dev = x.device
 
     probs, gate_vals, expert_ids = route(xt, p["router"], k)
@@ -165,17 +167,22 @@ def moe_apply(p, x: torch.Tensor, cfg: MoEConfig,
     buckets = torch.gather(xt, 1, idx[..., None].expand(g, e * cap, d)) \
         .reshape(g, e, cap, d)
     buckets = buckets * kept[..., None].to(xt.dtype)         # [G, E, C, D]
+    # the expert-parallel compute layout ("ep"/"cap")
+    buckets = shardctx.constrain(buckets, ("dp", "ep", "cap", None))
     if cfg.gated:
         h = F.silu(torch.einsum("gecd,edf->gecf", buckets, p["w_gate"])) \
             * torch.einsum("gecd,edf->gecf", buckets, p["w_in"])
     else:
         h = L._gelu(torch.einsum("gecd,edf->gecf", buckets, p["w_in"]))
-    expert_out = torch.einsum("gecf,efd->gecd", h, p["w_out"])
+    h = shardctx.constrain(h, ("dp", "ep", "cap", None))
+    expert_out = shardctx.constrain(
+        torch.einsum("gecf,efd->gecd", h, p["w_out"]),
+        ("dp", "ep", "cap", None))
     weighted = expert_out * (gates * kept)[..., None].to(expert_out.dtype)
     rows = (idx + torch.arange(g, device=dev)[:, None] * ng).reshape(-1)
     out = torch.zeros((g * ng, d), dtype=x.dtype, device=dev).index_add_(
         0, rows, weighted.reshape(g * e * cap, d).to(x.dtype))
-    out = out.reshape(g, ng, d)
+    out = shardctx.constrain(out.reshape(g, ng, d), ("dp", None, None))
 
     if cfg.num_shared_experts:
         out = out + L.ffn_apply("swiglu" if cfg.gated else "gelu",

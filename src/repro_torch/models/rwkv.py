@@ -24,8 +24,9 @@ class RWKVConfig(NamedTuple):
     d_head: int
     decay_lora: int = 64
     chunk: int = 64
-    # the reference's loop-free cost-analysis stand-in (launch/probe.py,
-    # not ported): kept so that configs copy over; the port refuses it
+    # probe mode (dry-run cost analysis only, launch/probe.py): replace
+    # the sequential wkv scan with a loop-free, FLOP-isomorphic
+    # emulation.  NOT a valid forward pass.
     probe: bool = False
 
 
@@ -91,12 +92,9 @@ def _wkv_step(state, inputs):
 def time_mix_apply(p, x: torch.Tensor, cfg: RWKVConfig,
                    state: dict | None = None) -> tuple[torch.Tensor, dict]:
     """x: [B, T, D].  state (decode): {"shift": [B,D], "wkv": [B,H,Dk,Dv]}
-    (``None``: zeros).  Returns (out, the new state)."""
-    if cfg.probe:
-        raise NotImplementedError(
-            "RWKVConfig(probe=True) is the reference's cost-analysis "
-            "stand-in for launch/probe.py, which is not ported (ROADMAP "
-            "item 14)")
+    (``None``: zeros).  Returns (out, the new state).  ``cfg.probe``:
+    the reference's cost-analysis stand-in, not a valid model (see
+    :class:`RWKVConfig`)."""
     b, t, d = x.shape
     h, dh = cfg.n_heads, cfg.d_head
     if state is None:
@@ -123,7 +121,16 @@ def time_mix_apply(p, x: torch.Tensor, cfg: RWKVConfig,
         return _wkv_step(s, (rr, kk, vv, wwv, u))
 
     seq = tuple(a.movedim(1, 0) for a in (r, k, v, w))      # [T,B,H,dh]
-    if t == 1:
+    if cfg.probe:
+        # per step: kv outer + decay mult + bonus + r-contraction,
+        # batched over T
+        r_t, k_t, v_t, w_t = seq
+        kv = k_t[..., :, None] * v_t[..., None, :]          # [T,B,H,dk,dv]
+        sw = w_t[..., None] * kv                             # ~ w*S mult
+        y = torch.einsum("tbhk,tbhkv->tbhv", r_t,
+                         sw + u[None, None, :, :, None] * kv)
+        wkv_state = state["wkv"] + sw[-1]
+    elif t == 1:
         wkv_state, y = body(state["wkv"], tuple(a[0] for a in seq))
         y = y[None]
     else:

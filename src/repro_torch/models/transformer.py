@@ -41,6 +41,7 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.launch import shardctx
 from repro_torch.models import attention as A
 from repro_torch.models import griffin as G
 from repro_torch.models import layers as L
@@ -462,6 +463,9 @@ def forward(cfg: ArchConfig, model: Transformer, batch: dict, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in model.layers:
         x, c, stats = L.remat(_layer_call, model, layer, x, positions)
+        # residual-stream constraint (sequence parallelism when active);
+        # the reference places it on each layer group's scan carry
+        x = shardctx.constrain_residual(x)
         if stats is not None:
             aux = aux + stats["aux_loss"]
         if want_caches:

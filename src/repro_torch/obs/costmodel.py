@@ -18,6 +18,14 @@ and reads XLA's ``cost_analysis()`` and the compiled HLO's
   that writes into a tensor in place (not pointwise) writes only as
   much as it is given, and a view moves nothing.  The tick's ring is
   2^22 rows a shard, of which a tick touches a micro-batch;
+* a composite operation with no formula of its own (``matmul``,
+  ``einsum``: under ``torch.inference_mode()`` they reach the dispatch
+  mode whole) is counted by the operations it decomposes into, as
+  autograd would have decomposed it;
+* on ``meta`` tensors (the dry run's) a call that returns new tensors
+  runs once for each operation, shapes, strides, dtypes and other
+  arguments: a repeat rebuilds its results from their shapes (and is
+  counted as the first was);
 * the hand kernels launch through ``ctypes``, which no dispatch mode
   sees: each wrapper reports its function's bytes and operations
   (``kernels.cost``, the counts ``chip_smoke.py`` bounds the kernels
@@ -62,6 +70,85 @@ _FREE = frozenset({"empty", "empty_like", "empty_strided", "lift_fresh",
                    "_local_scalar_dense"})
 
 
+def _cost(func, args, kwargs, out):
+    """``(flops, transcendentals, bytes)`` of one aten operation (see the
+    module's rules), or ``None`` for a view, metadata or a profiler
+    range."""
+    name = func.overloadpacket.__name__
+    base = name.rstrip("_")
+    if func.namespace != "aten" or func.is_view or base in _FREE:
+        return None
+    ins, outs = _tensors((args, kwargs)), _tensors(out)
+    from torch.utils.flop_counter import flop_registry
+    pointwise = torch.Tag.pointwise in func.tags
+    formula = flop_registry.get(func.overloadpacket)
+    flops = trans = 0
+    if formula is not None:
+        flops = formula(*args, **kwargs, out_val=out)
+    elif base in _TRANSCENDENTAL:
+        trans = sum(o.numel() for o in outs)
+    elif pointwise:
+        flops = sum(o.numel() for o in outs)
+    elif base in _REDUCTIONS and ins:
+        flops = ins[0].numel()
+    if base in _GATHERS:
+        idx = [t for t in ins if not t.is_floating_point()
+               and t.dtype != torch.bool]
+        nbytes = sum(_nbytes(t) for t in idx[-1:]) \
+            + 2 * sum(_nbytes(o) for o in outs)
+    elif func._schema.is_mutable and not pointwise:
+        written = {id(o) for o in outs}
+        nbytes = 2 * sum(_nbytes(t) for t in ins if id(t) not in written)
+    else:
+        nbytes = sum(_nbytes(t) for t in ins) + sum(_nbytes(o) for o in outs)
+    return flops, trans, nbytes
+
+
+#: leaf types a memo key takes by value
+_KEY_TYPES = (bool, int, float, str, type(None), torch.dtype, torch.device,
+              torch.layout, torch.memory_format)
+
+
+def _meta_key(func, args, kwargs):
+    """A key of a call on ``meta`` tensors whose result is new tensors (no
+    view, nothing written in place): the operation, each tensor's shape,
+    strides and dtype, each other argument by value; ``None`` for any
+    other call."""
+    if func.is_view or func._schema.is_mutable:
+        return None
+    key = [func, len(args), tuple(kwargs)]
+    for x in pytree.tree_leaves((args, kwargs)):
+        if isinstance(x, torch.Tensor):
+            if not x.is_meta:
+                return None
+            key.append((tuple(x.shape), x.stride(), x.dtype))
+        elif isinstance(x, _KEY_TYPES):
+            key.append((type(x), x))
+        else:
+            return None
+    return tuple(key)
+
+
+def _spec(out):
+    """The metadata to rebuild ``out`` (a ``meta`` tensor, or a tuple or
+    list of them) from, or ``None``."""
+    if isinstance(out, torch.Tensor):
+        return (tuple(out.shape), out.stride(), out.dtype) if out.is_meta \
+            else None
+    if isinstance(out, (tuple, list)) and out and all(
+            isinstance(o, torch.Tensor) and o.is_meta for o in out):
+        return type(out), [_spec(o) for o in out]
+    return None
+
+
+def _rebuild(spec):
+    if isinstance(spec[0], tuple):
+        shape, stride, dtype = spec
+        return torch.empty_strided(shape, stride, dtype=dtype, device="meta")
+    kind, parts = spec
+    return kind(_rebuild(p) for p in parts)
+
+
 def active():
     """The analysis in progress, or None."""
     return _ACTIVE[-1] if _ACTIVE else None
@@ -96,33 +183,13 @@ class _Analysis:
             agg["bytes"] += int(nbytes)
 
     def count(self, func, args, kwargs, out) -> None:
-        name = func.overloadpacket.__name__
-        base = name.rstrip("_")
-        if func.namespace != "aten" or func.is_view or base in _FREE:
-            return                    # profiler ranges, views, metadata
-        ins, outs = _tensors((args, kwargs)), _tensors(out)
-        from torch.utils.flop_counter import flop_registry
-        pointwise = torch.Tag.pointwise in func.tags
-        formula = flop_registry.get(func.overloadpacket)
-        if formula is not None:
-            self.flops += formula(*args, **kwargs, out_val=out)
-        elif base in _TRANSCENDENTAL:
-            self.transcendentals += sum(o.numel() for o in outs)
-        elif pointwise:
-            self.flops += sum(o.numel() for o in outs)
-        elif base in _REDUCTIONS and ins:
-            self.flops += ins[0].numel()
-        if base in _GATHERS:
-            idx = [t for t in ins if not t.is_floating_point()
-                   and t.dtype != torch.bool]
-            nbytes = sum(_nbytes(t) for t in idx[-1:]) \
-                + 2 * sum(_nbytes(o) for o in outs)
-        elif func._schema.is_mutable and not pointwise:
-            written = {id(o) for o in outs}
-            nbytes = 2 * sum(_nbytes(t) for t in ins if id(t) not in written)
-        else:
-            nbytes = sum(_nbytes(t) for t in ins) \
-                + sum(_nbytes(o) for o in outs)
+        """Add one operation's cost (:func:`_cost`)."""
+        cost = _cost(func, args, kwargs, out)
+        if cost is None:
+            return
+        flops, trans, nbytes = cost
+        self.flops += flops
+        self.transcendentals += trans
         self.bytes += nbytes
         self._stage(nbytes)
 
@@ -160,14 +227,50 @@ class _Paused:
         self.an.paused -= 1
 
 
+#: operation -> whether it is counted by its decomposition
+_COMPOSITES: dict = {}
+
+
+def _composite(func) -> bool:
+    """Whether ``func`` has no FLOP formula of its own and a composite
+    (decomposing) kernel; decided once an operation."""
+    c = _COMPOSITES.get(func)
+    if c is None:
+        from torch.utils.flop_counter import flop_registry
+        c = _COMPOSITES[func] = (
+            func.overloadpacket not in flop_registry
+            and torch._C._dispatch_has_kernel_for_dispatch_key(
+                func.name(), torch._C.DispatchKey.CompositeImplicitAutograd))
+    return c
+
+
 class _Counter(TorchDispatchMode):
+    """Counts each operation.  A call on ``meta`` tensors that returns
+    new tensors runs once for each key (``_meta_key``): a repeat
+    rebuilds its results from their shapes, so a step's thousands of
+    identical recurrence steps skip PyTorch's shape functions."""
+
     def __init__(self, an: _Analysis):
         super().__init__()
         self.an = an
+        self.memo: dict = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
+        if _composite(func):
+            with self:
+                out = func.decompose(*args, **kwargs)
+            if out is not NotImplemented:
+                return out
+        key = _meta_key(func, args, kwargs)
+        spec = None if key is None else self.memo.get(key)
+        if spec is not None:
+            out = _rebuild(spec)
+        else:
+            out = func(*args, **kwargs)
+            spec = None if key is None else _spec(out)
+            if spec is not None:
+                self.memo[key] = spec
         if not self.an.paused:
             self.an.count(func, args, kwargs, out)
         return out

@@ -361,13 +361,13 @@ class FleetController:
         return state._replace(shard=state.shard._replace(
             carry=new_carry, carry_valid=new_valid))
 
-    def remesh(self, state, num_shards: int, *, keep: list | None = None,
+    def remesh(self, state, devices, *, keep: list | None = None,
                num_core: int | None = None,
                num_regions: int | None = None):
         """The device set actually changed: re-lay the fleet over
-        ``num_shards`` shards and migrate the state -- see
-        :meth:`FleetExecutor.remesh` (the reference takes the surviving
-        devices; one card takes their count).  Departed shards' counters fold
+        ``devices`` (the surviving device list, or its length) and
+        migrate the state -- see :meth:`FleetExecutor.remesh`.
+        Departed shards' counters fold
         into their ``reassignment``-chosen backups, and their
         unconsumed ring rows come back as the replay payload.  The
         controller's own per-rank state (detectors, escalation
@@ -393,8 +393,10 @@ class FleetController:
         ex = self.executor
         old_e = ex.cfg.num_shards
         old_r = ex.cfg.num_regions
+        num_shards = len(devices) if isinstance(devices, (list, tuple)) \
+            else int(devices)
         if keep is None:
-            keep = [i if i < old_e else None for i in range(int(num_shards))]
+            keep = [i if i < old_e else None for i in range(num_shards)]
         kept = [k for k in keep if k is not None]
         departed = sorted(set(range(old_e)) - set(kept))
         plan = self.wall_detector.reassignment(

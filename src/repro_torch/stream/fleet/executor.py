@@ -61,6 +61,7 @@ from repro_torch.core import rules as R
 from repro_torch.core.pipeline import DataDrivenPipeline, PipelineResult
 from repro_torch.data.ringbuffer import RingBuffer
 from repro_torch.kernels import build
+from repro_torch.launch.mesh import AbstractMesh, axis_sizes
 from repro_torch.obs import latency as OL
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.runtime import capture, elastic
@@ -259,6 +260,16 @@ def _stack(rows: list, field: str) -> torch.Tensor:
     return torch.stack([getattr(r, field) for r in rows])
 
 
+#: the reference's mesh axis names (its ``FleetConfig`` defaults)
+REGION_AXIS, EDGE_AXIS = "region", "edge"
+
+
+def _layout(cfg: FleetConfig) -> AbstractMesh:
+    """The fleet's ``(region, edge)`` layout, as a mesh of its axes."""
+    return AbstractMesh((cfg.num_regions, cfg.edges_per_region),
+                        (REGION_AXIS, EDGE_AXIS))
+
+
 class FleetExecutor:
     """S stream shards and their escalation exchange in one tick.
 
@@ -268,11 +279,15 @@ class FleetExecutor:
     exchanged records.  ``cfg.core_budget`` replaces the pipeline's
     per-device ``core_capacity``.  device: ``None`` is the CUDA card
     (raises without one); ``"cpu"`` runs the kernels' plain versions.
+    mesh: the reference's ``(region, edge)`` device layout, as any mesh
+    ``launch.mesh.axis_sizes`` reads (``None``: the config's own,
+    ``self.mesh``); a shape that does not match the config raises, as
+    the reference's does.  All shards stay rows on the one card.
     """
 
     def __init__(self, cfg: FleetConfig, engine: R.RuleEngine,
                  pipeline: DataDrivenPipeline,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         ci = pipeline.core_index
         if ci is None or ci != len(pipeline.stages) - 1:
             raise ValueError("fleet pipeline needs exactly one core stage, "
@@ -282,6 +297,16 @@ class FleetExecutor:
                 "FleetConfig.stream has fused=True but the RuleEngine is "
                 "not tabular (threshold_rule-style rules only) -- callable "
                 "rules cannot run inside the fused kernel; use fused=False")
+        if mesh is None:
+            mesh = _layout(cfg)
+        shape = axis_sizes(mesh)
+        if shape.get(REGION_AXIS) != cfg.num_regions \
+                or shape.get(EDGE_AXIS) != cfg.edges_per_region:
+            raise ValueError(
+                f"mesh shape {shape} does not match config "
+                f"({REGION_AXIS}={cfg.num_regions}, "
+                f"{EDGE_AXIS}={cfg.edges_per_region})")
+        self.mesh = mesh
         self.cfg = cfg
         self.engine = engine
         self.pipeline = pipeline
@@ -743,13 +768,15 @@ class FleetExecutor:
         return state, out
 
     # -- a change of width ------------------------------------------------
-    def remesh(self, state: FleetState, num_shards: int, *,
+    def remesh(self, state: FleetState, devices, *,
                keep: list | None = None, num_core: int | None = None,
                num_regions: int | None = None,
                fold_counters: dict | None = None
                ) -> tuple[FleetState, dict]:
-        """Re-lay the fleet over ``num_shards`` shards and migrate the
-        state: churn beyond what the ``active`` mask absorbs.
+        """Re-lay the fleet over ``devices`` (the reference's surviving
+        device list, whose length is the new shard count, or that count)
+        and migrate the state: churn beyond what the ``active`` mask
+        absorbs.
 
         The new ``(region, edge)`` shape is ``runtime.elastic.remesh``'s,
         resizing ONE dim a call: by default the region count is kept and
@@ -771,6 +798,8 @@ class FleetExecutor:
         (its watermark and fog budget carry over); a region-count change
         re-derives them."""
         cfg = self.cfg
+        num_shards = len(devices) if isinstance(devices, (list, tuple)) \
+            else int(devices)
         old_e, old_r = cfg.num_shards, cfg.num_regions
         fix_regions = num_regions is None or num_regions == old_r
         new_r, new_ee = elastic.remesh(old_r, cfg.edges_per_region,
@@ -866,6 +895,7 @@ class FleetExecutor:
         self._lineage = torch.stack(
             [lin[k] if k is not None else torch.zeros_like(lin[0])
              for k in keep])
+        self.mesh = _layout(self.cfg)
         self._remeshes += 1
         self._tick_step.clear()         # the next tick builds anew
         return new_state, departed

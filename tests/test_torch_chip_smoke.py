@@ -8,6 +8,7 @@ import importlib.util
 import json
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -683,13 +684,14 @@ def test_main_prints_the_kernels_line_then_the_result_line(smoke,
                                                            monkeypatch,
                                                            capsys):
     """The line before the last is the kernels object and the last the
-    contract's ``{"ok": true, "device": {...}}``, phase 10 the last phase
-    of ``run``, after phase 9 and its memory are freed."""
+    contract's ``{"ok": true, "device": {...}}``, phase 11 the last phase
+    of ``run``, after phase 10 and its memory are freed."""
     import inspect
     src = inspect.getsource(smoke.run).rstrip().splitlines()
-    assert [x.strip() for x in src[-4:-1]] == [
+    assert [x.strip() for x in src[-6:-1]] == [
         "run_train_phase(TRAIN_FULL, TRAIN_SMALL, device)", "_free()",
-        "run_graph_phase(sz, serve_sz, FLEET, device)"]
+        "run_graph_phase(sz, serve_sz, FLEET, device)", "_free()",
+        "run_launch_phase(MESH_SERVE, device, kernels[\"kernels\"])"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "card")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
@@ -769,3 +771,74 @@ def test_graph_phase_fails_when_graphed_and_eager_differ(smoke, monkeypatch):
     monkeypatch.setattr(capture.Step, "_replay", off)
     with pytest.raises(AssertionError, match="graphed vs eager staged tick 1"):
         smoke.graph_stream(sz, "cpu", assert_bitwise)
+
+
+def test_launch_phase_mesh_checks_run_on_the_cpu(smoke, monkeypatch):
+    """Phase 11's host-mesh checks on the CPU at Yi-6B's smoke widths:
+    the serve runs with and without the gloo host mesh, every replayed
+    step's logits bitwise, the card's launch count (the plain version
+    counted as a launch), and the train steps with and without the
+    mesh bitwise."""
+    from repro_torch.kernels import decode_attn as DAP
+    from repro_torch.kernels.decode_attn import ops as DA
+    from repro_torch.launch import mesh as M
+    real = DA._dispatch
+
+    def counted(*a, **kw):
+        DAP.decode_attention.launches += 1
+        return real(*a, **kw)
+    monkeypatch.setattr(DA, "_dispatch", counted)
+    sz = smoke.ServeSizes(requests=2, prompt_len=5, tokens=3,
+                          compute="float32", smoke=True)
+    seen = []
+
+    def bitwise(a, b, what):
+        assert_bitwise(a, b, what)
+        seen.append(what)
+    host = M.make_host_mesh(device="cpu")
+    try:
+        sv = smoke.mesh_serve(sz, host, "cpu", bitwise)
+        assert sv["launches"] == sv["n_attn"] * 8 == 16
+        assert "mesh vs meshless step 7 logits" in seen
+        line = smoke.mesh_train(host, "cpu", bitwise, steps=2)
+        assert "float32, 2 steps" in line
+        assert "mesh vs meshless train losses and grad norms" in seen
+    finally:
+        M.release_host_mesh()
+
+
+def _dr(escalated, decisions, scores):
+    n = len(decisions)
+    feats = np.stack([np.asarray(scores, np.float32),
+                      np.zeros(n, np.float32)], 1)
+    return {"escalated": escalated, "stored": n - escalated, "dropped": 0,
+            "features": feats, "decisions": decisions}
+
+
+def test_launch_phase_holds_a_flip_to_the_threshold(smoke):
+    """A disaster-recovery decision may differ card against CPU only
+    where its score lies within the tolerance of the threshold."""
+    launches = {"armatch": 0, "hilbert": 0}
+    cpu = {("disaster_recovery_torch", "bfloat16"): (_dr(
+        1, ["escalated", "stored"], [3.2, 3.0]), launches)}
+    near = {("disaster_recovery_torch", "bfloat16"): (_dr(
+        0, ["stored", "stored"], [3.19, 3.0]), launches)}
+    line, = smoke._compare_examples(near, cpu)
+    assert "1 decision(s) differ" in line
+    far = {("disaster_recovery_torch", "bfloat16"): (_dr(
+        1, ["escalated", "escalated"], [3.2, 3.0]), launches)}
+    with pytest.raises(RuntimeError, match="away from the threshold"):
+        smoke._compare_examples(far, cpu)
+
+
+@pytest.mark.parametrize("score", [2.5, float("nan")])
+def test_launch_phase_fails_on_scores_off_the_cpu(smoke, score):
+    """A score off the CPU's fails the comparison, beside a feature that
+    is 0 on both sides, and so does a NaN."""
+    launches = {"armatch": 0, "hilbert": 0}
+    cpu = {("disaster_recovery_torch", "float32"): (_dr(
+        0, ["stored", "stored"], [3.0, 2.0]), launches)}
+    card = {("disaster_recovery_torch", "float32"): (_dr(
+        0, ["stored", "stored"], [3.0, score]), launches)}
+    with pytest.raises(RuntimeError, match="features off the CPU"):
+        smoke._compare_examples(card, cpu)

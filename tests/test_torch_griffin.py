@@ -156,8 +156,16 @@ def test_rglru_block_forward_then_decode_matches(compute):
 
 
 def test_rglru_probe_mode_is_refused():
-    cfg = G.RGLRUConfig(d_rnn=DR, probe=True)
-    p = G.init_rglru_block(torch.Generator().manual_seed(0), D, cfg,
-                           torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="probe"):
-        G.rglru_block_apply(p, torch.zeros((1, 2, D)), cfg)
+    """Probe mode, refused before the dry run was ported, now runs the
+    reference's loop-free stand-in: the output and state equal the
+    reference's probe branch (float32, 1e-5)."""
+    rng = np.random.default_rng(3)
+    jcfg = JG.RGLRUConfig(d_rnn=DR, chunk=8, probe=True)
+    tcfg = G.RGLRUConfig(d_rnn=DR, chunk=8, probe=True)
+    jp, tp, _, _ = _pair(_params(rng, jcfg), "float32")
+    x = rng.standard_normal((B, T, D)).astype(np.float32)
+    want, ws = JG.rglru_block_apply(jp, jnp.asarray(x), jcfg)
+    got, gs = G.rglru_block_apply(tp, torch.from_numpy(x), tcfg)
+    _close(got, want, "float32")
+    for k in ("h", "conv"):
+        _close(gs[k], ws[k], "float32")

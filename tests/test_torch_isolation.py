@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``repro_torch``, and nothing
-``chip_smoke.py`` imports, may load ``jax`` or the JAX package
-``repro`` (the machine with the card has no JAX)."""
+"""The port stands alone: no module of ``repro_torch``, nothing
+``chip_smoke.py`` imports and no ``examples/*_torch.py`` may load
+``jax`` or the JAX package ``repro`` (the machine with the card has no
+JAX)."""
 import ast
 import os
 import subprocess
@@ -37,6 +38,9 @@ TRAIN_SLICE = ("repro_torch.optim", "repro_torch.optim.adamw",
                "repro_torch.optim.schedule", "repro_torch.checkpoint",
                "repro_torch.checkpoint.manager", "repro_torch.data.pipeline",
                "repro_torch.runtime.compression", "repro_torch.launch.train")
+LAUNCH_SLICE = tuple(f"repro_torch.launch.{m}" for m in (
+    "mesh", "specs", "shardctx", "sharding", "hlo", "probe", "dryrun")) \
+    + ("repro_torch.kernels.dedupe_window.ref",)
 
 
 def test_every_port_module_imports_without_jax_or_repro():
@@ -48,6 +52,7 @@ def test_every_port_module_imports_without_jax_or_repro():
     walked = set(r.stdout.splitlines()[1].split())
     assert set(CONTROL_SLICE) <= walked
     assert set(TRAIN_SLICE) <= walked
+    assert set(LAUNCH_SLICE) <= walked
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -67,3 +72,16 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
     roots = _imported_roots(ROOT / "chip_smoke.py")
     assert "repro_torch" in roots
     assert not roots & {"jax", "jaxlib", "repro", "__import__"}, roots
+
+
+def test_torch_examples_import_neither_jax_nor_repro():
+    twins = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert [p.name for p in twins] == [
+        "disaster_recovery_torch.py", "edge_stream_analytics_torch.py",
+        "federated_stream_train_torch.py", "fleet_stream_analytics_torch.py",
+        "quickstart_torch.py"]
+    for path in twins:
+        roots = _imported_roots(path)
+        assert "repro_torch" in roots, path.name
+        assert not roots & {"jax", "jaxlib", "repro", "__import__"}, \
+            (path.name, roots)

@@ -1,0 +1,29 @@
+"""The port's dry run on the 2 x 16 x 16 mesh without probes (the
+reference's only multi-pod mode) for yi_6b: every shape's
+``run_cell`` analyses the whole deploy step (8 microbatches for
+training) on ``meta`` tensors and is ``OK`` (``SKIP`` for a
+full-attention architecture at ``long_500k``); the work counted
+agrees with the model's own FLOPs.  One architecture a file: a
+full-depth step takes tens of seconds to count."""
+import pytest
+
+from repro.configs.registry import SHAPES
+from repro_torch.configs.registry import get_config, shape_applicable
+from repro_torch.launch import dryrun
+
+ARCH = "yi_6b"
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_multi_pod_cell_is_ok_or_skip(shape):
+    rec = dryrun.run_cell(ARCH, shape, True, verbose=False)
+    if not shape_applicable(get_config(ARCH), shape):
+        assert rec["status"] == "SKIP", rec
+        return
+    assert rec["status"] == "OK", rec.get("traceback", rec)
+    assert rec["mesh"] == "2x16x16" and "probe" not in rec
+    assert rec["collective_bytes"] is None
+    assert rec["roofline"]["collective_counted"] is False
+    # the whole program does at least the model's FLOPs (remat and the
+    # attention scores add more)
+    assert 0.0 < rec["useful_flops_ratio"] <= 1.0, rec

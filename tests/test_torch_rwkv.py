@@ -124,8 +124,19 @@ def test_wkv_step_matches():
 
 
 def test_rwkv_probe_mode_is_refused():
-    cfg = W.RWKVConfig(n_heads=H, d_head=DH, decay_lora=8, probe=True)
-    p = W.init_time_mix(torch.Generator().manual_seed(0), D, cfg,
-                        torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="probe"):
-        W.time_mix_apply(p, torch.zeros((1, 2, D)), cfg)
+    """Probe mode, refused before the dry run was ported, now runs the
+    reference's loop-free stand-in: the output and state equal the
+    reference's probe branch (float32, 1e-5)."""
+    rng = np.random.default_rng(4)
+    kw = dict(n_heads=H, d_head=DH, decay_lora=8, chunk=8, probe=True)
+    jcfg, tcfg = JW.RWKVConfig(**kw), W.RWKVConfig(**kw)
+    shapes = JW.init_time_mix(jax.random.PRNGKey(0), D, jcfg, jnp.float32)
+    p = _random_like(rng, shapes)
+    p["w_base"] = p["w_base"] - 1.0
+    jp, tp = _pair(p, "float32")
+    x = rng.standard_normal((B, T, D)).astype(np.float32)
+    want, ws = JW.time_mix_apply(jp, jnp.asarray(x), jcfg)
+    got, gs = W.time_mix_apply(tp, torch.from_numpy(x), tcfg)
+    _close(got, want, "float32")
+    for k in ("shift", "wkv"):
+        _close(gs[k], ws[k], "float32")
