@@ -177,7 +177,10 @@ launch counts include the replays' and the warm-up's:
    ``mesh_launches``); and the dry run's probe sweep (``python -m
    repro_torch.launch.dryrun --arch all --shape all --probe``, on
    ``meta``, host only, in a third process): every applicable cell OK
-   and every other SKIP, one line a cell, its seconds.
+   with its collectives counted (``collective_bytes`` > 0, the
+   roofline's collective term with them) and every other SKIP, one line
+   a cell with its collective GiB and the roofline's dominant term, its
+   seconds.
 
 The line before the last is a JSON object of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -3412,8 +3415,10 @@ def _gib(rec: dict, key: str) -> str:
 
 
 def dryrun_lines(out_dir: Path) -> list:
-    """The single-pod probe sweep's records: every applicable cell OK,
-    every other SKIP (the reference's rule); one line a cell."""
+    """The single-pod probe sweep's records: every applicable cell OK
+    with its collectives counted, every other SKIP (the reference's
+    rule); one line a cell, with the whole program's collective GiB and
+    the roofline's three terms and the dominant one."""
     from repro_torch.configs.registry import (ARCH_IDS, SHAPES, get_config,
                                               shape_applicable)
     lines = []
@@ -3430,13 +3435,26 @@ def dryrun_lines(out_dir: Path) -> list:
                 lines.append(f"phase 11 dryrun {arch} {shape}: SKIP "
                              f"({rec['reason']})")
                 continue
+            terms = rec["roofline"]
+            if not (rec["collective_bytes"] > 0 and rec["collectives"]
+                    and terms["collective_counted"]):
+                _fail(f"dry run {arch} {shape}: collectives not counted: "
+                      f"{rec['collectives']}")
             lines.append(
                 f"phase 11 dryrun {arch} {shape} 16x16: OK, GiB a device "
                 f"params {_gib(rec, 'param_bytes_per_device')} optimizer "
                 f"{_gib(rec, 'opt_bytes_per_device')} cache "
                 f"{_gib(rec, 'cache_bytes_per_device')}, flops "
                 f"{rec['flops']:.4e}, useful_flops_ratio "
-                f"{rec['useful_flops_ratio']:.4f}")
+                f"{rec['useful_flops_ratio']:.4f}, collectives "
+                f"{_gib(rec, 'collective_bytes')} GiB the whole program ("
+                + ", ".join(f"{k} {v['count']}" for k, v in
+                            sorted(rec["collectives"].items()))
+                + f" ops a device), roofline ms compute "
+                f"{terms['compute_s'] * 1e3:.3f} memory "
+                f"{terms['memory_s'] * 1e3:.3f} collective "
+                f"{terms['collective_s'] * 1e3:.3f}, dominant "
+                f"{terms['dominant']}")
     return lines
 
 

@@ -5,5 +5,7 @@ registry) and training (``train.py``); the step functions both build
 abstract production meshes), the partition rules (``sharding.py``) and
 the activation-constraint context (``shardctx.py``); and the analytic
 dry run (``dryrun.py``: per-device bytes, the work of a step counted on
-``meta`` tensors, ``probe.py``'s per-kind decomposition, the inputs of
-``specs.py``; ``hlo.py`` reads HLO text as the reference does)."""
+``meta`` tensors, its collectives placed by ``partition.py``,
+``probe.py``'s per-kind decomposition, the inputs of ``specs.py``;
+``hlo.py`` reads HLO text as the reference does and partition events
+in the same format)."""

@@ -11,17 +11,15 @@ and compiles:
   ``meta`` tensors, the whole (unsharded) program -- the deploy step
   with ``num_microbatches``, or with ``--probe`` the per-kind probes
   of ``launch.probe`` (one microbatch);
+* ``collectives`` (per device, by kind), ``collective_bytes`` (the
+  whole program's) and ``collective_groups`` (the mesh axes each kind
+  runs over): ``launch.partition``'s collectives, counted in the same
+  pass from ``launch.sharding``'s specs;
 * ``model_flops`` (6*N*D train, 2*N*D otherwise, N the active
   parameters), the roofline at the H100 constants of ``launch.mesh``
-  and ``useful_flops_ratio``.
+  (all three terms) and ``useful_flops_ratio``.
 
-Collective bytes are not counted (``collectives`` and
-``collective_bytes`` are ``None``, and the roofline's collective term
-is 0 and marked uncounted): the reference reads them from the HLO that
-XLA's SPMD partitioner writes; the port has no partitioner, and
-``DTensor`` refuses to run the models on the production mesh (it will
-not split a ``[B, T, Hkv*128]`` projection into 4 or 8 KV heads over
-16 ranks, where XLA pads).  Nothing here runs on a card.
+Nothing here runs on a card.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi_34b \\
       --shape train_4k
@@ -45,9 +43,11 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.probe import opt_spec as _opt_spec
 
 NOTES = ("flops and bytes: obs.costmodel.analyze of the whole (unsharded) "
-         "step on meta tensors; collective bytes not counted: the port has "
-         "no SPMD partitioner, and DTensor refuses the uneven KV-head "
-         "shardings (4 or 8 heads over 16 ranks) that XLA pads")
+         "step on meta tensors; collectives: launch.partition's placements, "
+         "seeded from launch.sharding's specs and propagated forward through "
+         "the same pass, each collective counted on its own in launch.hlo's "
+         "operand convention, where XLA propagates both ways and merges "
+         "independent collectives into one op")
 
 
 def model_flops(cfg, shape_name: str) -> float:
@@ -128,19 +128,21 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             rec["probe"] = probe_mod.probe_roofline(
                 arch, shape_name, multi_pod=False,
                 sequence_shard=sequence_shard, verbose=verbose)
-            rec["flops"] = rec["probe"]["flops"]
-            rec["bytes"] = rec["probe"]["bytes"]
-            rec["roofline"] = rec["probe"]["roofline"]
+            cost = rec["probe"]
         else:
             cost = probe_mod._lower_cost(
                 cfg, kind, args, mesh, sequence_shard=sequence_shard,
                 num_microbatches=num_microbatches)
-            rec["flops"], rec["bytes"] = cost["flops"], cost["bytes"]
-            rec["roofline"] = probe_mod.roofline(rec["flops"], rec["bytes"],
-                                                 mesh.size)
+            cost["roofline"] = probe_mod.roofline(
+                cost["flops"], cost["bytes"], cost["collective_bytes"],
+                mesh.size)
+        rec["flops"], rec["bytes"] = cost["flops"], cost["bytes"]
+        rec["collectives"] = cost["collectives"]
+        rec["collective_bytes"] = cost["collective_bytes"]
+        if "groups" in cost:
+            rec["collective_groups"] = cost["groups"]
+        rec["roofline"] = cost["roofline"]
         rec["analyze_s"] = round(time.time() - t0, 1)
-        rec["collectives"] = None
-        rec["collective_bytes"] = None
         rec["notes"] = NOTES
         rec["useful_flops_ratio"] = mf / rec["flops"] if rec["flops"] else None
         rec["status"] = "OK"

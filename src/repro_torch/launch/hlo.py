@@ -1,9 +1,10 @@
 """HLO text analysis: collective bytes and roofline terms.
 
-Port of ``repro.launch.hlo``, pure Python with no XLA behind it: the
-port has no SPMD partitioner and no HLO of its own (the dry run counts
-work with ``obs.costmodel.analyze``), so these read HLO text another
-tool wrote, as the reference reads it.
+Port of ``repro.launch.hlo``, pure Python with no XLA behind it.  The
+port writes no HLO: its dry run counts work with
+``obs.costmodel.analyze`` and collectives with ``launch.partition``,
+whose events :func:`stats_from_events` reads; :func:`collective_stats`
+reads HLO text another tool wrote.
 
 Collective *operand* bytes per op kind (what actually crosses links):
   all-reduce / all-to-all / collective-permute: result size
@@ -11,6 +12,14 @@ Collective *operand* bytes per op kind (what actually crosses links):
   reduce-scatter:  result * group_size   (each rank offers the full input)
 A static text scan counts a while-loop body once, whatever its trip
 count.
+
+One difference from the reference's scan: a synchronous collective
+whose result is a tuple (XLA's combiners merge independent all-reduces
+into one; an all-to-all may carry one operand a peer) counts every
+element of the tuple, where the reference counts only the last (its rule
+for an async ``-start`` tuple, whose last element is the result) and
+misses a tuple of more than five elements altogether (the
+``/*index=5*/`` comment XLA writes inside it stops its pattern).
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                 "collective-permute")
 
 _SHAPE_RE = re.compile(r"([a-z0-9]+)\[([0-9,]*)\]")
+_INDEX_RE = re.compile(r"/\*index=\d+\*/")
 _OP_RE = re.compile(
     r"=\s+(\([^=]*?\)|[a-z0-9]+\[[0-9,]*\]\S*)\s+"
     r"(all-gather|all-reduce|reduce-scatter|all-to-all|collective-permute)"
@@ -43,11 +53,11 @@ def _shape_bytes(dtype: str, dims: str) -> int:
     return n * _DTYPE_BYTES.get(dtype, 4)
 
 
-def _result_bytes(result_str: str) -> int:
+def _result_bytes(result_str: str, start: bool = True) -> int:
     shapes = _SHAPE_RE.findall(result_str)
     if not shapes:
         return 0
-    if result_str.startswith("("):          # async-start tuple: last = result
+    if start and result_str.startswith("("):    # async-start: last = result
         shapes = shapes[-1:]
     return sum(_shape_bytes(dt, dims) for dt, dims in shapes)
 
@@ -66,22 +76,33 @@ def collective_stats(hlo_text: str) -> dict:
     """Sum operand bytes of every collective op (static text scan).
 
     Returns {op_kind: {"count", "bytes"}, "total_bytes": int}."""
-    stats: dict = {k: {"count": 0, "bytes": 0} for k in _COLLECTIVES}
+    events = []
     for line in hlo_text.splitlines():
-        m = _OP_RE.search(line)
+        m = _OP_RE.search(_INDEX_RE.sub("", line))
         if not m:
             continue
-        kind = m.group(2)
-        rb = _result_bytes(m.group(1))
-        gs = _group_size(line)
-        if kind == "all-gather":
-            b = rb // max(gs, 1)
-        elif kind == "reduce-scatter":
-            b = rb * gs
-        else:
-            b = rb
+        events.append((m.group(2), _result_bytes(m.group(1), bool(m.group(3))),
+                       _group_size(line)))
+    return stats_from_events(events)
+
+
+def operand_bytes(kind: str, result_bytes: int, group: int) -> int:
+    """A collective's operand bytes from its result's (the module's
+    convention)."""
+    if kind == "all-gather":
+        return result_bytes // max(group, 1)
+    if kind == "reduce-scatter":
+        return result_bytes * group
+    return result_bytes
+
+
+def stats_from_events(events) -> dict:
+    """:func:`collective_stats`'s dict from ``(kind, result bytes, group
+    size)`` events, one a collective op."""
+    stats: dict = {k: {"count": 0, "bytes": 0} for k in _COLLECTIVES}
+    for kind, rb, gs in events:
         stats[kind]["count"] += 1
-        stats[kind]["bytes"] += b
+        stats[kind]["bytes"] += operand_bytes(kind, rb, gs)
     stats["total_bytes"] = sum(v["bytes"] for v in stats.values()
                                if isinstance(v, dict))
     return stats

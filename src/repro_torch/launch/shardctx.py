@@ -7,7 +7,8 @@ tensor, :func:`constrain` returns its input as it is: it reads one
 context variable and allocates nothing, so the graphed decode step and
 tick are what they were without it.  On a ``DTensor`` inside a context
 it redistributes to the placements the template resolves to on the
-context's ``DeviceMesh``.
+context's ``DeviceMesh``; while a ``launch.partition`` pass runs (the
+dry run's, on ``meta``) it moves the tensor's placement there.
 """
 from __future__ import annotations
 
@@ -79,17 +80,33 @@ def resolve(spec_template: tuple, shape: tuple) -> tuple | None:
 
 def constrain(x, spec_template: tuple):
     """Generic activation constraint (see :func:`resolve`): a ``DTensor``
-    is redistributed to the resolved spec's placements; anything else,
-    and anything outside a context, is returned unchanged."""
+    is redistributed to the resolved spec's placements, and under a
+    partition pass a tensor's placement moves to it; anything else, and
+    anything outside a context, is returned unchanged."""
     ctx = _CTX.get()
     if ctx is None:
         return x
+    from repro_torch.launch import partition
+    part = partition.active()
+    if part is not None:
+        return part.constrain(x, resolve(spec_template, tuple(x.shape)))
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
     from repro_torch.launch.sharding import placements
     spec = resolve(spec_template, tuple(x.shape))
     return x.redistribute(ctx["mesh"], placements(spec, ctx["mesh"]))
+
+
+def scan_carry(x, leaving: bool = False):
+    """The reference runs the layers as a scan, whose carry enters with
+    the sharding the body gives it on the way out.  Under a partition
+    pass, ``x`` entering the layers moves to the placement an earlier
+    pass of the same step saw it leave with (``leaving``: record it);
+    anything else returns ``x`` as it is."""
+    from repro_torch.launch import partition
+    part = partition.active()
+    return x if part is None else part.carry(x, leaving)
 
 
 def dp_axes() -> tuple | None:

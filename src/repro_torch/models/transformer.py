@@ -461,6 +461,9 @@ def forward(cfg: ArchConfig, model: Transformer, batch: dict, *,
     x, positions = _embed(cfg, model, batch)
     caches = [] if want_caches else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # the reference's layers are a scan, whose carry enters with the
+    # sharding the body gives it on the way out
+    x = shardctx.constrain_residual(x)
     for layer in model.layers:
         x, c, stats = L.remat(_layer_call, model, layer, x, positions)
         # residual-stream constraint (sequence parallelism when active);
@@ -530,7 +533,9 @@ def decode_step(cfg: ArchConfig, model: Transformer, tokens: torch.Tensor,
     else:
         positions = lengths[:, None]
     x, _ = _embed(cfg, model, {"tokens": tokens}, positions=positions)
+    x = shardctx.scan_carry(x)
     for layer, cache in zip(model.layers, caches):
         x, _, _ = _layer_call(model, layer, x, positions, cache, lengths,
                               use_kernel=use_kernel)
+    x = shardctx.scan_carry(x, leaving=True)
     return _logits(cfg, model, x)[:, 0, :], caches, lengths + 1

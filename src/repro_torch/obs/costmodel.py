@@ -33,6 +33,11 @@ and reads XLA's ``cost_analysis()`` and the compiled HLO's
   costs the same on the card and on the CPU (where the body is the
   plain version).  Its operations count as FLOPs.
 
+Given a ``launch.partition.Partition``, the same pass gives every
+tensor a placement on a mesh and counts the collectives the step would
+need there (the dry run's); a kernel wrapper's plain body is propagated
+through, though not counted.
+
 Each count lands on the innermost ``obs:*`` span open at that moment on
 the given recording ``Tracer`` (the executors' stage spans,
 :data:`repro_torch.obs.trace.DEVICE_STAGES`), as the reference
@@ -250,9 +255,10 @@ class _Counter(TorchDispatchMode):
     rebuilds its results from their shapes, so a step's thousands of
     identical recurrence steps skip PyTorch's shape functions."""
 
-    def __init__(self, an: _Analysis):
+    def __init__(self, an: _Analysis, partition=None):
         super().__init__()
         self.an = an
+        self.part = partition
         self.memo: dict = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -273,10 +279,12 @@ class _Counter(TorchDispatchMode):
                 self.memo[key] = spec
         if not self.an.paused:
             self.an.count(func, args, kwargs, out)
+        if self.part is not None:
+            self.part.propagate(func, args, kwargs, out)
         return out
 
 
-def analyze(fn, *args, tracer=None, **kwargs) -> dict:
+def analyze(fn, *args, tracer=None, partition=None, **kwargs) -> dict:
     """Run ``fn(*args, **kwargs)`` once and count its cost; returns::
 
         {"flops": float, "bytes_accessed": float, "transcendentals":
@@ -288,17 +296,30 @@ def analyze(fn, *args, tracer=None, **kwargs) -> dict:
     opens; each operation lands on the innermost ``obs:*`` span open at
     the time (stage keys appear only for stages that ran).  ``kernels``
     holds what each hand-kernel wrapper reported.  ``fn`` really runs:
-    hand it copies of any state it writes in place."""
+    hand it copies of any state it writes in place.  ``partition``: a
+    ``launch.partition.Partition`` whose seeds ``args`` carry; the
+    result then adds its ``"collectives"`` (``hlo.collective_stats``'s
+    dict, per device)."""
     if _ACTIVE:
         raise RuntimeError("analyze() does not nest")
     an = _Analysis(tracer)
     _ACTIVE.append(an)
+    if partition is not None:
+        from repro_torch.launch import partition as part_mod
+        part_mod._ACTIVE.append(partition)
     try:
-        with _Counter(an):
-            fn(*args, **kwargs)
+        with _Counter(an, partition):
+            out = fn(*args, **kwargs)
+        if partition is not None:
+            partition.finish(out)
     finally:
         _ACTIVE.pop()
-    return an.result()
+        if partition is not None:
+            part_mod._ACTIVE.pop()
+    res = an.result()
+    if partition is not None:
+        res["collectives"] = partition.stats()
+    return res
 
 
 def roofline(flops: float, bytes_accessed: float, seconds: float,

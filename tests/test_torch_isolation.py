@@ -39,7 +39,8 @@ TRAIN_SLICE = ("repro_torch.optim", "repro_torch.optim.adamw",
                "repro_torch.checkpoint.manager", "repro_torch.data.pipeline",
                "repro_torch.runtime.compression", "repro_torch.launch.train")
 LAUNCH_SLICE = tuple(f"repro_torch.launch.{m}" for m in (
-    "mesh", "specs", "shardctx", "sharding", "hlo", "probe", "dryrun")) \
+    "mesh", "specs", "shardctx", "sharding", "partition", "hlo", "probe",
+    "dryrun")) \
     + ("repro_torch.kernels.dedupe_window.ref",)
 
 

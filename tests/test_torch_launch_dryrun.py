@@ -8,15 +8,19 @@
   worker.
 * ``run_cell(..., probe=True)`` on the 16 x 16 mesh is ``OK`` for every
   applicable cell and ``SKIP`` for ``long_500k`` on the full-attention
-  architectures, with the record's keys (collective bytes uncounted,
-  as ``notes`` says).
+  architectures, with the record's keys: the collectives counted, and
+  the roofline's collective term with them.
 * ``hlo.collective_stats`` and ``roofline_terms`` equal the reference's
   on fixed HLO lines: an all-gather, a reduce-scatter, an async
-  ``-start`` tuple, an all-reduce, and both replica-group syntaxes.
+  ``-start`` tuple, an all-reduce, and both replica-group syntaxes; a
+  synchronous tuple (XLA's combined all-reduce) counts every element,
+  where the reference counts the last, and one of more than five
+  elements is read, where the reference misses it.
 * The probe's decomposition is exact: at each family's smoke config and
   a small train, prefill and decode shape, P0 + sum_k (Pk - P0) * n_k of
-  ``analyze`` equals ``analyze`` of the whole step, FLOPs and bytes
-  equal, with the recurrences in their real (``probe=False``) form.
+  ``analyze`` equals ``analyze`` of the whole step, FLOPs, bytes and
+  collective bytes equal, with the recurrences in their real
+  (``probe=False``) form.
 """
 import dataclasses
 import json
@@ -70,12 +74,18 @@ def test_probe_cells_are_ok_or_skip(arch):
         assert rec["status"] == "OK", rec.get("traceback", rec)
         assert rec["flops"] == rec["probe"]["flops"] > 0
         assert rec["bytes"] == rec["probe"]["bytes"] > 0
-        assert rec["collectives"] is None and rec["collective_bytes"] is None
-        assert "collective bytes not counted" in rec["notes"]
+        assert rec["collective_bytes"] == rec["probe"]["collective_bytes"]
+        assert rec["collective_bytes"] > 0
+        assert rec["collectives"] and all(
+            v["count"] > 0 and v["bytes"] > 0
+            for v in rec["collectives"].values())
+        assert "launch.partition" in rec["notes"]
         terms = rec["roofline"]
-        assert terms["collective_s"] == 0.0
-        assert terms["collective_counted"] is False
-        assert terms["bound_s"] == max(terms["compute_s"], terms["memory_s"])
+        assert terms["collective_counted"] is True
+        assert terms["collective_s"] == \
+            rec["collective_bytes"] / (256 * ICI_BW) > 0
+        assert terms["bound_s"] == max(terms["compute_s"], terms["memory_s"],
+                                       terms["collective_s"])
         assert terms["compute_s"] == rec["flops"] / (256 * PEAK_FLOPS_BF16)
         assert rec["useful_flops_ratio"] == rec["model_flops"] / rec["flops"]
         assert rec["param_bytes_per_device"] > 0
@@ -98,6 +108,17 @@ HLO_LINES = "\n".join([
     "  %cp = u8[100]{0} collective-permute(u8[100]{0} %v), "
     "source_target_pairs={{0,1}}",
     "  %add = f32[] add(f32[] %a, f32[] %b)",
+])
+
+
+#: synchronous tuples as XLA's combiners write them (f32[8], f32[4] and
+#: f32[]: 52 bytes; and six elements with the ``/*index=5*/`` comment)
+TUPLE_LINES = "\n".join([
+    "  %ar3 = (f32[8]{0}, f32[4]{0}, f32[]) all-reduce(%a, %b, %c), "
+    "replica_groups=[2,4]<=[8], to_apply=%add",
+    "  %ar6 = (f32[2]{0}, f32[2]{0}, f32[2]{0}, f32[2]{0}, f32[2]{0}, "
+    "/*index=5*/f32[2]{0}) all-reduce(%a, %b, %c, %d, %e, /*index=5*/%f), "
+    "replica_groups=[2,4]<=[8], to_apply=%add",
 ])
 
 
@@ -145,12 +166,27 @@ def test_probe_decomposition_equals_the_whole_step(arch):
     cfg = smoke_config(arch)
     mesh = make_production_mesh()
     for kind, b, s in STEPS:
-        def cost(c):
+        def cost(c, **kw):
             c = _unprobed(c)
             return probe._lower_cost(c, kind, _args(c, kind, b, s), mesh,
-                                     sequence_shard=True)
+                                     sequence_shard=True, **kw)
         _, per_kind, total = probe.decompose(cfg, s, cost)
         whole = cost(cfg)
         assert sum(k["count"] for k in per_kind.values()) == cfg.n_layers
         for m in probe.METRICS:
             assert total[m] == whole[m], (kind, m, total[m], whole[m])
+
+
+def test_hlo_stats_count_every_element_of_a_tuple():
+    """Where the reference's scan counts a combined all-reduce by its last
+    element (4 bytes) and misses one of six, the port's counts 52 + 48."""
+    ref = RH.collective_stats(TUPLE_LINES)["all-reduce"]
+    assert ref == {"count": 1, "bytes": 4}
+    assert hlo.collective_stats(TUPLE_LINES)["all-reduce"] == \
+        {"count": 2, "bytes": 52 + 48}
+    events = [("all-gather", 64, 4), ("reduce-scatter", 8, 2),
+              ("all-to-all", 16, 4)]
+    st = hlo.stats_from_events(events)
+    assert st["all-gather"] == {"count": 1, "bytes": 16}
+    assert st["reduce-scatter"] == {"count": 1, "bytes": 16}
+    assert st["total_bytes"] == 16 + 16 + 16
