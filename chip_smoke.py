@@ -180,7 +180,33 @@ launch counts include the replays' and the warm-up's:
    with its collectives counted (``collective_bytes`` > 0, the
    roofline's collective term with them) and every other SKIP, one line
    a cell with its collective GiB and the roofline's dominant term, its
-   seconds.
+   seconds;
+12. the port across ranks: one rank a card, up to 4 (cut to 1, 2 or 4,
+   the counts that divide 8 shards), each a process of
+   ``launch.mesh.spawn`` on NCCL, every check failing the run: phase 7's
+   fleet at full width (8 shards in 2 regions of 4, 65,536 rows a shard
+   a tick, a 2^22-row ring), fused and staged, laid over the ranks
+   (``FleetExecutor(mesh=rank_mesh(...))``), 16 graphed ticks with a
+   health and a membership flip and both budgets cut after the capture,
+   under phase 10's fake clock: every output row, the final state, the
+   lineage banks and the fleet counters equal to the same fleet on one
+   card (run first in this process) bitwise, through 64-bit digests of
+   each row; the fused run eager too (``capture.disable()``), equal;
+   ``trace_count`` 1 and ``_compile_count`` 1 on every rank, fused_tick
+   ``8 / N`` and window_reduce ``40 / N`` launches a tick on each; then
+   the AR exchange: each rank's 65,536 posts a step indexed through
+   the hilbert kernel and routed by ``route_and_deliver(group=)`` over a
+   ``(pod, data)`` mesh, ``(2, N / 2)`` (``(1, 1)`` on one card), equal
+   to the stacked one-card form bitwise over 2 steps, hilbert once a
+   step on each rank; and the cross-pod all-reduce of a float32
+   gradient tree of one Yi-6B layer's shapes over each rank's pod
+   group, equal to the dim-0 form bitwise.  It prints the rank count and
+   the backend, each path's p50/p99 tick, step or call ms (the slowest
+   rank's), the device busy share, the bytes each rank sends a tick,
+   and the card's name and power limit; the ranks' launches join the
+   fused_tick, window_reduce and hilbert entries of the kernels line as
+   ``rank_launches``.  ``python3 chip_smoke.py --phase12`` runs phase 1's
+   build and this phase alone (the four-card run).
 
 The line before the last is a JSON object of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -234,10 +260,11 @@ def _fail(msg: str):
 
 
 def _card_line() -> str:
-    return subprocess.run(
+    """``nvidia-smi``'s name and power limit, one card's after another."""
+    return "; ".join(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
+        check=True, capture_output=True, text=True).stdout.split("\n")[:-1])
 
 
 def _device_events(prof, tag: str, after: str | None = None) -> list[dict]:
@@ -1557,6 +1584,8 @@ def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
     run_graph_phase(sz, serve_sz, FLEET, device)
     _free()
     run_launch_phase(MESH_SERVE, device, kernels["kernels"])
+    _free()
+    run_ranks_phase(sz, FLEET, device, kernels["kernels"])
     return kernels
 
 
@@ -1717,10 +1746,11 @@ FLEET_CORE = ("tanh/matmul rounding differs between CPU and CUDA "
 
 def make_fleet(sz: Sizes, fz: FleetSizes, device, fused=True, regions=None,
                edges=None, num_core=None, core_budget=None,
-               fog_budget=-1, drop_rule=False):
+               fog_budget=-1, drop_rule=False, mesh=None):
     """A fleet of ``regions x edges`` shards (``fz``'s by default) at the
     single tick's per-shard config and core stand-in; ``fog_budget=None``
-    is non-binding; ``drop_rule`` adds :data:`DROP_RULE` to the rules."""
+    is non-binding; ``drop_rule`` adds :data:`DROP_RULE` to the rules;
+    ``mesh``: laid over its ranks (this rank's rows)."""
     from repro_torch import convert
     from repro_torch.core import pipeline as P
     from repro_torch.core import rules as R
@@ -1745,7 +1775,7 @@ def make_fleet(sz: Sizes, fz: FleetSizes, device, fused=True, regions=None,
         num_core=fz.num_core if num_core is None else num_core,
         core_budget=fz.core_budget if core_budget is None else core_budget,
         fog_budget=fz.fog_budget if fog_budget == -1 else fog_budget),
-        engine, pipe, device=device)
+        engine, pipe, device=device, mesh=mesh)
     return fx, fx.init_state(sz.d)
 
 
@@ -3556,14 +3586,528 @@ def run_launch_phase(sz: ServeSizes, device, rows: list) -> None:
     print(f"phase 11: {time.perf_counter() - t0:.1f} s; {card}")
 
 
-def main() -> int:
+# ---- phase 12: the fleet, the AR exchange and the all-reduce across ranks --
+
+#: ticks a fleet path runs across the ranks (phase 10's feed: a health
+#: and a membership flip at tick 5, both budgets cut at 9, back at 12)
+RANK_TICKS = 16
+#: AR route steps a rank times, each of phase 3's 65,536 posts
+RANK_AR_STEPS = 16
+#: calls of the cross-pod all-reduce a rank times
+RANK_ALLREDUCE_REPS = 4
+#: the ranks' routing capacity a (source, destination) pair: twice the
+#: mean share of a rank's posts, as phase 3's 4x of 256 ranks is
+RANK_AR_FACTOR = 2
+
+
+def phase12_ranks() -> int:
+    """One rank a card, up to 4, cut to 1, 2 or 4 (the counts that
+    divide the fleet's 8 shards)."""
+    n = torch.cuda.device_count()
+    return 4 if n >= 4 else 2 if n >= 2 else 1
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _digest(t: torch.Tensor) -> int:
+    """A 64-bit digest of ``t``'s bytes, computed on its device: the
+    bytes as int64 words (zero-padded), each times an odd weight from a
+    fixed generator, summed modulo 2^64.  Any one flipped bit changes
+    it; two tensors on different ranks are held bitwise equal through
+    their digests."""
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    b = torch.nn.functional.pad(b, (0, -b.numel() % 8))
+    words = b.view(torch.int64)
+    k = 1 << 16
+    words = torch.nn.functional.pad(words, (0, -words.numel() % k))
+    words = words.view(-1, k)
+    key = (str(t.device), words.shape[0])
+    if key not in _DIGEST_W:
+        gen = torch.Generator(t.device).manual_seed(24)
+        rows = torch.randint(-2**62, 2**62, (words.shape[0], 1),
+                             generator=gen, device=t.device,
+                             dtype=torch.int64) | 1
+        cols = torch.randint(-2**62, 2**62, (k,), generator=gen,
+                             device=t.device, dtype=torch.int64) | 1
+        _DIGEST_W[key] = rows * cols
+    return int((words * _DIGEST_W[key]).sum())
+
+
+_DIGEST_W: dict = {}
+
+
+def _row_digests(tree) -> dict:
+    """Each tensor leaf of a (named) tuple tree, one digest a shard row
+    (its dim 0), keyed by the leaf's position."""
+    from repro_torch.runtime import capture
+    return {i: [_digest(x[r]) for r in range(x.shape[0])]
+            for i, x in enumerate(capture.flatten(tree)[0])
+            if isinstance(x, torch.Tensor) and x.ndim > 0}
+
+
+def _flip_feed(fx, sz: Sizes, fz: FleetSizes, device, i: int, rows: slice):
+    """Tick ``i`` of phase 10's fleet feed (:func:`graph_fleet`): shard 3
+    unhealthy and shard 6 away for ticks 5-11, the core budget cut to a
+    quarter and the fog budgets to two thirds and a sixth from tick 9;
+    the rows ``rows`` of the batch (every rank draws all 8 shards' from
+    their seeds)."""
+    s = fz.shards
+    if i == 5:
+        fx.set_health([k != 3 for k in range(s)])
+        fx.set_active([k != 6 for k in range(s)])
+    if i == 9:
+        fx.set_core_budget(fz.core_budget // 4)
+        fx.set_region_budget([fz.fog_budget * 2 // 3, fz.fog_budget // 6])
+    if i == 12:
+        fx.set_health([True] * s)
+        fx.set_active([True] * s)
+    items, ts = fleet_batch(sz, fz, i, device)
+    return items[rows], ts[rows]
+
+
+def rank_fleet(sz: Sizes, fz: FleetSizes, device, fused: bool, mesh=None,
+               graphed: bool = True, profile: str | None = None) -> dict:
+    """The fleet of phase 7 over ``mesh``'s ranks (this rank's rows), or
+    on one card (``mesh=None``), :data:`RANK_TICKS` ticks of
+    :func:`_flip_feed` under phase 10's fake clock, each timed between
+    two synchronizes; launch counts zeroed just before and read just
+    after, and the bytes the collectives sent.  Returns the digests of
+    every output row and of the final state, the fleet counters
+    (gathered), the lineage banks, the trace counts and the timing;
+    ``profile``: a tag under which 4 more ticks are profiled."""
+    from contextlib import nullcontext
+    from repro_torch.launch.mesh import COLLECTIVES
+    from repro_torch.runtime import capture
+    restore = _same_clock()
+    try:
+        fx, state = make_fleet(sz, fz, device, fused=fused, mesh=mesh)
+        rows = slice(fx.shard_offset, fx.shard_offset + fx.local_shards)
+        box, outs, secs = [state], [], []
+        zero_launches()
+        sent0 = COLLECTIVES.sent_bytes
+        with nullcontext() if graphed else capture.disable():
+            for i in range(RANK_TICKS):
+                items, ts = _flip_feed(fx, sz, fz, device, i, rows)
+                _sync(device)
+                t0 = time.perf_counter()
+                box[0], out = fx.step(box[0], items, ts)
+                _sync(device)
+                secs.append(time.perf_counter() - t0)
+                outs.append(_row_digests(out))
+            launches = read_launches()
+            sent = COLLECTIVES.sent_bytes - sent0
+            res = dict(outs=outs, state=_row_digests(box[0]),
+                       lineage=_row_digests(fx._lineage),
+                       metrics=fx.gather(box[0].metrics).as_dict(),
+                       trace=fx.trace_count, compiles=fx._compile_count(),
+                       launches=launches, secs=secs,
+                       sent=sent / RANK_TICKS, prof=None)
+            if profile is not None:     # after the record: 4 more ticks
+                def tick(i):
+                    box[0], _ = fx.step(box[0], *_flip_feed(
+                        fx, sz, fz, device, RANK_TICKS + i, rows))
+                res["prof"] = _profile(profile, 4, "tick", tick)
+        return res
+    finally:
+        restore()
+
+
+class RankAR(NamedTuple):
+    table: torch.Tensor         # cell -> rank over the ("pod", "data") mesh
+    pool: torch.Tensor          # [n, 128] data profiles
+    num_ranks: int
+    capacity: int
+
+
+def rank_ar_plane(n: int, mesh_shape: tuple, device) -> RankAR:
+    """The AR exchange's overlay over the ranks' ``(pod, data)`` mesh at
+    phase 3's routing granularity, and phase 3's message pool."""
+    from repro_torch.core.overlay import Overlay
+    from repro_torch.kernels.checks import random_profiles
+    ranks = mesh_shape[0] * mesh_shape[1]
+    table = Overlay.from_mesh_shape(*mesh_shape, capacity=4,
+                                    replication=2).routing_table(
+                                        AR_GRANULARITY)
+    pool = random_profiles(np.random.default_rng(7), n)
+    return RankAR(torch.from_numpy(table).to(device),
+                  torch.from_numpy(pool).to(device), ranks,
+                  RANK_AR_FACTOR * n // ranks)
+
+
+def rank_ar_feed(plane: RankAR, rank: int, step: int):
+    """Rank ``rank``'s posts at ``step``: a permutation of the pool and
+    ``[n, 8]`` payloads, from seed 30,000 + 100 rank + step."""
+    gen = torch.Generator(plane.pool.device).manual_seed(
+        30_000 + 100 * rank + step)
+    n = plane.pool.shape[0]
+    perm = torch.randperm(n, generator=gen, device=plane.pool.device)
+    payload = torch.randn((n, AR_VALUE_DIM), generator=gen,
+                          device=plane.pool.device)
+    return plane.pool[perm], payload
+
+
+def rank_grads(rank: int, device, smoke: bool = False) -> dict:
+    """A float32 gradient tree of one Yi-6B layer's shapes (read from the
+    port's model on ``meta``; ``smoke``: its smoke config's), drawn on
+    ``device`` from seed 40,000 + 100 rank + the leaf's index."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(smoke_config("yi_6b") if smoke
+                              else get_config("yi_6b"), n_layers=1)
+    shapes = {n: tuple(p.shape) for n, p in
+              T.init_params(cfg, device="meta").layers[0].named_parameters()}
+    out = {}
+    for j, (name, shape) in enumerate(sorted(shapes.items())):
+        gen = torch.Generator(device).manual_seed(40_000 + 100 * rank + j)
+        out[name] = torch.randn(shape, generator=gen, device=device) * 1e-3
+    return out
+
+
+def _rank_phase(rank: int, device, sz: Sizes, fz: FleetSizes, n_ar: int,
+                pod_data: tuple, smoke: bool = False) -> dict:
+    """Phase 12 on one rank (``launch.mesh.spawn``, NCCL, this rank's
+    card): the fleet fused (graphed, profiled, then eager) and staged
+    over the ranks' fleet mesh; the AR route step over a ``(pod, data)``
+    mesh, its post indices through the hilbert kernel; the cross-pod
+    all-reduce over this rank's pod group.  Digests, launches, bytes and
+    times come back to the parent."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core import routing, sfc
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import COLLECTIVES
+    from repro_torch.runtime import compression
+    from repro_torch.stream import StreamConfig
+    from repro_torch.stream.fleet import FleetConfig
+    from repro_torch.stream.fleet.executor import rank_mesh
+    card = device.type == "cuda"
+    if card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build_all()               # loads what the parent built
+    res = {"rank": rank, "backend": dist.get_backend(),
+           "card": torch.cuda.get_device_name(device) if card else "cpu"}
+    fmesh = rank_mesh(FleetConfig(
+        stream=StreamConfig(micro_batch=sz.batch, window=sz.window,
+                            stride=sz.stride, capacity=sz.capacity),
+        num_shards=fz.shards, num_regions=fz.regions), device)
+    res["fleet_mesh"] = tuple(fmesh.mesh.shape)
+    res["fused"] = rank_fleet(sz, fz, device, True, fmesh, profile=(
+        f"rank{rank}_fleet_fused" if card else None))
+    res["fused_eager"] = rank_fleet(sz, fz, device, True, fmesh,
+                                    graphed=False)
+    res["staged"] = rank_fleet(sz, fz, device, False, fmesh, profile=(
+        f"rank{rank}_fleet_staged" if card else None))
+    if card:
+        _free()
+
+    # the AR exchange: one rank's posts a step, over every rank
+    mesh = init_device_mesh(device.type, pod_data,
+                            mesh_dim_names=("pod", "data"))
+    plane = rank_ar_plane(n_ar, pod_data, device)
+    world = dist.group.WORLD
+
+    def ar_step(step):
+        keys, payload = rank_ar_feed(plane, rank, step)
+        idx = sfc.profile_index(keys)                       # hilbert
+        return routing.route_and_deliver(payload, idx, plane.table,
+                                         plane.num_ranks, plane.capacity,
+                                         group=world)
+    checked = [ar_step(s) for s in range(2)]     # warm-up, and checked
+    res["ar"] = [(_digest(r), _digest(c), c.cpu().tolist())
+                 for r, c in checked]
+    zero_launches()
+    sent0, secs = COLLECTIVES.sent_bytes, []
+    for s in range(RANK_AR_STEPS):
+        _sync(device)
+        t1 = time.perf_counter()
+        ar_step(2 + s)
+        _sync(device)
+        secs.append(time.perf_counter() - t1)
+    res["ar_launches"] = read_launches()
+    res["ar_secs"] = secs
+    res["ar_sent"] = (COLLECTIVES.sent_bytes - sent0) / RANK_AR_STEPS
+    res["ar_prof"] = _profile(f"rank{rank}_ar", 4, "step",
+                              lambda i: ar_step(100 + i)) if card else None
+    del checked
+    if card:
+        _free()
+
+    # the cross-pod all-reduce over this rank's pod group
+    grads = rank_grads(rank, device, smoke)
+    pod = mesh.get_group("pod")
+    synced, errs = compression.cross_pod_allreduce(
+        grads, compression.init_errors(grads), group=pod)
+    res["allreduce"] = {k: (_digest(synced[k]), _digest(errs[k]))
+                        for k in sorted(grads)}
+    del synced, errs
+    sent0, secs = COLLECTIVES.sent_bytes, []
+    for _ in range(RANK_ALLREDUCE_REPS):
+        errs0 = compression.init_errors(grads)
+        _sync(device)
+        t1 = time.perf_counter()
+        compression.cross_pod_allreduce(grads, errs0, group=pod)
+        _sync(device)
+        secs.append(time.perf_counter() - t1)
+    res["allreduce_secs"] = secs
+    res["allreduce_prof"] = _profile(
+        f"rank{rank}_allreduce", 2, "call",
+        lambda i: compression.cross_pod_allreduce(
+            grads, compression.init_errors(grads), group=pod)) \
+        if card else None
+    res["allreduce_sent"] = (COLLECTIVES.sent_bytes - sent0) \
+        / RANK_ALLREDUCE_REPS
+    res["allreduce_bytes"] = sum(g.numel() * 4 for g in grads.values())
+    res["coords"] = (mesh.get_local_rank("pod"), mesh.get_local_rank("data"))
+    return res
+
+
+def _ranks_stack(parts: list, key: str) -> dict:
+    """The ranks' row digests of one record, concatenated in rank order
+    (rank r holds shards r S/N onward)."""
+    out: dict = {}
+    for p in parts:
+        for i, rows in p[key].items():
+            out.setdefault(i, []).extend(rows)
+    return out
+
+
+def _check_rank_fleet(name: str, one: dict, parts: list,
+                      counted: bool = True) -> None:
+    """The ranks' fleet against the one-card fleet: every output row of
+    every tick, the final state, the lineage banks and the fleet
+    counters; with ``counted``, one signature and one graph on every
+    rank."""
+    def differ(got: dict, want: dict) -> list:
+        """(leaf, shard) of every row digest that differs."""
+        return [(j, r) for j in want for r, d in enumerate(want[j])
+                if got.get(j, [None] * len(want[j]))[r] != d] \
+            or ([] if got.keys() == want.keys() else ["leaves"])
+
+    for i, want in enumerate(one["outs"]):
+        got: dict = {}
+        for p in parts:
+            for j, rows in p["outs"][i].items():
+                got.setdefault(j, []).extend(rows)
+        bad = differ(got, want)
+        if bad:
+            _fail(f"phase 12 {name}: tick {i}'s outputs across "
+                  f"{len(parts)} rank(s) differ from one card's at (leaf, "
+                  f"shard) {bad[:8]}")
+    for key in ("state", "lineage"):
+        bad = differ(_ranks_stack(parts, key), one[key])
+        if bad:
+            _fail(f"phase 12 {name}: the final {key} across ranks differs "
+                  f"from one card's at (leaf, shard) {bad[:8]}")
+    for p in parts:
+        if p["metrics"] != one["metrics"]:
+            _fail(f"phase 12 {name}: fleet counters differ on a rank")
+        if counted and (p["trace"], p["compiles"]) != (1, 1):
+            _fail(f"phase 12 {name}: trace_count {p['trace']}, "
+                  f"_compile_count {p['compiles']} on a rank; want 1, 1")
+
+
+def phase12_mesh(n: int) -> tuple:
+    """The AR exchange's and the all-reduce's ``(pod, data)`` mesh of
+    ``n`` ranks: two pods from 2 ranks on."""
+    return (2, n // 2) if n >= 2 else (1, 1)
+
+
+def phase12_references(sz: Sizes, fz: FleetSizes, device, n: int,
+                       n_ar: int, smoke: bool = False) -> dict:
+    """What phase 12's ranks are held to, computed in this process on
+    one device: the fleet fused and staged on one card, the stacked
+    one-card form of every rank's first two AR steps, and the dim-0
+    all-reduce of each data column's pods."""
+    from repro_torch.core import routing, sfc
+    from repro_torch.runtime import compression
+    pod_data = phase12_mesh(n)
+    device = torch.device(device)
+    out = {name: rank_fleet(sz, fz, device, fused)
+           for name, fused in (("fused", True), ("staged", False))}
+    if device.type == "cuda":
+        _free()
+    plane = rank_ar_plane(n_ar, pod_data, device)
+    out["ar"] = []
+    for step in range(2):
+        feeds = [rank_ar_feed(plane, r, step) for r in range(n)]
+        idx = torch.stack([sfc.profile_index(k) for k, _ in feeds])
+        recv, counts = routing.route_and_deliver(
+            torch.stack([p for _, p in feeds]), idx, plane.table, n,
+            plane.capacity)
+        out["ar"].append([(_digest(recv[r]), _digest(counts[r]),
+                           counts[r].cpu().tolist()) for r in range(n)])
+    del feeds, idx, recv, counts, plane
+    out["allreduce"] = {}
+    pods, cols = pod_data
+    for d in range(cols):
+        trees = [rank_grads(p * cols + d, device, smoke)
+                 for p in range(pods)]
+        g = {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+        del trees
+        synced, errs = compression.cross_pod_allreduce(
+            g, compression.init_errors(g))
+        for p in range(pods):
+            out["allreduce"][p * cols + d] = {
+                k: (_digest(synced[k][p]), _digest(errs[k][p]))
+                for k in sorted(g)}
+        del g, synced, errs
+    if device.type == "cuda":
+        _free()
+    return out
+
+
+def check_phase12(refs: dict, parts: list, fz: FleetSizes, n_ar: int,
+                  launches: bool = True) -> int:
+    """Every rank against the references (:func:`phase12_references`):
+    the fleet fused (graphed and eager) and staged, the AR exchange's
+    two checked steps, the all-reduce, the backend; with ``launches``,
+    fused_tick ``S / N`` and window_reduce ``5 S / N`` launches a tick
+    and hilbert once an AR step on every rank.  Returns the posts kept
+    at the first AR step."""
+    n = len(parts)
+    for name in ("fused", "staged"):
+        _check_rank_fleet(name, refs[name], [p[name] for p in parts])
+    _check_rank_fleet("fused eager", refs["fused"],
+                      [p["fused_eager"] for p in parts], counted=False)
+    per = fz.shards // n
+    for p in parts:
+        r = p["rank"]
+        for step, (got, want) in enumerate(zip(p["ar"], refs["ar"])):
+            if got != want[r]:
+                _fail(f"phase 12: rank {r}'s AR exchange at step {step} "
+                      "differs from the stacked form")
+        if p["allreduce"] != refs["allreduce"][r]:
+            _fail(f"phase 12: rank {r}'s all-reduce differs from the "
+                  "dim-0 form")
+        if not launches:
+            continue
+        if p["backend"] != "nccl":
+            _fail(f"phase 12: rank {r} ran {p['backend']}")
+        fl, st = p["fused"]["launches"], p["staged"]["launches"]
+        if fl["fused_tick"] != per * RANK_TICKS or fl["window_reduce"]:
+            _fail(f"phase 12: rank {r} launched {fl}; want fused_tick "
+                  f"{per} a tick")
+        if st["window_reduce"] != 5 * per * RANK_TICKS or st["fused_tick"]:
+            _fail(f"phase 12: rank {r} staged launched {st}; want "
+                  f"window_reduce {5 * per} a tick")
+        if p["ar_launches"]["hilbert"] != RANK_AR_STEPS:
+            _fail(f"phase 12: rank {r} AR launched {p['ar_launches']}; "
+                  "want hilbert once a step")
+    kept = sum(sum(p["ar"][0][2]) for p in parts)
+    if not 0 < kept <= n * n_ar:
+        _fail(f"phase 12: the AR exchange kept {kept} posts")
+    return kept
+
+
+def run_ranks_phase(sz: Sizes, fz: FleetSizes, device, rows: list,
+                    n_ar: int | None = None) -> None:
+    """Phase 12: the one-card references in this process, then one rank a
+    card (NCCL, :func:`phase12_ranks`) through ``launch.mesh.spawn``
+    running :func:`_rank_phase`; every check fails the run.  The ranks'
+    launch counts join the kernels line as ``rank_launches``."""
+    from repro_torch.launch import mesh as M
+    t0 = time.perf_counter()
+    n = phase12_ranks()
+    pod_data = phase12_mesh(n)
+    n_ar = AR_FULL.n if n_ar is None else n_ar
+    card = _card_line()
+    refs = phase12_references(sz, fz, device, n, n_ar)
+    t_ref = time.perf_counter() - t0
+    parts = M.spawn(_rank_phase, n, "cuda", sz, fz, n_ar, pod_data)
+    t_ranks = time.perf_counter() - t0 - t_ref
+    kept = check_phase12(refs, parts, fz, n_ar)
+    per = fz.shards // n
+    print(f"phase 12 ranks: {n} NCCL rank(s), one a card ({parts[0]['card']}"
+          f"), started by launch.mesh.spawn over a FileStore; fleet mesh "
+          f"{parts[0]['fleet_mesh']} (region, edge), {per} shards a rank; "
+          f"AR and all-reduce mesh {pod_data} (pod, data); references on "
+          f"one card {t_ref:.1f} s, ranks {t_ranks:.1f} s; {card}")
+    for name in ("fused", "staged"):
+        runs = [p[name] for p in parts]
+        q = _quant([max(r["secs"][i] for r in runs)
+                    for i in range(1, RANK_TICKS)])
+        busy = runs[0]["prof"]["busy_share"]
+        print(f"phase 12 fleet {name}: {fz.shards} shards, {RANK_TICKS} "
+              f"ticks (a health and a membership flip, both budgets cut "
+              f"after the capture) across {n} rank(s) == one card bitwise "
+              f"(every output row, the final state, the lineage banks, the "
+              f"counters)" + (", graphed == eager" if name == "fused"
+                              else "")
+              + f"; trace_count 1, _compile_count 1 on every rank; tick "
+              f"p50 {q[0]:.3f} ms, p99 {q[1]:.3f} ms (the slowest rank's, "
+              f"the capture tick left out; one card "
+              f"{_quant(refs[name]['secs'][1:])[0]:.3f} ms); "
+              + f"busy {busy:.4f} of rank 0's profiled wall time; "
+              f"{runs[0]['sent']:.0f} bytes sent a rank a tick; launches "
+              f"a rank {[_nonzero(r['launches']) for r in runs]}; {card}")
+    q = _quant([max(p["ar_secs"][i] for p in parts)
+                for i in range(RANK_AR_STEPS)])
+    print(f"phase 12 AR exchange: {n_ar} posts a rank a step routed over "
+          f"{n} rank(s) (capacity {RANK_AR_FACTOR * n_ar // n} a pair) == "
+          f"the stacked one-card form bitwise over 2 steps, {kept} posts "
+          f"kept at step 0; step p50 {q[0]:.3f} ms, p99 {q[1]:.3f} ms; busy "
+          f"{parts[0]['ar_prof']['busy_share']:.4f}; "
+          f"{parts[0]['ar_sent']:.0f} bytes sent a rank a step; hilbert "
+          f"{[p['ar_launches']['hilbert'] for p in parts]}; {card}")
+    q = _quant([max(p["allreduce_secs"][i] for p in parts)
+                for i in range(RANK_ALLREDUCE_REPS)])
+    print(f"phase 12 all-reduce: one Yi-6B layer's gradients "
+          f"({parts[0]['allreduce_bytes'] / 2**20:.1f} MiB float32) a rank "
+          f"over {pod_data[0]} pod(s) == the dim-0 form bitwise; call p50 "
+          f"{q[0]:.3f} ms, p99 {q[1]:.3f} ms; busy "
+          f"{parts[0]['allreduce_prof']['busy_share']:.4f}; "
+          f"{parts[0]['allreduce_sent']:.0f} bytes sent a rank a call; "
+          f"{card}")
+    totals = {"fused_tick": sum(p["fused"]["launches"]["fused_tick"]
+                                for p in parts),
+              "window_reduce": sum(p["staged"]["launches"]["window_reduce"]
+                                   for p in parts),
+              "hilbert": sum(p["ar_launches"]["hilbert"] for p in parts)}
+    seen = set()
+    for row in rows:
+        name = row["name"]
+        if name in totals and name not in seen:
+            seen.add(name)
+            row["rank_launches"] = totals[name]
+            row["rank_count"] = n
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s")
+
+
+def run_phase12_alone(device="cuda") -> dict:
+    """Phase 1's build and phase 12 alone (``--phase12``: the run on four
+    cards); the kernels line holds the three kernels phase 12 drives."""
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"phase 1 build: {len(build.SOURCES)} kernels ready in "
+          f"{time.perf_counter() - t0:.2f} s ({build.builds} compiled)")
+    print(f"card: {_card_line()}")
+    rows = [{"name": k} for k in ("fused_tick", "window_reduce", "hilbert")]
+    run_ranks_phase(FULL, FLEET, device, rows)
+    return {"kernels": rows}
+
+
+def main(argv: list | None = None) -> int:
+    """The smoke run; ``argv`` ``["--phase12"]``: phase 12 alone."""
+    args = list(argv or [])
+    if args not in ([], ["--phase12"]):
+        print("usage: chip_smoke.py [--phase12]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
               "card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     try:
-        kernels = run()
+        kernels = run_phase12_alone() if args else run()
     except Exception:                   # any failed check: no result line
         traceback.print_exc()
         return 1
@@ -3575,4 +4119,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -22,8 +22,13 @@ decommissioned mid-run (``Churn``): ``FleetController.leave`` picks the
 backup bridge that replays its buffered batches, and a replacement
 joins the slot later -- the whole arc on one signature.
 
+With ``--ranks N`` (1, 2, 4 or 8) the 8 bridges run across N ranks, one
+process a rank (``launch.mesh.spawn``: a card each, or gloo on the
+CPU), each holding 8 / N of them; every rank runs the same controller
+on the fleet-wide view, and the results are the one-rank run's.
+
     PYTHONPATH=src python examples/fleet_stream_analytics_torch.py \\
-        [--device cpu]
+        [--device cpu] [--ranks N]
 """
 import argparse
 import os
@@ -33,6 +38,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import pipeline as pipe
+from repro_torch.launch import mesh as M
 from repro_torch.core import rules
 from repro_torch.obs import SLO, EventLog, Tracer
 from repro_torch.runtime.elastic import ElasticBudget
@@ -41,6 +47,7 @@ from repro_torch.stream import StreamConfig
 from repro_torch.stream.fleet import (Churn, Fault, FaultInjector,
                                       FaultSchedule, FleetConfig,
                                       FleetController, FleetExecutor)
+from repro_torch.stream.fleet.executor import rank_mesh
 
 E = 8              # bridges (edge shards)
 D = 3              # accel_rms, strain, temperature
@@ -64,10 +71,27 @@ def core_fn(params, batch):
     return h, batch[:, :5]
 
 
-def main(device=None) -> dict:
-    """Runs the fleet on ``device`` (``None``: the card); returns the
-    fleet's counters and each tick's escalations and budget."""
-    dev = resolve_device(device)
+def main(device=None, ranks: int = 1) -> dict:
+    """Runs the fleet on ``device`` (``None``: the card), across
+    ``ranks`` processes when more than one; returns the fleet's counters
+    and each tick's escalations and budget (rank 0's, the same on every
+    rank)."""
+    if ranks == 1:
+        return run(resolve_device(device))
+    dev_type = "cuda" if device is None else torch.device(device).type
+    return M.spawn(_rank, ranks, dev_type)[0]
+
+
+def _rank(rank: int, device) -> dict:
+    """One rank of :func:`main`: the run over the ranks' fleet mesh, only
+    rank 0 printing."""
+    return run(device, across_ranks=True, say=print if rank == 0
+               else (lambda *a, **k: None))
+
+
+def run(dev, across_ranks: bool = False, say=print) -> dict:
+    """The example's run on ``dev``; ``across_ranks``: its bridges laid
+    over the process group's ranks (:func:`main` starts them)."""
     # tumbling windows: bridge 4's batches replay on a foreign bridge,
     # and batch-granular replay needs stride == window (the executor
     # enforces it — a sliding carry would smear two bridges' tuples
@@ -87,12 +111,16 @@ def main(device=None) -> dict:
                                 core_params=core_p)
     cfg = FleetConfig(stream=scfg, num_shards=E, num_core=2,
                       core_budget=CORE_BUDGET, core_budget_max=16)
-    ex = FleetExecutor(cfg, engine, pl, device=dev)
+    ex = FleetExecutor(cfg, engine, pl, device=dev,
+                       mesh=rank_mesh(cfg, dev) if across_ranks else None)
+    # this rank's bridges (all 8 on one rank)
+    rows = slice(ex.shard_offset, ex.shard_offset + ex.local_shards)
     # full observability rides along: host spans + device named scopes
     # via the tracer, every control-plane decision in the event log
     # (JSONL to $REPRO_OBS_EVENTS if set, in-memory otherwise)
     tracer = Tracer()
-    log = EventLog(os.environ.get("REPRO_OBS_EVENTS"))
+    log = EventLog(os.environ.get("REPRO_OBS_EVENTS") if say is print
+                   else None)
     ex.set_tracer(tracer)
     # ... plus a declared SLO: 95% of end-to-end window latencies
     # under 50 ms, burn-rate-alerted (breach/recover transitions land
@@ -117,11 +145,11 @@ def main(device=None) -> dict:
         if step == GONE.leave:
             backup = ctl.leave(GONE.shard)
             backups = {GONE.shard: backup}
-            print(f"step {step:2d}: bridge {GONE.shard} decommissioned; "
+            say(f"step {step:2d}: bridge {GONE.shard} decommissioned; "
                   f"bridge {backup} replays its buffered batches")
         if step == GONE.join:
             ctl.join(GONE.shard)
-            print(f"step {step:2d}: replacement RP joined at slot "
+            say(f"step {step:2d}: replacement RP joined at slot "
                   f"{GONE.shard}")
         accel = np.abs(rng.standard_normal((E, BATCH))) \
             .astype(np.float32) * 0.5
@@ -140,9 +168,10 @@ def main(device=None) -> dict:
         # decommissioned: the stream replays on the backup's uplink
         items, ts, offered, replay = inj.inject(step, items, ts,
                                                 backups=backups)
-        state, out = ex.step(state, items, ts, offered=offered,
-                             replay=replay)
+        state, out = ex.step(state, items[rows], ts[rows],
+                             offered=offered[rows], replay=replay[rows])
         dec = ctl.tick(state, step_times=sched.stall_time(step, E))
+        out = ex.gather(out)            # every bridge's rows, on each rank
         esc = out.escalated.cpu().numpy()           # [E, NW]
         ticks.append({"escalated": int(esc.sum()), "budget": dec.budget,
                       "stragglers": list(dec.stragglers)})
@@ -152,7 +181,7 @@ def main(device=None) -> dict:
             cored = (np.abs(outs) <= 1.0).all(axis=-1) & esc  # tanh range
             note = f", excluded bridges {dec.stragglers}" \
                 if dec.stragglers else ""
-            print(f"step {step:2d}: bridges {hit.tolist()} escalated "
+            say(f"step {step:2d}: bridges {hit.tolist()} escalated "
                   f"{int(esc.sum())} windows, core processed "
                   f"{int(cored.sum())} (budget {dec.budget})" + note)
 
@@ -166,61 +195,61 @@ def main(device=None) -> dict:
             step, np.zeros((E, BATCH, D), np.float32),
             np.zeros((E, BATCH), np.float32), fresh=False,
             backups=backups)
-        state, out = ex.step(state, items, ts, offered=offered,
-                             replay=replay)
+        state, out = ex.step(state, items[rows], ts[rows],
+                             offered=offered[rows], replay=replay[rows])
         dec = ctl.tick(state, step_times=sched.stall_time(step, E))
         step += 1
-    print(f"drained bridge {DEAD.shard}'s backlog by step {step}; "
+    say(f"drained bridge {DEAD.shard}'s backlog by step {step}; "
           f"healthy again: {bool(dec.healthy[DEAD.shard])}")
 
     healthy = bool(dec.healthy[DEAD.shard])
-    m = state.metrics.as_dict()        # one host pull for every counter
+    m = ex.gather(state.metrics).as_dict()   # one host pull of every counter
     f = m["fleet"]
-    print(f"\nfleet: {f['items_offered']} tuples offered, "
+    say(f"\nfleet: {f['items_offered']} tuples offered, "
           f"{f['items_late']} late-dropped, "
           f"{f['windows_emitted']} windows emitted")
-    print(f"escalated {f['windows_escalated']} -> core processed "
+    say(f"escalated {f['windows_escalated']} -> core processed "
           f"{sum(m['core_processed'])} on the core sub-mesh, "
           f"{m['fleet_core_overflow']} over budget kept edge results")
-    print(f"per-bridge escalations: {m['shard']['windows_escalated']}")
-    print(f"bridge {DEAD.shard} catch-up records past the fleet "
+    say(f"per-bridge escalations: {m['shard']['windows_escalated']}")
+    say(f"bridge {DEAD.shard} catch-up records past the fleet "
           f"watermark: {m['late_excluded'][DEAD.shard]} "
           f"(late-dropped: 0 — counted, not lost)")
     rep = m["shard"]["items_replayed"]
-    print(f"bridge {GONE.shard}'s stream while decommissioned: "
+    say(f"bridge {GONE.shard}'s stream while decommissioned: "
           f"{sum(rep)} tuples replayed on bridge "
           f"{int(np.argmax(rep))} (lateness-exempt, never dropped)")
-    print(f"final budget {ex.core_budget} after {ctl.resizes} elastic "
+    say(f"final budget {ex.core_budget} after {ctl.resizes} elastic "
           f"resizes; fleet step traced {ex.trace_count} time(s) "
           f"(bound: {ctl.max_trace_count})")
 
     # the observability layer's view of the same run
     lat = ex.latency_percentiles()
-    print(f"\nstep latency (in-step device histogram, {lat['count']} "
+    say(f"\nstep latency (in-step device histogram, {lat['count']} "
           f"samples): p50 {lat['p50_us']:.0f}us, p95 {lat['p95_us']:.0f}us,"
           f" p99 {lat['p99_us']:.0f}us")
     # record-level event-time lineage: every tuple stamped at ingest,
     # latency measured per stage on-device (same donated-histogram
     # trick — the trace bound above already covered it)
     lin = ex.lineage_percentiles()
-    print("event-time lineage (per-stage p95):")
+    say("event-time lineage (per-stage p95):")
     for stage in ("queueing", "window", "hop1", "hop2", "e2e"):
         s = lin[stage]
-        print(f"  {stage:>8}: p95 {s['p95_us']:10.0f}us  "
+        say(f"  {stage:>8}: p95 {s['p95_us']:10.0f}us  "
               f"({s['count']} samples)")
     disp = tracer.stage_percentiles().get("fleet.dispatch", {})
-    print(f"host dispatch span: p50 {disp.get('p50_us', 0.0):.0f}us over "
+    say(f"host dispatch span: p50 {disp.get('p50_us', 0.0):.0f}us over "
           f"{disp.get('count', 0)} ticks")
     EventLog.validate(log.records)
     kinds = sorted({r["kind"] for r in log.records})
-    print(f"event log: {len(log)} causally-ordered records "
+    say(f"event log: {len(log)} causally-ordered records "
           f"({', '.join(kinds)})"
           + (f" -> {log.path}" if log.path else ""))
     log.close()
     trace_path = os.environ.get("REPRO_OBS_TRACE")
-    if trace_path:
+    if trace_path and say is print:
         tracer.export_chrome_trace(trace_path)
-        print(f"chrome trace -> {trace_path}")
+        say(f"chrome trace -> {trace_path}")
     return {"metrics": m, "ticks": ticks, "drained_by": step,
             "healthy": healthy, "final_budget": ex.core_budget,
             "resizes": ctl.resizes, "event_kinds": kinds,
@@ -231,4 +260,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' for the CPU")
-    main(ap.parse_args().device)
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="processes the 8 bridges run across (1, 2, 4, 8)")
+    args = ap.parse_args()
+    main(args.device, args.ranks)

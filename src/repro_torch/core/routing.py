@@ -14,6 +14,10 @@ buffers with ``all_to_all``.  On one card every rank's buffer is a row
 of one tensor: the plans and the scatter/gather take leading batch dims
 (a rank or shard dim; a 1-D plan is the reference's single rank), and
 the all-to-all is a transpose of the ``[src, dst, ...]`` send buffer.
+Given a process ``group`` (one rank a process, ``launch.mesh.spawn``),
+:func:`all_to_all_route` and :func:`route_and_deliver` take one rank's
+side, as the reference's do, and exchange through
+``dist.all_to_all_single``.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import sfc
+from repro_torch.launch import mesh as M
 
 
 class DispatchPlan(NamedTuple):
@@ -147,24 +152,45 @@ def route_local(payload: torch.Tensor, idx: torch.Tensor,
 
 
 def all_to_all_route(send: torch.Tensor, src_dim: int = 0,
-                     dst_dim: int = 1) -> torch.Tensor:
+                     dst_dim: int = 1, *, group=None) -> torch.Tensor:
     """Exchange every rank's ``[num_ranks, capacity, ...]`` buffer, chunk
     ``i`` going to rank ``i``: with the ranks' buffers stacked as
     ``send[src, dst, ...]`` that is ``recv[dst, src, ...]``, a transpose
     of the two dims (the reference's one ``all_to_all`` on a mesh axis;
-    after it, dim ``dst_dim`` indexes the *source* rank)."""
+    after it, dim ``dst_dim`` indexes the *source* rank).
+
+    ``group``: a process group of ``num_ranks`` ranks; ``send`` is then
+    this rank's ``[num_ranks, capacity, ...]`` buffer, exchanged by one
+    ``all_to_all_single``, and dim 0 of the result indexes the source
+    rank, as the reference's per-rank form."""
+    if group is not None:
+        return M.all_to_all(send, group)
     return send.transpose(src_dim, dst_dim)
 
 
 def route_and_deliver(payload: torch.Tensor, idx: torch.Tensor,
-                      table: torch.Tensor, num_ranks: int, capacity: int
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
+                      table: torch.Tensor, num_ranks: int, capacity: int,
+                      *, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The full data-plane step for all ``E == num_ranks`` ranks at
     once: bucket each rank's ``payload [E, N, D]`` by owner, exchange.
 
     Returns (``[E, num_ranks, capacity, D]`` received payloads -- dim 1
     is the *source* rank after the exchange -- and ``[E, num_ranks]``
-    receive counts)."""
+    receive counts).
+
+    ``group``: a process group of ``num_ranks`` ranks, in the order the
+    table names them.  Each rank then passes its own ``payload [N, D]``
+    and ``idx [N]``, as under the reference's ``shard_map``: one
+    ``all_to_all_single`` exchanges the ``[num_ranks, capacity, D]``
+    buffer and a second the counts; it returns the received
+    ``[num_ranks, capacity, D]`` (dim 0 the source rank) and the
+    ``[num_ranks]`` counts."""
+    if group is not None:
+        send, plan = route_local(payload, idx, table, num_ranks, capacity)
+        recv = all_to_all_route(send, group=group)
+        counts = all_to_all_route(plan.counts.reshape(num_ranks, 1),
+                                  group=group)
+        return recv, counts.reshape(num_ranks)
     if payload.shape[0] != num_ranks:
         raise ValueError(f"route_and_deliver takes one batch a rank: "
                          f"{payload.shape[0]} batches for {num_ranks}")

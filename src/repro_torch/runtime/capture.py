@@ -61,8 +61,14 @@ run on the CPU as on the card:
 * **Launch accounting.**  The kernels' wrappers count launches in
   Python when they are called, and a replay calls no Python.  The
   capture records each counter's change (``launches``,
-  ``simple_launches``, ``generic_launches``), takes it back (a capture
-  launches nothing) and adds it on every replay.
+  ``simple_launches``, ``generic_launches``, and the collectives'
+  ``sent_bytes``), takes it back (a capture launches nothing) and adds
+  it on every replay.
+* **Across ranks.**  A step whose ``fn`` runs collectives (the fleet
+  tick over ranks) captures them too: every rank builds the same
+  signature at the same call, the eager first call has run each
+  collective once (NCCL's communicators exist before the capture), and
+  every rank replays its graph each call.
 """
 from __future__ import annotations
 
@@ -102,17 +108,20 @@ def disabled() -> bool:
 # -- the kernels' launch counters ----------------------------------------------
 
 def _counters() -> tuple:
-    """(wrapper, counter names) of the five kernel wrappers."""
+    """(wrapper, counter names) of the five kernel wrappers, and the
+    bytes the collectives sent (``launch.mesh.COLLECTIVES``)."""
     from repro_torch.kernels.armatch import armatch
     from repro_torch.kernels.decode_attn import decode_attention
     from repro_torch.kernels.fused_tick import fused_tick
     from repro_torch.kernels.hilbert import hilbert_xy2d
     from repro_torch.kernels.window_reduce import window_reduce
+    from repro_torch.launch.mesh import COLLECTIVES
     return ((window_reduce, ("launches", "simple_launches")),
             (fused_tick, ("launches", "simple_launches")),
             (hilbert_xy2d, ("launches",)),
             (armatch, ("launches", "simple_launches")),
-            (decode_attention, ("launches", "generic_launches")))
+            (decode_attention, ("launches", "generic_launches")),
+            (COLLECTIVES, ("sent_bytes",)))
 
 
 def read_counters() -> tuple[int, ...]:

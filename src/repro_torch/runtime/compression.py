@@ -8,8 +8,11 @@ convergence (the 1-bit Adam / EF-SGD lineage).
 
 Trees are nested dicts of tensors.  On one card the pod axis is the
 leading dim of each gradient tensor: an ``amax`` over it stands for
-``pmax``, a sum over it for ``psum``.  Rounding is half-to-even
-(``torch.round``), as ``jnp.round``'s.
+``pmax``, a sum over it for ``psum``.  Across ranks (a process
+``group`` of the pods, ``launch.mesh.spawn``) each rank holds its own
+pod's tree, and ``all_reduce`` MAX and SUM are the ``pmax`` and
+``psum``.  Rounding is half-to-even (``torch.round``), as
+``jnp.round``'s.
 """
 from __future__ import annotations
 
@@ -17,6 +20,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.launch import mesh as M
 
 
 class CompressedGrad(NamedTuple):
@@ -74,9 +80,12 @@ def init_errors(grads: dict) -> dict:
 _INV_127 = float(np.float32(1.0) / np.float32(127.0))
 
 
-def cross_pod_allreduce(grads: dict, errors: dict) -> tuple[dict, dict]:
+def cross_pod_allreduce(grads: dict, errors: dict, *, group=None
+                        ) -> tuple[dict, dict]:
     """Error-feedback int8 all-reduce over the pod dim (dim 0 of every
-    leaf, one row a pod).
+    leaf, one row a pod), or, given a process ``group`` of the pods,
+    over its ranks (each rank passes its own pod's trees; the reference's
+    per-rank form).
 
     All pods quantize against the same scale, or the integer sum would
     mean nothing: the scale is agreed first (the ``amax`` over every
@@ -85,7 +94,15 @@ def cross_pod_allreduce(grads: dict, errors: dict) -> tuple[dict, dict]:
     ``psum``).  Per-element error is at most
     scale / 2, and the residual is carried by error feedback.  Returns
     (the synced mean, each pod's row the same, the new errors), both
-    ``[pods, ...]``."""
+    ``[pods, ...]``; across ranks this rank's (the mean the same on every
+    rank).  The ranks agree on the scale by one ``all_reduce`` MAX of
+    each leaf's ``amax``, and sum the ``q`` payloads by one
+    ``all_reduce`` SUM in float32, the reference's ``psum`` of
+    ``q.astype(int32).astype(float32)``: small integers, exact in any
+    order, so the bits are the dim-0 form's."""
+    if group is not None:
+        return _allreduce_ranks(grads, errors, group)
+
     def reduce_one(g, e):
         n = g.shape[0]
         total = g.to(torch.float32) + e
@@ -95,6 +112,25 @@ def cross_pod_allreduce(grads: dict, errors: dict) -> tuple[dict, dict]:
         new_e = (total.double() - q.double() * scale.double()).float()
         qs = torch.sum(q.to(torch.int32).to(torch.float32), dim=0)
         return (qs * scale / n).expand_as(total), new_e
+
+    pairs = _map(reduce_one, grads, errors)
+    return (_map(lambda p: p[0], pairs), _map(lambda p: p[1], pairs))
+
+
+def _allreduce_ranks(grads: dict, errors: dict, group) -> tuple[dict, dict]:
+    """:func:`cross_pod_allreduce` with one pod a rank of ``group``."""
+    n = dist.get_world_size(group)
+
+    def reduce_one(g, e):
+        total = g.to(torch.float32) + e
+        amax = M.all_reduce(torch.amax(torch.abs(total)), dist.ReduceOp.MAX,
+                            group)
+        scale = torch.where(amax > 0, amax * _INV_127, 1.0)
+        q = torch.clamp(torch.round(total / scale), -127, 127)
+        new_e = (total.double() - q.double() * scale.double()).float()
+        qs = M.all_reduce(q.to(torch.int32).to(torch.float32),
+                          dist.ReduceOp.SUM, group)
+        return qs * scale / n, new_e
 
     pairs = _map(reduce_one, grads, errors)
     return (_map(lambda p: p[0], pairs), _map(lambda p: p[1], pairs))

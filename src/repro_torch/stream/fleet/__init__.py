@@ -1,6 +1,7 @@
 """The edge fleet: S stream shards in ``(region, edge)`` layout ticking
-on one card, and the host-side control plane that keeps them correct
-through stalls and churn (port of ``repro.stream.fleet``)."""
+on one card or laid over ranks (``executor.rank_mesh``), and the
+host-side control plane that keeps them correct through stalls and
+churn (port of ``repro.stream.fleet``)."""
 from repro_torch.stream.fleet.control import (  # noqa: F401
     Churn,
     ControlDecision,

@@ -20,6 +20,12 @@ device:
   the device.
 * :meth:`~FleetController.remesh` takes a shard count where the
   reference takes a device list (``FleetExecutor.remesh``).
+* Over an executor laid across ranks, every rank runs its own
+  controller on the fleet-wide view its one transfer gathers (one
+  all-gather of the per-shard leaves), so the decisions agree as long
+  as their inputs do: :meth:`FleetController.tick` then needs the
+  ``step_times`` (a wall time differs from rank to rank), and the carry
+  handoff and ``remesh`` are not ported across ranks (they raise).
 * :attr:`~FleetController.max_trace_count` is ``1 + retraces +
   remeshes``, host counting as in the reference, and it bounds the
   executor's own ``trace_count`` (the tick signatures its compile-once
@@ -310,6 +316,7 @@ class FleetController:
 
         Call between ticks: after :meth:`leave` picked the backup,
         before the first replay delivery.  Returns the updated state."""
+        _one_card(self.executor, "the carry handoff")
         key = (int(stream), int(backup))
         if key[0] == key[1]:
             raise ValueError(f"stream and backup must differ, got {key}")
@@ -342,6 +349,7 @@ class FleetController:
         Call between ticks: after the last replay delivery, before the
         rejoined slot's first fresh or drain tick.  Returns the updated
         state."""
+        _one_card(self.executor, "the carry handoff")
         key = (int(stream), int(backup))
         if key not in self._carry_stash:
             raise ValueError(f"no live carry handoff for {key}; live: "
@@ -476,8 +484,12 @@ class FleetController:
               step_times: np.ndarray | None = None) -> ControlDecision:
         ex = self.executor
         e = ex.cfg.num_shards
+        if ex.ranks is not None and step_times is None:
+            raise ValueError(
+                "a controller over ranks needs step_times: each rank's "
+                "wall time differs, and so would its decisions")
         max_ts, esc_total, wm, rej_total, ded_total, drift_total, \
-            dropped, emitted = _pull(state)
+            dropped, emitted = _pull(state, ex)
         max_ts = np.asarray(max_ts, np.float64)
         esc_total = np.asarray(esc_total, np.int64)
         escalated = esc_total - self._prev_escalated
@@ -647,18 +659,34 @@ class FleetController:
         return 1 + self._retraces + self.executor.remeshes
 
 
-def _pull(state: FleetState) -> tuple:
+def _one_card(ex, what: str) -> None:
+    if ex.ranks is not None:
+        raise NotImplementedError(f"{what} is not ported across ranks")
+
+
+def _pull(state: FleetState, ex=None) -> tuple:
     """Everything one control tick reads, in one device-to-host
     transfer: per-shard max event times, escalation, reject and dedupe
     counters and drift counts, the fleet watermark and the fleet drop
     and emit counters.  The float32 leaves travel as their int32 bits,
-    so one int32 tensor carries them all exactly."""
+    so one int32 tensor carries them all exactly.  Over an executor
+    laid across ranks the per-shard leaves are first gathered (one
+    all-gather of them side by side), so every rank reads the fleet."""
     sh, m = state.shard, state.shard.metrics
     s = sh.max_ts.shape[0]
-    parts = (sh.max_ts.view(torch.int32), m.windows_escalated,
-             state.watermark[:1].view(torch.int32), m.items_rejected,
-             m.items_deduped, m.drift_counts.reshape(-1),
-             state.fleet.windows_dropped[:1], state.fleet.windows_emitted[:1])
+    per_shard = (sh.max_ts.view(torch.int32)[:, None],
+                 m.windows_escalated[:, None], m.items_rejected[:, None],
+                 m.items_deduped[:, None], m.drift_counts.reshape(s, -1))
+    if ex is not None and ex.ranks is not None:
+        cols = [p.shape[1] for p in per_shard]
+        rows = ex.gather(torch.cat([p.to(torch.int32) for p in per_shard],
+                                   1))
+        per_shard = torch.split(rows, cols, 1)
+        s = rows.shape[0]
+    mx, esc, rej, ded, drift = (p.reshape(-1) for p in per_shard)
+    parts = (mx, esc, state.watermark[:1].view(torch.int32), rej, ded,
+             drift, state.fleet.windows_dropped[:1],
+             state.fleet.windows_emitted[:1])
     host = torch.cat([p.to(torch.int32) for p in parts]).cpu().numpy()
     at = 0
     out = []

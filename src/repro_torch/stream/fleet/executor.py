@@ -34,6 +34,21 @@ ring keeps draining on its own rows); ``remesh`` changes the width and
 migrates the state (a departed shard's unconsumed ring rows come back
 to the host).  Backup replay rides the per-shard ``mode`` operand.
 
+Across ranks (``mesh=`` a ``("region", "edge")`` ``DeviceMesh`` over
+N processes, :func:`rank_mesh`): each rank holds ``S / N`` consecutive
+shards -- their rows of every state tensor, on its own card (NCCL) or
+the CPU (gloo) -- and runs the per-shard work on them; the cross-shard
+phases are ``stream.fleet.federation``'s rank forms, the collectives
+the reference's ``shard_map`` runs (all-gathers of the watermark
+inputs and the counts, all-to-alls for both hops, one all-reduce of the
+counters).  ``init_state`` and ``step`` take and give this rank's rows;
+the fleet counters and the watermarks come back replicated, as the
+reference's do.  It is an SPMD program: every rank calls every method
+in the same order with the same masks and budgets (``set_health``,
+``set_active``, ``set_core_budget``, ``set_region_budget``), and the
+tick's ``now`` and fed wall time are rank 0's, broadcast inside the
+tick, so that no rank subtracts one process's clock from another's.
+
 The tick compiles once, as the reference's does: it is a
 ``runtime.capture.Step`` (``trace_count``, ``_compile_count``), eager at
 its first call and on the card captured then as a CUDA graph and
@@ -61,6 +76,7 @@ from repro_torch.core import rules as R
 from repro_torch.core.pipeline import DataDrivenPipeline, PipelineResult
 from repro_torch.data.ringbuffer import RingBuffer
 from repro_torch.kernels import build
+from repro_torch.launch import mesh as M
 from repro_torch.launch.mesh import AbstractMesh, axis_sizes
 from repro_torch.obs import latency as OL
 from repro_torch.obs.trace import NULL_TRACER
@@ -270,6 +286,34 @@ def _layout(cfg: FleetConfig) -> AbstractMesh:
                         (REGION_AXIS, EDGE_AXIS))
 
 
+def rank_mesh(cfg: FleetConfig, device: str | torch.device | None = None):
+    """The ``("region", "edge")`` ``DeviceMesh`` that lays ``cfg``'s
+    shards over the default process group's N ranks
+    (``routing.rank_mesh_shape``: ``(R, N / R)`` when each region spans
+    ``N / R`` ranks, ``(N, 1)`` when each rank holds whole regions); on
+    the card (``None``) or the CPU.  Raises when N ranks cannot hold the
+    shards as whole runs.  Every rank calls it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: start the ranks first "
+                           "(launch.mesh.spawn)")
+    shape = FR.rank_mesh_shape(cfg.num_regions, cfg.edges_per_region,
+                               dist.get_world_size())
+    return init_device_mesh(dev.type, shape,
+                            mesh_dim_names=(REGION_AXIS, EDGE_AXIS))
+
+
+def _map_rows(fn, tree):
+    """``fn`` on every tensor of a tree of named tuples."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_rows(fn, v) for v in tree))
+    return tree
+
+
 class FleetExecutor:
     """S stream shards and their escalation exchange in one tick.
 
@@ -282,7 +326,10 @@ class FleetExecutor:
     mesh: the reference's ``(region, edge)`` device layout, as any mesh
     ``launch.mesh.axis_sizes`` reads (``None``: the config's own,
     ``self.mesh``); a shape that does not match the config raises, as
-    the reference's does.  All shards stay rows on the one card.
+    the reference's does.  All shards stay rows on the one card.  A
+    ``DeviceMesh`` (:func:`rank_mesh`) lays them over its ranks instead
+    (see the module docstring): ``device`` is then this rank's (``None``:
+    its current card), of the mesh's device type.
     """
 
     def __init__(self, cfg: FleetConfig, engine: R.RuleEngine,
@@ -297,20 +344,32 @@ class FleetExecutor:
                 "FleetConfig.stream has fused=True but the RuleEngine is "
                 "not tabular (threshold_rule-style rules only) -- callable "
                 "rules cannot run inside the fused kernel; use fused=False")
+        from torch.distributed.device_mesh import DeviceMesh
         if mesh is None:
             mesh = _layout(cfg)
-        shape = axis_sizes(mesh)
-        if shape.get(REGION_AXIS) != cfg.num_regions \
-                or shape.get(EDGE_AXIS) != cfg.edges_per_region:
-            raise ValueError(
-                f"mesh shape {shape} does not match config "
-                f"({REGION_AXIS}={cfg.num_regions}, "
-                f"{EDGE_AXIS}={cfg.edges_per_region})")
+        self.device = resolve_device(device)
+        self.ranks = None
+        if isinstance(mesh, DeviceMesh):
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh cannot run "
+                                 f"shards on {self.device}")
+            if self.device.type == "cuda" and self.device.index is None:
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
+            self.ranks = F.ranks_of(mesh, cfg.num_regions,
+                                    cfg.edges_per_region)
+        else:
+            shape = axis_sizes(mesh)
+            if shape.get(REGION_AXIS) != cfg.num_regions \
+                    or shape.get(EDGE_AXIS) != cfg.edges_per_region:
+                raise ValueError(
+                    f"mesh shape {shape} does not match config "
+                    f"({REGION_AXIS}={cfg.num_regions}, "
+                    f"{EDGE_AXIS}={cfg.edges_per_region})")
         self.mesh = mesh
         self.cfg = cfg
         self.engine = engine
         self.pipeline = pipeline
-        self.device = resolve_device(device)
         self._remeshes = 0
         self._budget = cfg.core_budget       # dynamic
         self._slots = cfg.core_slots         # buffer ceiling
@@ -325,7 +384,7 @@ class FleetExecutor:
         # one lineage bank a shard: per-shard and per-region breakdowns
         # pool over the leading dim
         self._lineage = OL.lineage_init(device=self.device)[None].repeat(
-            cfg.num_shards, 1, 1)
+            self.local_shards, 1, 1)
         self._t0 = time.perf_counter()     # lineage epoch (f32 stamps)
         # warmup exclusion: a tick during which a kernel was built
         # measured the build -- its wall time is withheld from the next
@@ -340,6 +399,32 @@ class FleetExecutor:
         self._tick_step = capture.Step(self._tick, device=self.device,
                                        donate_argnums=(0, 1, 2),
                                        name="fleet tick")
+
+    @property
+    def local_shards(self) -> int:
+        """Shards this rank holds: ``S / N`` across ranks, else S."""
+        return self.cfg.num_shards if self.ranks is None \
+            else self.ranks.layout.shards
+
+    @property
+    def shard_offset(self) -> int:
+        """The global index of this rank's first shard (0 on one card):
+        its rows of a fleet-wide ``[S, ...]`` feed start here."""
+        return 0 if self.ranks is None else self.ranks.layout.first_shard
+
+    def _rows(self, mask: np.ndarray) -> np.ndarray:
+        """This rank's entries of a fleet-wide ``[S]`` host mask."""
+        lo = self.shard_offset
+        return mask[lo:lo + self.local_shards]
+
+    def gather(self, tree):
+        """Every rank's rows of each tensor in ``tree`` (a ``StepOutput``,
+        a ``FleetMetrics``, ...), stacked in shard order: the fleet-wide
+        ``[S, ...]`` view, on every rank (one all-gather a tensor; every
+        rank calls it).  On one card ``tree`` itself."""
+        if self.ranks is None:
+            return tree
+        return _map_rows(lambda t: F.gather_rows(t, self.ranks), tree)
 
     @property
     def trace_count(self) -> int:
@@ -460,7 +545,7 @@ class FleetExecutor:
         ``"shard"`` gives S dicts, ``"region"`` R dicts (pooling is
         histogram summation).  hop1 populates on the fog columns, hop2
         only on region 0's core ranks."""
-        bank = self._lineage.cpu().numpy().astype(np.int64)
+        bank = self.gather(self._lineage).cpu().numpy().astype(np.int64)
         if by is None:
             return OL.lineage_percentiles(bank, qs)
         if by == "shard":
@@ -475,8 +560,10 @@ class FleetExecutor:
 
     def lineage_counts(self) -> np.ndarray:
         """The fleet-pooled lineage bank, ``[n_stages, buckets]`` int64
-        on the host (one transfer, summed over shards)."""
-        return self._lineage.cpu().numpy().astype(np.int64).sum(axis=0)
+        on the host (one transfer, summed over shards; across ranks every
+        rank's banks, gathered)."""
+        return self.gather(self._lineage).cpu().numpy().astype(
+            np.int64).sum(axis=0)
 
     def step_cost(self, state: FleetState, items, ts) -> dict:
         """Cost of ONE fleet tick at these operands
@@ -486,8 +573,10 @@ class FleetExecutor:
         batch as live traffic under the current masks and budgets.  The
         tick runs eagerly, once, on a copy of ``state``, the histogram and
         the lineage banks, and builds no tick signature: nothing is
-        consumed, the next ``step`` is the one it would have been."""
-        dev, s = self.device, self.cfg.num_shards
+        consumed, the next ``step`` is the one it would have been.
+        Across ranks every rank calls it with its rows and counts its
+        own share (the collectives' copies included)."""
+        dev, s = self.device, self.local_shards
         items = torch.as_tensor(items, device=dev)
         return cost_of(
             self, self._tick, clone_state(state), self._lat_hist.clone(),
@@ -495,8 +584,8 @@ class FleetExecutor:
             torch.as_tensor(ts, device=dev),
             torch.ones(items.shape[:2], dtype=torch.bool, device=dev),
             torch.zeros((s,), dtype=torch.int32, device=dev),
-            torch.as_tensor(self._healthy, device=dev),
-            torch.as_tensor(self._active, device=dev),
+            torch.as_tensor(self._rows(self._healthy), device=dev),
+            torch.as_tensor(self._rows(self._active), device=dev),
             _scalar(self._budget, torch.int32, dev),
             torch.as_tensor(self._region_budget, device=dev),
             _scalar(0.0, torch.float32, dev),
@@ -505,8 +594,9 @@ class FleetExecutor:
     # -- state ------------------------------------------------------------
     def init_state(self, feature_dim: int) -> FleetState:
         """A fresh fleet state on the executor's device: each shard's
-        row is ``StreamExecutor.init_state``'s, stacked."""
-        s, dev = self.cfg.num_shards, self.device
+        row is ``StreamExecutor.init_state``'s, stacked (this rank's
+        rows across ranks)."""
+        s, dev = self.local_shards, self.device
         one = StreamExecutor(self.cfg.stream, self.engine, self.pipeline,
                              device=dev).init_state(feature_dim)
 
@@ -543,7 +633,11 @@ class FleetExecutor:
               now: torch.Tensor, last_dt: torch.Tensor):
         """The fleet tick as a function of its operands: (out, state,
         histogram, lineage banks), the last three the donated ones; the
-        histogram takes the previous tick's wall time after the tick."""
+        histogram takes the previous tick's wall time after the tick.
+        Across ranks ``now`` and ``last_dt`` are rank 0's."""
+        if self.ranks is not None:
+            clock = M.broadcast(torch.stack([now, last_dt]), self.ranks.world)
+            now, last_dt = clock[0], clock[1]
         new_state, out, lineage = self._fleet_step(
             state, lineage, items, ts, offered, mode, healthy, active,
             budget, region_budget, now)
@@ -565,8 +659,11 @@ class FleetExecutor:
                     budget: torch.Tensor, region_budget: torch.Tensor,
                     now: torch.Tensor
                     ) -> tuple[FleetState, StepOutput, torch.Tensor]:
-        cfg, tr = self.cfg, self.tracer
-        rr, ee, s = cfg.num_regions, cfg.edges_per_region, cfg.num_shards
+        cfg, tr, ranks = self.cfg, self.tracer, self.ranks
+        rr, ee, s = cfg.num_regions, cfg.edges_per_region, self.local_shards
+        # this rank's regions and their edge columns (all of them on one
+        # card)
+        lay = F.local_layout(ranks, rr, ee)
         sh = state.shard
 
         # fleet watermark: min of the per-shard maxima (as of the last
@@ -576,12 +673,17 @@ class FleetExecutor:
         # own max (the catch-up path); what it admits past the fleet
         # reference is counted in late_excluded
         with tr.span("obs:fleet_watermark"):
-            wm_raw, rwm_raw = F.tiered_watermark(
-                sh.max_ts.reshape(rr, ee), healthy.reshape(rr, ee),
-                active.reshape(rr, ee))
+            if ranks is None:
+                wm_raw, rwm_raw = F.tiered_watermark(
+                    sh.max_ts.reshape(rr, ee), healthy.reshape(rr, ee),
+                    active.reshape(rr, ee))
+            else:
+                wm_raw, rwm_raw = F.tiered_watermark(
+                    sh.max_ts, healthy, active, ranks=ranks)
             wm = torch.maximum(wm_raw, state.watermark)             # [S]
-            rwm = torch.maximum(rwm_raw.repeat_interleave(ee),
-                                state.region_watermark)
+            rwm = torch.maximum(
+                rwm_raw[lay.first_region:lay.first_region + lay.regions]
+                .repeat_interleave(lay.edges), state.region_watermark)
             eff_wm = torch.where(healthy & active, wm, sh.max_ts)
 
         # the per-shard tick: the single-device executor's code on each
@@ -611,7 +713,7 @@ class FleetExecutor:
                     edge_capacity=cfg.route_capacity,
                     cross_capacity=max(1, -(-self._fog_slots
                                             // cfg.num_core)),
-                    core_slots=self._slots, birth=w_birth)
+                    core_slots=self._slots, birth=w_birth, ranks=ranks)
         with tr.span("obs:core_commit"):
             # the commit is row-wise: all shards' windows in one batch
             n = core_live.shape[1]
@@ -658,7 +760,7 @@ class FleetExecutor:
             contrib = StreamMetrics(*(
                 torch.where(active.reshape((s,) + (1,) * (v.ndim - 1)), v,
                             0) for v in metrics))
-            fleet = F.allreduce_metrics(contrib)
+            fleet = F.allreduce_metrics(contrib, ranks=ranks)
         adm = sh.adm if cfg.stream.admission.inert else SI.AdmissionState(
             _stack([i.adm for i in ings], "seen"),
             _stack([i.adm for i in ings], "seen_pos"))
@@ -693,7 +795,9 @@ class FleetExecutor:
         timestamps ``ts [S, N]`` (one producer batch a shard; tensors or
         numpy, moved to the executor's device), consume one window batch
         a shard.  The returned ``StepOutput`` leaves carry a leading
-        ``[S]`` dim.
+        ``[S]`` dim.  Across ranks ``items``, ``ts``, ``offered``,
+        ``mode`` and ``replay`` are this rank's ``[S / N]`` rows, and so
+        are the returned state and outputs; every rank calls ``step``.
 
         ``offered``: optional ``[S, N]`` bool, which producer slots hold
         real items (a stalled shard's uplink offers nothing).
@@ -715,8 +819,11 @@ class FleetExecutor:
         if replay is not None:
             mode = np.where(np.asarray(replay, bool),
                             SI.MODE_REPLAY, SI.MODE_LIVE).astype(np.int32)
+        if items.shape[0] != self.local_shards:
+            raise ValueError(f"items hold {items.shape[0]} shards' batches; "
+                             f"this executor holds {self.local_shards}")
         if mode is None:
-            mode = np.zeros(cfg.num_shards, np.int32)
+            mode = np.zeros(self.local_shards, np.int32)
         else:
             mode = np.asarray(mode.cpu() if isinstance(mode, torch.Tensor)
                               else mode, np.int32)
@@ -747,9 +854,9 @@ class FleetExecutor:
                 out, state, self._lat_hist, self._lineage = self._tick_step(
                     state, self._lat_hist, self._lineage, items, ts, offered,
                     device_constant(tuple(mode.tolist()), torch.int32, dev),
-                    device_constant(tuple(self._healthy.tolist()),
+                    device_constant(tuple(self._rows(self._healthy).tolist()),
                                     torch.bool, dev),
-                    device_constant(tuple(self._active.tolist()),
+                    device_constant(tuple(self._rows(self._active).tolist()),
                                     torch.bool, dev),
                     capture.Scalar(self._budget, torch.int32),
                     device_constant(tuple(self._region_budget.tolist()),
@@ -796,7 +903,12 @@ class FleetExecutor:
         column 0, the ingest stamp in column 1), the backup-replay
         payload.  A region keeps its identity across an edge resize
         (its watermark and fog budget carry over); a region-count change
-        re-derives them."""
+        re-derives them.  Not across ranks: a new width there is a new
+        process group (raises)."""
+        if self.ranks is not None:
+            raise NotImplementedError(
+                "remesh across ranks needs a new process group; it is not "
+                "ported yet")
         cfg = self.cfg
         num_shards = len(devices) if isinstance(devices, (list, tuple)) \
             else int(devices)

@@ -106,3 +106,90 @@ class TieredExchange:
         every shard exchanges an ``[R*E, edge_capacity, row]`` buffer."""
         s = self.num_regions * self.edges_per_region
         return s * s * self.edge_capacity * record_width * itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class RankLayout:
+    """Where one rank's shards sit when the fleet's ``R x E`` shards
+    (region-major) are laid over a ``(rank_regions, rank_edges)`` mesh of
+    ranks (``("region", "edge")``, row-major: rank ``row * rank_edges +
+    col``).  Each rank holds ``S / N`` consecutive shards: ``regions``
+    whole regions' ``edges`` columns.  Either a rank's shards lie in one
+    region (``rank_regions == R``, ``rank_edges`` divides ``E``) or a
+    region's shards fill whole ranks (``rank_edges == 1``,
+    ``rank_regions`` divides ``R``); :func:`rank_layout` raises on any
+    other mesh."""
+    num_regions: int
+    edges_per_region: int
+    rank_regions: int
+    rank_edges: int
+    row: int            # this rank's coordinate on the region dim
+    col: int            # ... and on the edge dim
+
+    @property
+    def regions(self) -> int:
+        """Regions a rank holds (part of one, or whole ones)."""
+        return self.num_regions // self.rank_regions
+
+    @property
+    def edges(self) -> int:
+        """Edge columns of each of its regions a rank holds."""
+        return self.edges_per_region // self.rank_edges
+
+    @property
+    def shards(self) -> int:
+        """Shards a rank holds, ``S / N``."""
+        return self.regions * self.edges
+
+    @property
+    def first_region(self) -> int:
+        return self.row * self.regions
+
+    @property
+    def first_col(self) -> int:
+        return self.col * self.edges
+
+    @property
+    def first_shard(self) -> int:
+        """The global index of this rank's first shard (region-major)."""
+        return (self.row * self.rank_edges + self.col) * self.shards
+
+
+def rank_layout(num_regions: int, edges_per_region: int, rank_regions: int,
+                rank_edges: int, row: int = 0, col: int = 0) -> RankLayout:
+    """The layout of ``num_regions x edges_per_region`` shards over a
+    ``(rank_regions, rank_edges)`` mesh of ranks, seen from rank
+    ``(row, col)``; raises when the ranks cannot hold the shards as
+    whole runs (see :class:`RankLayout`)."""
+    rr, ee = num_regions, edges_per_region
+    n = rank_regions * rank_edges
+    one_region = rank_regions == rr and ee % rank_edges == 0
+    whole_regions = rank_edges == 1 and rr % rank_regions == 0
+    if not (one_region or whole_regions):
+        raise ValueError(
+            f"a ({rank_regions}, {rank_edges}) mesh of {n} ranks cannot hold "
+            f"{rr} regions of {ee} shards: a rank's shards must lie in one "
+            "region, or a region's shards fill whole ranks")
+    if not (0 <= row < rank_regions and 0 <= col < rank_edges):
+        raise ValueError(f"rank ({row}, {col}) is off a ({rank_regions}, "
+                         f"{rank_edges}) mesh")
+    return RankLayout(rr, ee, rank_regions, rank_edges, row, col)
+
+
+def rank_mesh_shape(num_regions: int, edges_per_region: int,
+                    ranks: int) -> tuple[int, int]:
+    """The ``(region, edge)`` mesh shape that lays the shards over
+    ``ranks`` ranks: ``(R, N / R)`` when each region spans ``N / R``
+    ranks, else ``(N, 1)`` when each rank holds ``R / N`` whole regions;
+    raises when neither holds."""
+    rr, ee = num_regions, edges_per_region
+    if ranks % rr == 0 and ee % (ranks // rr) == 0:
+        shape = (rr, ranks // rr)
+    elif rr % ranks == 0:
+        shape = (ranks, 1)
+    else:
+        raise ValueError(f"{ranks} ranks cannot hold {rr} regions of {ee} "
+                         "shards: a rank's shards must lie in one region, "
+                         "or a region's shards fill whole ranks")
+    rank_layout(rr, ee, *shape)
+    return shape

@@ -684,14 +684,15 @@ def test_main_prints_the_kernels_line_then_the_result_line(smoke,
                                                            monkeypatch,
                                                            capsys):
     """The line before the last is the kernels object and the last the
-    contract's ``{"ok": true, "device": {...}}``, phase 11 the last phase
-    of ``run``, after phase 10 and its memory are freed."""
+    contract's ``{"ok": true, "device": {...}}``, phase 12 the last phase
+    of ``run``, after phases 10 and 11, each phase's memory freed."""
     import inspect
     src = inspect.getsource(smoke.run).rstrip().splitlines()
-    assert [x.strip() for x in src[-6:-1]] == [
+    assert [x.strip() for x in src[-8:-1]] == [
         "run_train_phase(TRAIN_FULL, TRAIN_SMALL, device)", "_free()",
         "run_graph_phase(sz, serve_sz, FLEET, device)", "_free()",
-        "run_launch_phase(MESH_SERVE, device, kernels[\"kernels\"])"]
+        "run_launch_phase(MESH_SERVE, device, kernels[\"kernels\"])",
+        "_free()", "run_ranks_phase(sz, FLEET, device, kernels[\"kernels\"])"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "card")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
