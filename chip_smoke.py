@@ -200,12 +200,25 @@ launch counts include the replays' and the warm-up's:
    to the stacked one-card form bitwise over 2 steps, hilbert once a
    step on each rank; and the cross-pod all-reduce of a float32
    gradient tree of one Yi-6B layer's shapes over each rank's pod
-   group, equal to the dim-0 form bitwise.  It prints the rank count and
-   the backend, each path's p50/p99 tick, step or call ms (the slowest
+   group, equal to the dim-0 form bitwise; then (i) phase 8's
+   controlled arc at full width, fused and graphed, under a
+   ``FleetController`` with an event log and no ``step_times`` laid over
+   the ranks (rank 0 decides and broadcasts; the sliding carry handed
+   over and back), against the same arc on one card: every
+   ``ControlDecision`` equal on every rank, rank 0's event log equal
+   less wall times, every output row, the final state, the lineage and
+   the counters bitwise, ``trace_count <= max_trace_count`` on every
+   rank; and (ii) the controller's ``remesh`` 8 -> 6 -> 8 shards, twice
+   (on 4 cards the 6 shards on ranks 0 and 2, ranks 1 and 3 idle; on 1
+   or 2 cards the same ranks), the departed rows requeued through the
+   injector on every rank and 2 ticks at each width, against the same
+   widths on one card, bitwise.  It prints the rank count and the
+   backend, each path's p50/p99 tick, step or call ms (the slowest
    rank's), the device busy share, the bytes each rank sends a tick,
-   and the card's name and power limit; the ranks' launches join the
-   fused_tick, window_reduce and hilbert entries of the kernels line as
-   ``rank_launches``.  ``python3 chip_smoke.py --phase12`` runs phase 1's
+   the controller tick's p50/p99 beside one card's, each remesh's ms
+   and bytes a rank, and the card's name and power limit; the ranks'
+   launches join the fused_tick, window_reduce and hilbert entries of
+   the kernels line as ``rank_launches``.  ``python3 chip_smoke.py --phase12`` runs phase 1's
    build and this phase alone (the four-card run).
 
 The line before the last is a JSON object of the kernels; the last
@@ -2122,16 +2135,21 @@ def control_feed(sz: Sizes, fz: FleetSizes, device, calm=()):
     return feed
 
 
-def run_controlled(fx, state, ctl, inj, feed, churn, on_tick):
+def run_controlled(fx, state, ctl, inj, feed, churn, on_tick,
+                   step_times: bool = True, ctl_secs: list | None = None):
     """Drive ``fx`` under ``ctl`` through ``inj``'s schedule:
     :data:`CONTROL_TICKS` fresh ticks of ``feed``, then drain ticks
     (``fresh=False``) until the injector holds nothing, then
     :data:`CONTROL_QUIET` quiet ticks.  ``churn`` (shard, leave, join)
     is acted with the sliding carry handoff.  Each tick calls
     ``on_tick(t, out, decision, origin, offered, replay, health)``,
-    ``health`` the mask the tick ran under.  Returns the final state and
+    ``health`` the mask the tick ran under.  ``step_times=False``: the
+    controller ticks on its own wall time (rank 0's across ranks);
+    ``ctl_secs`` collects each control tick's wall time.  Across ranks
+    each rank steps its rows of the feed.  Returns the final state and
     the churned shard's backup."""
     s = fx.cfg.num_shards
+    rows = slice(fx.shard_offset, fx.shard_offset + fx.local_shards)
     shard, leave, join = churn
     backups, backup, t, quiet, base = {}, None, 0, 0, None
     while True:
@@ -2153,9 +2171,13 @@ def run_controlled(fx, state, ctl, inj, feed, churn, on_tick):
         items, ts, offered, replay = inj.inject(t, *base, fresh=fresh,
                                                 backups=backups)
         health = fx.health
-        state, out = fx.step(state, items, ts, offered=offered,
-                             replay=replay)
-        dec = ctl.tick(state, step_times=inj.schedule.stall_time(t, s))
+        state, out = fx.step(state, items[rows], ts[rows],
+                             offered=offered[rows], replay=replay[rows])
+        t1 = time.perf_counter()
+        dec = ctl.tick(state, step_times=inj.schedule.stall_time(t, s)
+                       if step_times else None)
+        if ctl_secs is not None:
+            ctl_secs.append(time.perf_counter() - t1)
         on_tick(t, out, dec, inj.origin.copy(), offered, replay, health)
         t += 1
 
@@ -3782,9 +3804,6 @@ def _rank_phase(rank: int, device, sz: Sizes, fz: FleetSizes, n_ar: int,
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import COLLECTIVES
     from repro_torch.runtime import compression
-    from repro_torch.stream import StreamConfig
-    from repro_torch.stream.fleet import FleetConfig
-    from repro_torch.stream.fleet.executor import rank_mesh
     card = device.type == "cuda"
     if card:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3792,10 +3811,7 @@ def _rank_phase(rank: int, device, sz: Sizes, fz: FleetSizes, n_ar: int,
         build.build_all()               # loads what the parent built
     res = {"rank": rank, "backend": dist.get_backend(),
            "card": torch.cuda.get_device_name(device) if card else "cpu"}
-    fmesh = rank_mesh(FleetConfig(
-        stream=StreamConfig(micro_batch=sz.batch, window=sz.window,
-                            stride=sz.stride, capacity=sz.capacity),
-        num_shards=fz.shards, num_regions=fz.regions), device)
+    fmesh = _fleet_mesh(sz, fz, device)
     res["fleet_mesh"] = tuple(fmesh.mesh.shape)
     res["fused"] = rank_fleet(sz, fz, device, True, fmesh, profile=(
         f"rank{rank}_fleet_fused" if card else None))
@@ -3805,6 +3821,8 @@ def _rank_phase(rank: int, device, sz: Sizes, fz: FleetSizes, n_ar: int,
         f"rank{rank}_fleet_staged" if card else None))
     if card:
         _free()
+    # the controlled arc and remesh across the ranks: (i) and (ii)
+    res.update(_rank_control_phase(rank, device, sz, fz, fmesh))
 
     # the AR exchange: one rank's posts a step, over every rank
     mesh = init_device_mesh(device.type, pod_data,
@@ -3883,24 +3901,14 @@ def _check_rank_fleet(name: str, one: dict, parts: list,
     every tick, the final state, the lineage banks and the fleet
     counters; with ``counted``, one signature and one graph on every
     rank."""
-    def differ(got: dict, want: dict) -> list:
-        """(leaf, shard) of every row digest that differs."""
-        return [(j, r) for j in want for r, d in enumerate(want[j])
-                if got.get(j, [None] * len(want[j]))[r] != d] \
-            or ([] if got.keys() == want.keys() else ["leaves"])
-
     for i, want in enumerate(one["outs"]):
-        got: dict = {}
-        for p in parts:
-            for j, rows in p["outs"][i].items():
-                got.setdefault(j, []).extend(rows)
-        bad = differ(got, want)
+        bad = _differ(_stack_rows([p["outs"][i] for p in parts]), want)
         if bad:
             _fail(f"phase 12 {name}: tick {i}'s outputs across "
                   f"{len(parts)} rank(s) differ from one card's at (leaf, "
                   f"shard) {bad[:8]}")
     for key in ("state", "lineage"):
-        bad = differ(_ranks_stack(parts, key), one[key])
+        bad = _differ(_ranks_stack(parts, key), one[key])
         if bad:
             _fail(f"phase 12 {name}: the final {key} across ranks differs "
                   f"from one card's at (leaf, shard) {bad[:8]}")
@@ -3910,6 +3918,303 @@ def _check_rank_fleet(name: str, one: dict, parts: list,
         if counted and (p["trace"], p["compiles"]) != (1, 1):
             _fail(f"phase 12 {name}: trace_count {p['trace']}, "
                   f"_compile_count {p['compiles']} on a rank; want 1, 1")
+
+
+def _differ(got: dict, want: dict) -> list:
+    """(leaf, shard) of every row digest that differs."""
+    return [(j, r) for j in want for r, d in enumerate(want[j])
+            if got.get(j, [None] * len(want[j]))[r] != d] \
+        or ([] if got.keys() == want.keys() else ["leaves"])
+
+
+def _stack_rows(recs: list) -> dict:
+    """Row digests of several ranks' records (``{leaf: [row, ...]}``),
+    concatenated in rank order."""
+    out: dict = {}
+    for rec in recs:
+        for j, rows in rec.items():
+            out.setdefault(j, []).extend(rows)
+    return out
+
+
+# ---- phase 12 (i) and (ii): the control plane and remesh across ranks ------
+
+#: (ii): a shard is offered this fraction of a micro-batch more rows a tick
+#: than its ring dequeues, so the rings back up and a departed shard's
+#: unconsumed rows come back as the payload
+REMESH_EXTRA = 4
+#: (ii)'s widths after phase 7's 8 shards in 2 regions of 4: (shards,
+#: keep); 6 shards are 2 regions of 3 (shards 3 and 7 depart, their rows
+#: the payload), then 8 again (a fresh joiner at the end of each region);
+#: twice, so that the second round runs on groups and connections the
+#: first made
+REMESH_WIDTHS = ((6, (0, 1, 2, 4, 5, 6)),
+                 (8, (0, 1, 2, None, 3, 4, 5, None))) * 2
+#: (ii)'s ticks at each width
+REMESH_TICKS = 2
+
+
+def remesh_rank_sets(n: int) -> tuple:
+    """(ii)'s rank set for each width of :data:`REMESH_WIDTHS`: on 4
+    ranks the 6 shards on ranks 0 and 2 (a region each, ranks 1 and 3
+    idle outside the fleet; the rows of shards 2 and 6 move rank to
+    rank), then all 4 again (form (b)); on 1 or 2 ranks the same ranks
+    at the new width (form (a))."""
+    every = tuple(range(n))
+    return tuple((0, 2) if n == 4 and width < 8 else every
+                 for width, _ in REMESH_WIDTHS)
+
+
+def _fleet_mesh(sz: Sizes, fz: FleetSizes, device):
+    """The ranks' mesh of phase 7's fleet (``rank_mesh``: every rank)."""
+    from repro_torch.stream import StreamConfig
+    from repro_torch.stream.fleet import FleetConfig
+    from repro_torch.stream.fleet.executor import rank_mesh
+    return rank_mesh(FleetConfig(
+        stream=StreamConfig(micro_batch=sz.batch, window=sz.window,
+                            stride=sz.stride, capacity=sz.capacity),
+        num_shards=fz.shards, num_regions=fz.regions), device)
+
+
+def rank_control(sz: Sizes, fz: FleetSizes, device, mesh=None) -> dict:
+    """Phase 12 (i): phase 8's check-1 arc -- shard 2 stalled, shard 5
+    away with its stream replayed on a backup and its sliding carry
+    handed over and back, the budgets pinned ample -- fused and graphed,
+    under a ``FleetController`` with an event log ticking without
+    ``step_times`` (rank 0's own wall time, phase 10's fake clock in the
+    executors so that every stamp agrees with one card's), over
+    ``mesh``'s ranks (this rank's rows) or on one card.  Launch counts
+    are zeroed just before the arc and read just after.  Returns each
+    tick's decision and output row digests, the final state's and the
+    lineage's, the fleet counters, the event log less wall times, the
+    trace counts, the launches and each control tick's seconds."""
+    from repro_torch.runtime import ElasticBudget
+    ample = fz.shards * (sz.batch // sz.stride)
+    feed = control_feed(sz, fz, device)
+    restore = _same_clock()
+    try:
+        fx, state, ctl, inj, log = _controlled(
+            sz, fz, device,
+            fleet=dict(core_budget=ample, fog_budget=None, mesh=mesh),
+            budget_policy=ElasticBudget(min_budget=ample, max_budget=ample))
+        decisions, outs, ctl_s = [], [], []
+
+        def on_tick(t, out, dec, *_):
+            decisions.append(_decision(dec))
+            outs.append(_row_digests(out))
+        zero_launches()
+        state, backup = run_controlled(fx, state, ctl, inj, feed,
+                                       CONTROL_CHURN, on_tick,
+                                       step_times=False, ctl_secs=ctl_s)
+        launches = read_launches()
+        return dict(decisions=decisions, outs=outs,
+                    state=_row_digests(state),
+                    lineage=_row_digests(fx._lineage),
+                    metrics=fx.gather(state.metrics).as_dict(),
+                    events=_events(log), trace=fx.trace_count,
+                    bound=ctl.max_trace_count, launches=launches,
+                    ctl_s=ctl_s, backup=backup,
+                    flagged=sum(not d["healthy"][CONTROL_FAULT[0]]
+                                for d in decisions))
+    finally:
+        restore()
+
+
+def rank_remesh(sz: Sizes, fz: FleetSizes, device, rank_sets=None,
+                mesh=None) -> dict:
+    """Phase 12 (ii): phase 7's fleet, fused and graphed, under a
+    ``FleetController`` (core budget pinned, the fog policies elastic)
+    ticking without ``step_times``, offered ``1 / REMESH_EXTRA`` more
+    rows a shard a tick than it dequeues; :data:`REMESH_TICKS` ticks at
+    8 shards, then for each width of :data:`REMESH_WIDTHS` the
+    controller's ``remesh`` over ``rank_sets`` (``None`` on one card),
+    the injector translated and the departed rows re-queued on their
+    fold targets' slots, and :data:`REMESH_TICKS` ticks.  Each rank
+    steps its rows of the feed; a rank outside the fleet idles.  Returns
+    the decisions and output row digests of the ticks this rank was a
+    member for, the payloads' row counts and digests, each remesh's
+    seconds (from a barrier of the ranks) and the bytes this rank sent
+    in it, the final state's and
+    lineage's digests, the counters, the event log, the trace counts and
+    the launches."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import COLLECTIVES
+    from repro_torch.obs import EventLog
+    from repro_torch.runtime import ElasticBudget
+    from repro_torch.stream.fleet import (FaultInjector, FaultSchedule,
+                                          FleetController)
+    big = sz._replace(batch=sz.batch + sz.batch // REMESH_EXTRA)
+    restore = _same_clock()
+    try:
+        fx, state = make_fleet(sz, fz, device, mesh=mesh)
+        log = EventLog()
+        ctl = FleetController(fx, event_log=log, budget_policy=ElasticBudget(
+            min_budget=fz.core_budget, max_budget=fz.core_budget))
+        inj = FaultInjector(FaultSchedule(), event_log=log)
+        rec: dict = dict(outs={}, decisions={}, payload={}, remesh=[])
+        box, clock = [state], [0]
+
+        def ticks(width):
+            for _ in range(REMESH_TICKS):
+                t = clock[0]
+                items, ts = fleet_batch(big, fz, t, device, shards=width)
+                items, ts, offered, _ = inj.inject(t, items.cpu().numpy(),
+                                                   ts.cpu().numpy())
+                rows = slice(fx.shard_offset,
+                             fx.shard_offset + fx.local_shards)
+                box[0], out = fx.step(box[0], items[rows], ts[rows],
+                                      offered=offered[rows])
+                dec = ctl.tick(box[0])
+                if dec is not None:
+                    rec["outs"][t] = _row_digests(out)
+                    rec["decisions"][t] = _decision(dec)
+                clock[0] += 1
+        zero_launches()
+        ticks(fz.shards)
+        for (width, keep), ranks in zip(REMESH_WIDTHS, rank_sets
+                                        or (None,) * len(REMESH_WIDTHS)):
+            keep = list(keep)
+            _sync(device)
+            if mesh is not None:
+                # the ranks meet first, so that the time is the remesh's
+                # and not an idle rank's wait for the members' ticks
+                dist.barrier()
+            sent, t0 = COLLECTIVES.sent_bytes, time.perf_counter()
+            box[0], payload = ctl.remesh(
+                box[0], width, keep=keep,
+                ranks=None if ranks is None else list(ranks))
+            _sync(device)
+            rec["remesh"].append((time.perf_counter() - t0,
+                                  COLLECTIVES.sent_bytes - sent))
+            inj.translate(keep, clock[0])
+            fold = ctl.remesh_fold
+            for k, rows in sorted(payload.items()):
+                rec["payload"][(clock[0], k)] = (
+                    len(rows), _digest(torch.from_numpy(rows)))
+                inj.requeue(keep.index(fold[k]), rows, big.batch)
+            ticks(width)
+        rec.update(launches=read_launches(), state=_row_digests(box[0]),
+                   lineage=_row_digests(fx._lineage),
+                   metrics=fx.gather(box[0].metrics).as_dict(),
+                   events=_events(log), trace=fx.trace_count,
+                   bound=ctl.max_trace_count)
+        return rec
+    finally:
+        restore()
+
+
+def _rank_control_phase(rank: int, device, sz: Sizes, fz: FleetSizes,
+                        mesh=None) -> dict:
+    """Phase 12 (i) and (ii) on one rank (``launch.mesh.spawn``; also
+    run by :func:`_rank_phase`, which passes its fleet mesh)."""
+    import torch.distributed as dist
+    card = device.type == "cuda"
+    if mesh is None:
+        mesh = _fleet_mesh(sz, fz, device)
+    res = {"rank": rank, "backend": dist.get_backend(),
+           "control": rank_control(sz, fz, device, mesh)}
+    if card:
+        _free()
+    res["remesh"] = rank_remesh(sz, fz, device,
+                                remesh_rank_sets(dist.get_world_size()),
+                                mesh)
+    if card:
+        _free()
+    return res
+
+
+def phase12_control_references(sz: Sizes, fz: FleetSizes, device) -> dict:
+    """(i) and (ii) on one card in this process: what the ranks are held
+    to."""
+    out = {"control": rank_control(sz, fz, torch.device(device))}
+    if torch.device(device).type == "cuda":
+        _free()
+    out["remesh"] = rank_remesh(sz, fz, torch.device(device))
+    if torch.device(device).type == "cuda":
+        _free()
+    return out
+
+
+def check_phase12_control(refs: dict, parts: list, fz: FleetSizes,
+                          launches: bool = True) -> dict:
+    """Every rank's (i) and (ii) against one card's (each check fails the
+    run): every ``ControlDecision`` equal on every rank, rank 0's event
+    log equal less wall times, every output row, the final state and the
+    lineage banks bitwise through their row digests, the fleet counters
+    equal, ``trace_count <= max_trace_count`` on every rank; (ii) also
+    the payloads on every rank's host.  With ``launches``: fused_tick
+    once a shard a tick over the ranks, window_reduce never.  Returns
+    the numbers phase 12 prints."""
+    n = len(parts)
+    one = refs["control"]
+    runs = [p["control"] for p in parts]
+    for r, c in enumerate(runs):
+        if c["decisions"] != one["decisions"]:
+            i = next((i for i, (a, b) in enumerate(zip(
+                c["decisions"], one["decisions"])) if a != b), "count")
+            _fail(f"phase 12 (i): rank {r}'s decision at tick {i} differs "
+                  "from one card's")
+        if c["metrics"] != one["metrics"]:
+            _fail(f"phase 12 (i): rank {r}'s fleet counters differ")
+        if not 1 <= c["trace"] <= c["bound"]:
+            _fail(f"phase 12 (i): rank {r} trace_count {c['trace']}, "
+                  f"max_trace_count {c['bound']}")
+    if runs[0]["events"] != one["events"]:
+        _fail("phase 12 (i): rank 0's event log differs from one card's")
+    for i, want in enumerate(one["outs"]):
+        bad = _differ(_stack_rows([c["outs"][i] for c in runs]), want)
+        if bad:
+            _fail(f"phase 12 (i): tick {i}'s outputs across {n} rank(s) "
+                  f"differ from one card's at (leaf, shard) {bad[:8]}")
+    for key in ("state", "lineage"):
+        bad = _differ(_stack_rows([c[key] for c in runs]), one[key])
+        if bad:
+            _fail(f"phase 12 (i): the final {key} differs at {bad[:8]}")
+    one_r = refs["remesh"]
+    rem = [p["remesh"] for p in parts]
+    for r, c in enumerate(rem):
+        if any(one_r["decisions"][t] != d for t, d in c["decisions"].items()):
+            _fail(f"phase 12 (ii): rank {r}'s decisions differ")
+        if c["payload"] != one_r["payload"] or not one_r["payload"]:
+            _fail(f"phase 12 (ii): rank {r}'s payload {c['payload']} != one "
+                  f"card's {one_r['payload']}")
+        if c["metrics"] != one_r["metrics"]:
+            _fail(f"phase 12 (ii): rank {r}'s fleet counters differ")
+        if not 1 <= c["trace"] <= c["bound"]:
+            _fail(f"phase 12 (ii): rank {r} trace_count {c['trace']}, "
+                  f"max_trace_count {c['bound']}")
+    if rem[0]["events"] != one_r["events"] \
+            or rem[0]["decisions"].keys() != one_r["decisions"].keys():
+        _fail("phase 12 (ii): rank 0's event log or ticks differ")
+    for t, want in one_r["outs"].items():
+        bad = _differ(_stack_rows([c["outs"][t] for c in rem
+                                   if t in c["outs"]]), want)
+        if bad:
+            _fail(f"phase 12 (ii): tick {t}'s outputs differ at {bad[:8]}")
+    for key in ("state", "lineage"):
+        bad = _differ(_stack_rows([c[key] for c in rem]), one_r[key])
+        if bad:
+            _fail(f"phase 12 (ii): the final {key} differs at {bad[:8]}")
+    ticks = len(one["decisions"])
+    widths = [fz.shards] + [w for w, _ in REMESH_WIDTHS]
+    want = {"control": fz.shards * ticks,
+            "remesh": sum(widths) * REMESH_TICKS}
+    got = {k: sum(p[k]["launches"]["fused_tick"] for p in parts)
+           for k in want}
+    if launches:
+        for k in want:
+            if got[k] != want[k] or any(p[k]["launches"]["window_reduce"]
+                                        for p in parts):
+                _fail(f"phase 12 ({k}): fused_tick {got[k]} launches over "
+                      f"the ranks, want {want[k]}; window_reduce "
+                      f"{[p[k]['launches']['window_reduce'] for p in parts]}")
+    idle = [r for r, c in enumerate(rem)
+            if len(c["decisions"]) < len(one_r["decisions"])]
+    return dict(ticks=ticks, launches=got, idle=idle,
+                payload=sum(k for k, _ in one_r["payload"].values()),
+                flagged=one["flagged"], backup=one["backup"],
+                health=sum(e["kind"] == "health_change"
+                           for e in one["events"]))
 
 
 def phase12_mesh(n: int) -> tuple:
@@ -3932,6 +4237,7 @@ def phase12_references(sz: Sizes, fz: FleetSizes, device, n: int,
            for name, fused in (("fused", True), ("staged", False))}
     if device.type == "cuda":
         _free()
+    out["control_refs"] = phase12_control_references(sz, fz, device)
     plane = rank_ar_plane(n_ar, pod_data, device)
     out["ar"] = []
     for step in range(2):
@@ -3968,8 +4274,9 @@ def check_phase12(refs: dict, parts: list, fz: FleetSizes, n_ar: int,
     the fleet fused (graphed and eager) and staged, the AR exchange's
     two checked steps, the all-reduce, the backend; with ``launches``,
     fused_tick ``S / N`` and window_reduce ``5 S / N`` launches a tick
-    and hilbert once an AR step on every rank.  Returns the posts kept
-    at the first AR step."""
+    and hilbert once an AR step on every rank; then (i) and (ii)
+    (:func:`check_phase12_control`).  Returns the posts kept at the
+    first AR step and what :func:`check_phase12_control` returns."""
     n = len(parts)
     for name in ("fused", "staged"):
         _check_rank_fleet(name, refs[name], [p[name] for p in parts])
@@ -4002,7 +4309,8 @@ def check_phase12(refs: dict, parts: list, fz: FleetSizes, n_ar: int,
     kept = sum(sum(p["ar"][0][2]) for p in parts)
     if not 0 < kept <= n * n_ar:
         _fail(f"phase 12: the AR exchange kept {kept} posts")
-    return kept
+    return kept, check_phase12_control(refs["control_refs"], parts, fz,
+                                       launches)
 
 
 def run_ranks_phase(sz: Sizes, fz: FleetSizes, device, rows: list,
@@ -4021,7 +4329,7 @@ def run_ranks_phase(sz: Sizes, fz: FleetSizes, device, rows: list,
     t_ref = time.perf_counter() - t0
     parts = M.spawn(_rank_phase, n, "cuda", sz, fz, n_ar, pod_data)
     t_ranks = time.perf_counter() - t0 - t_ref
-    kept = check_phase12(refs, parts, fz, n_ar)
+    kept, ctl = check_phase12(refs, parts, fz, n_ar)
     per = fz.shards // n
     print(f"phase 12 ranks: {n} NCCL rank(s), one a card ({parts[0]['card']}"
           f"), started by launch.mesh.spawn over a FileStore; fleet mesh "
@@ -4064,8 +4372,10 @@ def run_ranks_phase(sz: Sizes, fz: FleetSizes, device, rows: list,
           f"{parts[0]['allreduce_prof']['busy_share']:.4f}; "
           f"{parts[0]['allreduce_sent']:.0f} bytes sent a rank a call; "
           f"{card}")
+    print_phase12_control(refs["control_refs"], parts, ctl, card)
     totals = {"fused_tick": sum(p["fused"]["launches"]["fused_tick"]
-                                for p in parts),
+                                for p in parts)
+              + ctl["launches"]["control"] + ctl["launches"]["remesh"],
               "window_reduce": sum(p["staged"]["launches"]["window_reduce"]
                                    for p in parts),
               "hilbert": sum(p["ar_launches"]["hilbert"] for p in parts)}
@@ -4077,6 +4387,50 @@ def run_ranks_phase(sz: Sizes, fz: FleetSizes, device, rows: list,
             row["rank_launches"] = totals[name]
             row["rank_count"] = n
     print(f"phase 12: {time.perf_counter() - t0:.1f} s")
+
+
+def print_phase12_control(refs: dict, parts: list, ctl: dict,
+                          card: str) -> None:
+    """(iii): the controller tick's p50/p99 across the ranks (the
+    slowest rank's) beside one card's, each remesh's wall ms (the
+    slowest rank's) and the bytes each rank sent in it, the rank count,
+    the backend and the card."""
+    n = len(parts)
+    runs = [p["control"] for p in parts]
+    q = _quant([max(c["ctl_s"][i] for c in runs)
+                for i in range(len(runs[0]["ctl_s"]))])
+    q1 = _quant(refs["control"]["ctl_s"])
+    print(f"phase 12 (i) controlled fleet across {n} {parts[0]['backend']} "
+          f"rank(s): phase 8's arc (shard {CONTROL_FAULT[0]} stalled, shard "
+          f"{CONTROL_CHURN[0]} away with its carry handed to backup "
+          f"{ctl['backup']} and back, budgets pinned) fused and graphed, "
+          f"{ctl['ticks']} ticks under a FleetController without "
+          f"step_times: every ControlDecision equal on every rank and to "
+          f"one card's ({ctl['health']} health changes, shard "
+          f"{CONTROL_FAULT[0]} flagged on {ctl['flagged']} ticks), rank 0's "
+          f"event log equal, every output row, the final state, the lineage "
+          f"banks and the counters bitwise; trace_count "
+          f"{[c['trace'] for c in runs]} <= max_trace_count "
+          f"{[c['bound'] for c in runs]}; FleetController.tick p50 "
+          f"{q[0]:.3f} ms, p99 {q[1]:.3f} ms across the ranks (one card "
+          f"p50 {q1[0]:.3f} ms, p99 {q1[1]:.3f} ms); fused_tick "
+          f"{ctl['launches']['control']} launches over the ranks; {card}")
+    rem = [p["remesh"] for p in parts]
+    steps = []
+    for k, ((width, _), ranks) in enumerate(zip(REMESH_WIDTHS,
+                                                remesh_rank_sets(n))):
+        ms = max(c["remesh"][k][0] for c in rem) * 1e3
+        one_ms = refs["remesh"]["remesh"][k][0] * 1e3
+        steps.append(f"to {width} shards on ranks {list(ranks)} "
+                     f"{ms:.1f} ms (one card {one_ms:.1f} ms), bytes sent "
+                     f"a rank {[int(c['remesh'][k][1]) for c in rem]}")
+    print(f"phase 12 (ii) remesh across {n} {parts[0]['backend']} rank(s): "
+          f"{'; '.join(steps)}; {ctl['payload']} departed rows requeued "
+          f"through the injector on every rank, {REMESH_TICKS} ticks at "
+          f"each width == one card bitwise (decisions, outputs, payloads, "
+          f"final state, lineage, counters), ranks idle outside the fleet "
+          f"{ctl['idle']}; fused_tick {ctl['launches']['remesh']} launches "
+          f"over the ranks; {card}")
 
 
 def run_phase12_alone(device="cuda") -> dict:

@@ -17,9 +17,12 @@ A rank is one process.  :func:`spawn` starts N of them over a
 on the CPU), a CPU run uses gloo, and each rank runs torch on one
 intra-op thread.  The collectives the ranks agree through
 (:func:`all_to_all`, :func:`all_gather`, :func:`all_reduce`,
-:func:`broadcast`) count the bytes this rank sends to the others in
-``COLLECTIVES.sent_bytes`` (a captured step adds its share on every
-replay, as it does the kernels' launches).
+:func:`broadcast` and :func:`broadcast_ints`, and the point-to-point
+:func:`move_rows`) count the
+bytes this rank sends to the others in ``COLLECTIVES.sent_bytes`` (a
+captured step adds its share on every replay, as it does the kernels'
+launches).  :func:`new_group` and :class:`RankMesh` lay a mesh over
+some of the world's ranks; every world rank makes them, member or not.
 
 The roofline constants are one H100 SXM's data-sheet figures, where the
 reference declares TPU v5e's.  Nothing in this file is measured.
@@ -33,7 +36,9 @@ import os
 import pickle
 import tempfile
 from types import SimpleNamespace
+from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -118,9 +123,11 @@ def make_host_mesh(model: int = 1,
 
 
 def release_host_mesh() -> None:
-    """Forget the host meshes and end the default process group if
-    :func:`make_host_mesh` started it."""
+    """Forget the host meshes and the groups :func:`new_group` made, and
+    end the default process group if :func:`make_host_mesh` started
+    it."""
     _HOST_MESHES.clear()
+    _GROUPS.clear()
     if _OWN_GROUP and dist.is_initialized():
         dist.destroy_process_group()
     _OWN_GROUP.clear()
@@ -231,6 +238,102 @@ def spawn(fn, ranks: int, device: str | torch.device, *args) -> list:
     return out
 
 
+# -- groups over some of the ranks ----------------------------------------------
+
+#: the groups :func:`new_group` made in this process, by their ranks
+_GROUPS: dict = {}
+
+
+def new_group(ranks) -> object:
+    """The process group over ``ranks`` (world ranks, ascending), or
+    ``None`` on a rank outside it.
+
+    **Every world rank must call this, member or not, with the same
+    ranks in the same order.**  ``dist.new_group`` is a call over the
+    whole world (NCCL splits the world's communicator among the ranks
+    that ask): a rank that skips a call, or makes them in another
+    order, hangs the others.  The whole world is the default group; any
+    other rank set is made once a process and kept (a second call
+    returns it, on every rank alike, so the rule above still holds), so
+    a fleet that shrinks and grows back reuses its groups and no group
+    is destroyed while a captured graph may still hold it."""
+    ranks = tuple(int(r) for r in ranks)
+    n = dist.get_world_size()
+    if not ranks or list(ranks) != sorted(set(ranks)) or ranks[0] < 0 \
+            or ranks[-1] >= n:
+        raise ValueError(f"a group needs distinct ascending ranks of the "
+                         f"world's {n}, got {list(ranks)}")
+    if ranks == tuple(range(n)):
+        group = dist.group.WORLD
+    elif ranks in _GROUPS:
+        group = _GROUPS[ranks]
+    else:
+        group = _GROUPS[ranks] = dist.new_group(list(ranks))
+    return group if dist.get_rank() in ranks else None
+
+
+class RankMesh:
+    """A 2-D mesh of world ranks (row-major over ``ranks``, ascending)
+    and its process groups: the whole mesh's (:attr:`group`) and, for
+    each dim, the group of the ranks that differ only along it -- the
+    parts of a ``DeviceMesh`` the fleet reads (``mesh``,
+    ``mesh_dim_names``, ``device_type``, :meth:`get_group`,
+    :meth:`get_local_rank`).  Unlike ``init_device_mesh`` it may leave
+    ranks of the world out.  Every world rank makes it, member or not
+    (:func:`new_group`: the groups are made in one order on every rank);
+    on a rank outside it :attr:`member` is False and it has no groups."""
+
+    def __init__(self, device_type: str, ranks, shape: tuple,
+                 dim_names: tuple):
+        ranks = tuple(int(r) for r in ranks)
+        if len(shape) != 2 or math.prod(shape) != len(ranks) \
+                or len(dim_names) != 2:
+            raise ValueError(f"a {shape} mesh {dim_names} cannot hold ranks "
+                             f"{list(ranks)}")
+        self.device_type = device_type
+        self.ranks = ranks
+        self.mesh = torch.tensor(ranks, dtype=torch.int64).reshape(shape)
+        self.mesh_dim_names = tuple(dim_names)
+        self.group = new_group(ranks)
+        me = dist.get_rank()
+        self.member = me in ranks
+        self._groups, self._coords = [], []
+        for d in range(2):
+            lines = self.mesh.movedim(d, -1).reshape(-1, shape[d]).tolist()
+            mine = None
+            for line in lines:          # every line, on every rank
+                g = new_group(line)
+                if me in line:
+                    mine = (g, line.index(me))
+            self._groups.append(None if mine is None else mine[0])
+            self._coords.append(None if mine is None else mine[1])
+
+    def _dim(self, name: str) -> int:
+        if name not in self.mesh_dim_names:
+            raise KeyError(f"no dim {name!r} in {self.mesh_dim_names}")
+        return self.mesh_dim_names.index(name)
+
+    def get_group(self, name: str):
+        """The group of this rank's line along dim ``name``."""
+        return self._groups[self._dim(name)]
+
+    def get_local_rank(self, name: str):
+        """This rank's coordinate along dim ``name`` (None outside)."""
+        return self._coords[self._dim(name)]
+
+
+class RowLayout(NamedTuple):
+    """Rows of a tensor laid over ranks: ``ranks[p]`` holds ``per_rank``
+    consecutive rows from ``p * per_rank`` on; a rank not in ``ranks``
+    holds none."""
+    ranks: tuple
+    per_rank: int
+
+    def where(self, row: int) -> tuple[int, int]:
+        """(world rank, local index) of global row ``row``."""
+        return self.ranks[row // self.per_rank], row % self.per_rank
+
+
 # -- collectives --------------------------------------------------------------
 
 #: bytes this rank sent to other ranks through the collectives below: an
@@ -285,11 +388,77 @@ def all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def broadcast(x: torch.Tensor, group) -> torch.Tensor:
-    """The group's rank 0's ``x`` on every rank, in a new tensor."""
+def broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """The group's rank ``src``'s ``x`` on every rank, in a new tensor
+    (every rank passes a tensor of the same shape and dtype)."""
     out = _wire(x).clone()
-    dist.broadcast(out, src=dist.get_global_rank(group, 0), group=group)
-    if dist.get_rank(group) == 0:
+    dist.broadcast(out, src=dist.get_global_rank(group, src), group=group)
+    if dist.get_rank(group) == src:
         COLLECTIVES.sent_bytes += _nbytes(out) * (
             dist.get_world_size(group) - 1)
     return out.to(x.dtype)
+
+
+def broadcast_ints(parts: list, group, device) -> list:
+    """The group's rank 0's int arrays ``parts`` on every rank, as int64
+    numpy arrays: one broadcast of them packed in one int32 tensor on
+    ``device``, split back by their lengths.  Every rank passes arrays
+    of the same lengths (only rank 0's values are read: the others may
+    pass zeros).  An int32 tensor and no pickling: a decision costs one
+    small transfer and no host round trip of Python objects."""
+    flat = [np.asarray(p, np.int64).reshape(-1) for p in parts]
+    got = broadcast(torch.as_tensor(np.concatenate(flat).astype(np.int32),
+                                    device=device), group).cpu().numpy()
+    return np.split(got.astype(np.int64),
+                    np.cumsum([len(p) for p in flat])[:-1])
+
+
+def move_rows(xs: list, moves, src: RowLayout, dst: RowLayout,
+              outs: list) -> list:
+    """Move rows between ranks: for each ``(i, j)`` of ``moves``, row
+    ``i`` of every tensor in ``xs`` (laid out by ``src``; ``xs`` holds
+    this rank's rows) lands as row ``j`` of the matching tensor of
+    ``outs`` (laid out by ``dst``: this rank's rows, written in place
+    and returned).
+
+    A row that stays on its rank is an index copy and costs no
+    communication; the rest go in one ``batch_isend_irecv`` over the
+    world group, one send of the stacked rows of each tensor from each
+    source rank to each destination rank (gloo and NCCL alike).  A rank
+    with no row to send or take calls nothing, so only the ranks a move
+    touches need call this (with the same ``moves`` and layouts).  The
+    bytes this rank sends count in ``COLLECTIVES.sent_bytes``."""
+    me = dist.get_rank()
+    sends: dict = {}
+    recvs: dict = {}
+    local = []
+    for i, j in moves:
+        (a, ai), (b, bj) = src.where(i), dst.where(j)
+        if a == me and b == me:
+            local.append((ai, bj))
+        elif a == me:
+            sends.setdefault(b, []).append(ai)
+        elif b == me:
+            recvs.setdefault(a, []).append(bj)
+    for ai, bj in local:
+        for x, o in zip(xs, outs):
+            o[bj] = x[ai]
+    ops, landed = [], []
+    for peer in sorted(sends):
+        idx = sends[peer]
+        for x in xs:
+            w = _wire(x[idx])
+            ops.append(dist.P2POp(dist.isend, w, peer))
+            COLLECTIVES.sent_bytes += _nbytes(w)
+    for peer in sorted(recvs):
+        idx = recvs[peer]
+        for o in outs:
+            buf = _wire(o[idx]).new_empty((len(idx),) + tuple(o.shape[1:]))
+            ops.append(dist.P2POp(dist.irecv, buf, peer))
+            landed.append((o, idx, buf))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for o, idx, buf in landed:
+        o[idx] = buf.to(o.dtype)
+    return outs

@@ -6,7 +6,8 @@ has no device list: the fleet's ``(region, edge)`` shards are the
 leading dims of its tensors, so :func:`remesh` computes the new
 ``(regions, edges)`` from a shard count, with the reference's resize
 rule for the fleet (one of the two a call), and :func:`reshard_state`
-reslices the leading shard dim.
+reslices the leading shard dim; across ranks it moves the rows rank to
+rank.
 :class:`ElasticBudget` (host-side numpy) is copied as it is.
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.overlay import Overlay
+from repro_torch.launch import mesh as M
 
 
 def remesh(regions: int, edges: int, num_shards: int,
@@ -40,16 +42,36 @@ def remesh(regions: int, edges: int, num_shards: int,
     return (keep, other) if fix_regions else (other, keep)
 
 
-def reshard_state(state, keep: list, fresh):
+def reshard_state(state, keep: list, fresh, *, src=None, dst=None):
     """Reslice a state's leading shard dim: new row ``j`` is old row
     ``keep[j]``, or row ``j`` of ``fresh`` (a state of the new width)
     where ``keep[j]`` is None.  ``state`` and ``fresh`` are NamedTuples
-    (nested) of tensors with the same structure."""
+    (nested) of tensors with the same structure.
+
+    Across ranks (``src`` and ``dst``, the old and the new
+    ``launch.mesh.RowLayout``): ``state`` and ``fresh`` (a tuple of such
+    trees too) hold this rank's rows of the old and the new layout, and
+    new row ``j`` moves from the rank holding old row ``keep[j]`` to the
+    rank holding row ``j`` (``launch.mesh.move_rows``: every leaf in one
+    batch, nothing sent for a row that stays on its rank), written into
+    ``fresh``'s tensors, which are returned."""
+    if src is not None:
+        M.move_rows(_leaves(state),
+                    [(k, j) for j, k in enumerate(keep) if k is not None],
+                    src, dst, _leaves(fresh))
+        return fresh
     if isinstance(state, tuple):
         return type(state)(*(reshard_state(o, keep, f)
                              for o, f in zip(state, fresh)))
     return torch.stack([state[k] if k is not None else fresh[j]
                         for j, k in enumerate(keep)])
+
+
+def _leaves(tree) -> list:
+    """The tensors of a tree of (named) tuples, depth first."""
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
 
 
 @dataclasses.dataclass

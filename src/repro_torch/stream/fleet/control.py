@@ -20,12 +20,28 @@ device:
   the device.
 * :meth:`~FleetController.remesh` takes a shard count where the
   reference takes a device list (``FleetExecutor.remesh``).
-* Over an executor laid across ranks, every rank runs its own
-  controller on the fleet-wide view its one transfer gathers (one
-  all-gather of the per-shard leaves), so the decisions agree as long
-  as their inputs do: :meth:`FleetController.tick` then needs the
-  ``step_times`` (a wall time differs from rank to rank), and the carry
-  handoff and ``remesh`` are not ported across ranks (they raise).
+* Over an executor laid across ranks (one process a rank), rank 0
+  plays the reference's one process: it reads the clock, keeps the
+  detectors, the budget and fog policies, the SLO evaluator and the
+  event log, and decides; every other rank applies its decisions.
+  Every rank of the fleet calls :meth:`FleetController.tick` (the reads
+  are collectives: ``_pull``'s all-gather, the lineage bank for a
+  latency SLO); rank 0 then broadcasts one packed int32 decision (the
+  health mask, the budgets, the resize flags, the breached SLOs) and
+  every rank calls the same setters, so every rank's
+  ``ControlDecision``, ``resizes``, ``max_trace_count`` are equal.
+  Without ``step_times`` rank 0's own wall time is replicated, as the
+  reference replicates its one process's.  ``leave`` broadcasts rank
+  0's pick of the backup; the carry handoff moves the stream's and the
+  backup's carry rows rank to rank (the stash lives on the backup's
+  rank); ``remesh`` broadcasts rank 0's fold plan and runs on every
+  world rank (``FleetExecutor.remesh``).  The event log is rank 0's:
+  on the other ranks the controller writes nothing to its log, which
+  holds only what other writers (a ``FaultInjector`` given the same
+  log) put there.  On a world rank outside the fleet ``tick`` and
+  ``leave`` return ``None`` and read nothing, and ``remesh`` is the one
+  call it takes part in; it takes rank 0's counters and baselines
+  there.
 * :attr:`~FleetController.max_trace_count` is ``1 + retraces +
   remeshes``, host counting as in the reference, and it bounds the
   executor's own ``trace_count`` (the tick signatures its compile-once
@@ -83,7 +99,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.launch import mesh as M
 from repro_torch.obs.events import EventLog
 from repro_torch.obs.slo import SloEvaluator
 from repro_torch.obs.trace import NULL_TRACER
@@ -150,6 +168,7 @@ class FleetController:
     _slo_eval: SloEvaluator | None = None
     _slo_bank: bool = False          # does a latency SLO read the bank
     _carry_stash: dict = None
+    _fold: dict = None
     _resizes: int = 0
     _retraces: int = 0
     _ticks: int = 0
@@ -208,12 +227,38 @@ class FleetController:
         moved (for trace-bound asserts)."""
         return self._resizes
 
+    @property
+    def remesh_fold(self) -> dict:
+        """The last :meth:`remesh`'s fold plan, {departed old shard ->
+        kept old shard whose row took its counters}: rank 0's pick, the
+        same on every rank (``{}`` before any remesh)."""
+        return dict(self._fold or {})
+
+    @property
+    def _across(self) -> bool:
+        return self.executor.ranks is not None
+
+    @property
+    def _decides(self) -> bool:
+        """One card, or world rank 0 of a fleet across ranks: the
+        process that reads the clock, runs the policies and logs."""
+        return not self._across or dist.get_rank() == 0
+
+    def _agree(self, parts: list) -> list:
+        """Rank 0's int arrays ``parts`` on every rank of the fleet, in
+        one broadcast over the fleet's group
+        (``launch.mesh.broadcast_ints``; the other ranks pass arrays of
+        the same lengths, not read)."""
+        ex = self.executor
+        return M.broadcast_ints(parts, ex.ranks.world, ex.device)
+
     def _emit(self, kind: str, **kw) -> None:
         """Record one control-plane decision in the event log (no-op
-        without one).  ``tick`` defaults to the controller's own tick
-        counter, so leave/join/remesh between ticks land causally
-        ordered next to the surrounding tick records."""
-        if self.event_log is not None:
+        without one, and on every rank but rank 0 across ranks).
+        ``tick`` defaults to the controller's own tick counter, so
+        leave/join/remesh between ticks land causally ordered next to
+        the surrounding tick records."""
+        if self.event_log is not None and self._decides:
             kw.setdefault("tick", self._ticks)
             self.event_log.emit(kind, **kw)
 
@@ -240,32 +285,41 @@ class FleetController:
         region axis.  Only when no in-region rank is available does the
         pick fall back to the fleet-wide least-loaded rank.  Returns
         the backup rank, or ``None`` when no healthy rank is left
-        anywhere (the records then wait for a joiner)."""
+        anywhere (the records then wait for a joiner).  Across ranks the
+        pick is rank 0's, broadcast; a rank outside the fleet flips the
+        flag and returns ``None``."""
         ex = self.executor
         active = ex.active
         if not active[shard]:
             raise ValueError(f"shard {shard} already left")
         active[shard] = False
         ex.set_active(active)
-        eper = ex.cfg.edges_per_region
-        region = int(shard) // eper
-        outside = {i for i in range(ex.cfg.num_shards)
-                   if i // eper != region}
-        plan = self.wall_detector.reassignment(
-            sorted(self._unavailable() | {int(shard)} | outside))
-        backup = plan.get(int(shard))
-        locality = "intra-region"
-        if backup is None:
+        backup = None
+        if self._decides:
+            eper = ex.cfg.edges_per_region
+            region = int(shard) // eper
+            outside = {i for i in range(ex.cfg.num_shards)
+                       if i // eper != region}
             plan = self.wall_detector.reassignment(
-                sorted(self._unavailable() | {int(shard)}))
+                sorted(self._unavailable() | {int(shard)} | outside))
             backup = plan.get(int(shard))
-            locality = "cross-region fallback"
-        self._emit("leave", shard=int(shard), cause="member left fleet",
-                   active=[bool(x) for x in active])
-        self._emit("backup_assign", shard=int(shard),
-                   cause=f"reassignment over wall-time history "
-                         f"({locality})",
-                   backup=None if backup is None else int(backup))
+            locality = "intra-region"
+            if backup is None:
+                plan = self.wall_detector.reassignment(
+                    sorted(self._unavailable() | {int(shard)}))
+                backup = plan.get(int(shard))
+                locality = "cross-region fallback"
+            self._emit("leave", shard=int(shard), cause="member left fleet",
+                       active=[bool(x) for x in active])
+            self._emit("backup_assign", shard=int(shard),
+                       cause=f"reassignment over wall-time history "
+                             f"({locality})",
+                       backup=None if backup is None else int(backup))
+        if self._across:
+            if not ex.member:
+                return None
+            got = int(self._agree([[-1 if backup is None else backup]])[0][0])
+            backup = None if got < 0 else got
         return backup
 
     def join(self, shard: int) -> None:
@@ -294,6 +348,30 @@ class FleetController:
                    active=[bool(x) for x in active])
 
     # -- mid-ring carry handoff (sliding-window replay) --------------------
+    def _carry_rows(self, state: FleetState, moves: list):
+        """``state``'s carry and validity as new tensors, with the rows
+        of ``moves`` ((from shard, to shard) pairs) moved: an index copy
+        on one card, rank to rank across ranks."""
+        ex = self.executor
+        carry, valid = state.shard.carry, state.shard.carry_valid
+        new_carry, new_valid = carry.clone(), valid.clone()
+        if not self._across:
+            for a, b in moves:
+                new_carry[b] = carry[a]
+                new_valid[b] = valid[a]
+        else:
+            lay = ex.ranks.rows(ex.cfg.num_shards)
+            M.move_rows([carry, valid], moves, lay, lay,
+                        [new_carry, new_valid])
+        return new_carry, new_valid
+
+    def _local(self, shard: int) -> int | None:
+        """``shard``'s row on this rank (None when another rank holds
+        it)."""
+        ex = self.executor
+        i = int(shard) - ex.shard_offset
+        return i if 0 <= i < ex.local_shards else None
+
     def begin_replay_carry(self, state: FleetState, stream: int,
                            backup: int) -> FleetState:
         """Migrate a departed ``stream``'s window carry onto its
@@ -305,31 +383,36 @@ class FleetController:
         rows across ticks, so replaying the departed stream's batches
         on the backup's slot would otherwise frame them against the
         backup's OWN carry: silent window smear (which ``step`` used to
-        refuse outright).  This stashes the backup's carry host-side,
-        installs the departed stream's carry (and validity) in its
-        place, and blanks the departed slot's carry validity (the carry
-        *moves* — leaving it would emit the same partial windows twice).
-        At rejoin :meth:`end_replay_carry` moves the evolved carry back.
-        The stash is a copy on the device; the returned state's
-        ``carry`` and ``carry_valid`` are new tensors (the caller's are
-        not written).
+        refuse outright).  This stashes the backup's carry, installs the
+        departed stream's carry (and validity) in its place, and blanks
+        the departed slot's carry validity (the carry *moves* — leaving
+        it would emit the same partial windows twice).  At rejoin
+        :meth:`end_replay_carry` moves the evolved carry back.  The
+        stash is a copy on the device; the returned state's ``carry``
+        and ``carry_valid`` are new tensors (the caller's are not
+        written).  Across ranks the stream's row moves to the backup's
+        rank (``launch.mesh.move_rows``) and the stash lives on the
+        backup's rank; every rank records the live handoff.
 
         Call between ticks: after :meth:`leave` picked the backup,
         before the first replay delivery.  Returns the updated state."""
-        _one_card(self.executor, "the carry handoff")
         key = (int(stream), int(backup))
         if key[0] == key[1]:
             raise ValueError(f"stream and backup must differ, got {key}")
         if key in self._carry_stash:
             raise ValueError(f"carry handoff already live for {key}")
         stream, backup = key
+        if not self.executor.member:
+            self._carry_stash[key] = None
+            return state
         carry, valid = state.shard.carry, state.shard.carry_valid
-        self._carry_stash[key] = (carry[backup].clone(),
-                                  valid[backup].clone())
-        new_carry, new_valid = carry.clone(), valid.clone()
-        new_carry[backup] = carry[stream]
-        new_valid[backup] = valid[stream]
-        new_valid[stream] = False
+        b = self._local(backup)
+        self._carry_stash[key] = None if b is None else (
+            carry[b].clone(), valid[b].clone())
+        new_carry, new_valid = self._carry_rows(state, [(stream, backup)])
+        s = self._local(stream)
+        if s is not None:
+            new_valid[s] = False
         self._emit("backup_assign", shard=int(stream),
                    cause="sliding carry handoff: departed stream's "
                          "window carry installed on backup",
@@ -349,19 +432,18 @@ class FleetController:
         Call between ticks: after the last replay delivery, before the
         rejoined slot's first fresh or drain tick.  Returns the updated
         state."""
-        _one_card(self.executor, "the carry handoff")
         key = (int(stream), int(backup))
         if key not in self._carry_stash:
             raise ValueError(f"no live carry handoff for {key}; live: "
                              f"{sorted(self._carry_stash)}")
         stream, backup = key
-        own_carry, own_valid = self._carry_stash.pop(key)
-        carry, valid = state.shard.carry, state.shard.carry_valid
-        new_carry, new_valid = carry.clone(), valid.clone()
-        new_carry[stream] = carry[backup]
-        new_carry[backup] = own_carry
-        new_valid[stream] = valid[backup]
-        new_valid[backup] = own_valid
+        own = self._carry_stash.pop(key)
+        if not self.executor.member:
+            return state
+        new_carry, new_valid = self._carry_rows(state, [(backup, stream)])
+        if own is not None:
+            b = self._local(backup)
+            new_carry[b], new_valid[b] = own
         self._emit("backup_assign", shard=int(stream),
                    cause="sliding carry handoff: evolved carry returned "
                          "to rejoined slot, backup's own carry restored",
@@ -371,7 +453,7 @@ class FleetController:
 
     def remesh(self, state, devices, *, keep: list | None = None,
                num_core: int | None = None,
-               num_regions: int | None = None):
+               num_regions: int | None = None, ranks=None):
         """The device set actually changed: re-lay the fleet over
         ``devices`` (the surviving device list, or its length) and
         migrate the state -- see :meth:`FleetExecutor.remesh`.
@@ -391,7 +473,17 @@ class FleetController:
         re-derive any ``backups`` plan in the new numbering.  A live
         sliding-carry handoff must be closed first
         (:meth:`end_replay_carry`) — its stash is addressed in the old
-        numbering, so remeshing through it raises."""
+        numbering, so remeshing through it raises.
+
+        Across ranks every world rank calls it, member or not, with the
+        same arguments (``ranks``: the new rank set, as
+        :meth:`FleetExecutor.remesh` takes it).  Every check runs first;
+        then rank 0's fold plan, its counters and its per-shard
+        baselines go to every world rank in one broadcast (a rank
+        outside the fleet missed the ticks since it left), the executor
+        re-lays the fleet, and every rank remaps the baselines and the
+        region policies alike.  :attr:`remesh_fold` holds the fold
+        plan on every rank."""
         if self._carry_stash:
             raise ValueError(
                 "re-mesh during a live replay carry handoff: call "
@@ -401,25 +493,31 @@ class FleetController:
         ex = self.executor
         old_e = ex.cfg.num_shards
         old_r = ex.cfg.num_regions
-        num_shards = len(devices) if isinstance(devices, (list, tuple)) \
-            else int(devices)
-        if keep is None:
-            keep = [i if i < old_e else None for i in range(num_shards)]
-        kept = [k for k in keep if k is not None]
-        departed = sorted(set(range(old_e)) - set(kept))
-        plan = self.wall_detector.reassignment(
-            sorted(set(departed) | self._unavailable()))
-        fold = {s: b for s, b in plan.items() if s in departed and b in kept}
-        # monotone counters must land on SOME surviving row even when
-        # reassignment has no healthy pick (every survivor flagged):
-        # losing them would regress fleet totals with no error
-        for s in departed:
-            if s not in fold and kept:
-                fold[s] = kept[0]
-        new_state, payload = ex.remesh(state, num_shards, keep=keep,
-                                       num_core=num_core,
-                                       num_regions=num_regions,
-                                       fold_counters=fold)
+        plan = ex._plan_remesh(devices, keep, num_core, num_regions, ranks)
+        keep, kept = plan.keep, plan.kept
+        departed = plan.departed
+        fold = {}
+        if self._decides:
+            picks = self.wall_detector.reassignment(
+                sorted(set(departed) | self._unavailable()))
+            fold = {s: b for s, b in picks.items()
+                    if s in departed and b in kept}
+            # monotone counters must land on SOME surviving row even
+            # when reassignment has no healthy pick (every survivor
+            # flagged): losing them would regress fleet totals with no
+            # error
+            for s in departed:
+                if s not in fold and kept:
+                    fold[s] = kept[0]
+        if self._across:
+            fold = self._take_control(
+                fold, old_e, state.shard.metrics.drift_counts.shape[-1])
+            new_state, payload = ex._remesh_ranks(state, plan, fold)
+        else:
+            new_state, payload = ex.remesh(state, len(keep), keep=keep,
+                                           num_core=num_core,
+                                           num_regions=num_regions,
+                                           fold_counters=fold)
         self._emit("remesh", cause="device set changed",
                    old_shards=old_e, new_shards=ex.cfg.num_shards,
                    num_regions=ex.cfg.num_regions,
@@ -466,15 +564,50 @@ class FleetController:
             setattr(self, name, StragglerDetector(
                 ex.cfg.num_shards, window=d.window, threshold=d.threshold,
                 patience=d.patience, floor=d.floor))
+        self._fold = dict(fold)
         return new_state, payload
 
+    def _take_control(self, fold: dict, old_e: int, width: int) -> dict:
+        """Across ranks, before a remesh: rank 0's fold plan, its
+        counters (resizes, retraces, ticks) and its per-shard baselines
+        (``width`` drift counts a shard) on every world rank, riding the
+        executor's one broadcast of rank 0's knobs over the world
+        (``FleetExecutor._take_knobs``: a rank outside the fleet missed
+        the ticks since it left).  Returns the fold plan."""
+        drift = self._prev_drift
+        plan = np.full(old_e, -1, np.int64)
+        for a, b in fold.items():
+            plan[a] = b
+        head, plan, base, drift = self.executor._take_knobs([
+            [self._resizes, self._retraces, self._ticks, drift is not None],
+            plan, np.stack([self._prev_escalated, self._prev_rejected,
+                            self._prev_deduped, self._prev_healthy]),
+            np.zeros((old_e, width)) if drift is None else drift])
+        self._resizes, self._retraces, self._ticks, has_drift = (
+            int(v) for v in head)
+        (self._prev_escalated, self._prev_rejected, self._prev_deduped,
+         healthy) = base.reshape(4, old_e)
+        self._prev_healthy = healthy.astype(bool)
+        self._prev_drift = drift.reshape(old_e, width) if has_drift else None
+        return {int(a): int(b) for a, b in enumerate(plan) if b >= 0}
+
     def tick(self, state: FleetState,
-             step_times: np.ndarray | None = None) -> ControlDecision:
+             step_times: np.ndarray | None = None
+             ) -> ControlDecision | None:
         """One control tick: observe ``state``, actuate health mask +
         budget on the executor for the next data tick.  With an
         ``event_log`` installed, every actuation (health-mask change,
         budget resize) lands as a typed JSONL record; with a ``tracer``
-        the whole tick is one host span."""
+        the whole tick is one host span.
+
+        ``step_times``: per-shard wall times; without them the
+        deciding process's own ``last_step_seconds`` is replicated
+        (across ranks rank 0's, and only rank 0's ``step_times`` are
+        read).  Across ranks every rank of the fleet calls it and gets
+        the same decision; on a rank outside the fleet it returns
+        ``None``."""
+        if not self.executor.member:
+            return None
         with self.tracer.span("control.tick", tick=self._ticks):
             decision = self._tick(state, step_times)
         self._ticks += 1
@@ -483,11 +616,6 @@ class FleetController:
     def _tick(self, state: FleetState,
               step_times: np.ndarray | None = None) -> ControlDecision:
         ex = self.executor
-        e = ex.cfg.num_shards
-        if ex.ranks is not None and step_times is None:
-            raise ValueError(
-                "a controller over ranks needs step_times: each rank's "
-                "wall time differs, and so would its decisions")
         max_ts, esc_total, wm, rej_total, ded_total, drift_total, \
             dropped, emitted = _pull(state, ex)
         max_ts = np.asarray(max_ts, np.float64)
@@ -528,7 +656,35 @@ class FleetController:
                 cause="per-field contract violations advanced",
                 total=int(drift_fleet.sum()),
                 per_field=[int(x) for x in np.atleast_1d(drift_fleet)])
+        # the lineage bank is a read of every rank (a collective across
+        # ranks) wherever a latency SLO needs it
+        bank = ex.lineage_counts() \
+            if self._slo_eval is not None and self._slo_bank else None
+        verdict = self._decide(max_ts, escalated, step_times, bank,
+                               (dropped, emitted)) if self._decides else None
+        if self._across:
+            verdict = self._agree_verdict(verdict)
+        return ControlDecision(
+            budget=ex.core_budget, resized=verdict.resized,
+            retraced=verdict.core_retraced or verdict.fog_retraced,
+            healthy=verdict.healthy,
+            stragglers=[int(r) for r in np.nonzero(~verdict.healthy)[0]],
+            escalated=escalated, watermark=float(wm),
+            region_budgets=None if self.region_policies is None
+            else ex.region_budget,
+            fog_resized=verdict.fog_resized,
+            slo_breached=verdict.slo_breached,
+            items_rejected=int(rejected.sum()),
+            items_deduped=int(deduped.sum()),
+            drift=np.atleast_1d(drift_fleet))
 
+    def _decide(self, max_ts, escalated, step_times, bank,
+                drops) -> _Verdict:
+        """The deciding process's half of a tick: the detectors, the
+        budget and fog policies and the SLO evaluator, each actuated on
+        the executor and logged."""
+        ex = self.executor
+        e = ex.cfg.num_shards
         # -- straggler detection: wall-clock + event-time lag ----------
         if step_times is None:
             step_times = np.full(e, max(ex.last_step_seconds, 1e-9))
@@ -585,8 +741,7 @@ class FleetController:
         # -- elastic per-region fog budgets ----------------------------
         # one ElasticBudget instance per region, fed the region's own
         # candidate demand; only active when fog budgeting is opted in
-        fog_resized = False
-        region_budgets = None
+        fog_resized = fog_retraced = False
         if self.region_policies is not None:
             rr = ex.cfg.num_regions
             demand = escalated.reshape(rr, ex.cfg.edges_per_region).sum(1)
@@ -603,7 +758,6 @@ class FleetController:
                 fog_retraced = ex.fog_slots != old_fog_slots
                 if fog_retraced:
                     self._retraces += 1
-                    retraced = True
                 for i in np.nonzero(new_rb != old_rb)[0]:
                     self._emit(
                         "fog_budget_resize", shard=None,
@@ -613,7 +767,6 @@ class FleetController:
                         budget_to=int(new_rb[i]),
                         escalated=int(demand[i]),
                         retraced=bool(fog_retraced))
-            region_budgets = ex.region_budget
 
         # -- SLO burn-rate lane ----------------------------------------
         # feed the evaluator cumulative telemetry (it differences
@@ -624,9 +777,7 @@ class FleetController:
         # autoscaling ROADMAP item's input)
         slo_breached = ()
         if self._slo_eval is not None:
-            bank = ex.lineage_counts() if self._slo_bank else None
-            for st in self._slo_eval.observe(bank=bank,
-                                             drops=(dropped, emitted)):
+            for st in self._slo_eval.observe(bank=bank, drops=drops):
                 if st.breached or st.recovered:
                     self._emit(
                         "slo_breach" if st.breached else "slo_recover",
@@ -639,15 +790,54 @@ class FleetController:
                         fast_burn=round(float(st.fast_burn), 4),
                         slow_burn=round(float(st.slow_burn), 4))
             slo_breached = self._slo_eval.breaching
-        return ControlDecision(
-            budget=ex.core_budget, resized=resized, retraced=retraced,
-            healthy=healthy, stragglers=flagged, escalated=escalated,
-            watermark=float(wm),
-            region_budgets=region_budgets, fog_resized=fog_resized,
-            slo_breached=slo_breached,
-            items_rejected=int(rejected.sum()),
-            items_deduped=int(deduped.sum()),
-            drift=np.atleast_1d(drift_fleet))
+        return _Verdict(healthy, bool(resized), bool(retraced),
+                        fog_resized, bool(fog_retraced), slo_breached)
+
+    def _agree_verdict(self, verdict) -> _Verdict:
+        """Across ranks: rank 0's verdict on every rank of the fleet, in
+        one broadcast (:meth:`_agree`) of the health mask, ``[budget,
+        resized, core retraced, fog resized, fog retraced]``, the region
+        budgets (with fog policies) and one breached flag a SLO; every
+        other rank calls the same setters rank 0 called and counts the
+        same resizes and retraces.  A rank whose setters disagree with
+        rank 0's flags raises."""
+        ex = self.executor
+        mine = verdict or _Verdict(np.zeros(ex.cfg.num_shards, bool), False,
+                                   False, False, False, ())
+        fog = self.region_policies is not None
+        names = set(mine.slo_breached)
+        healthy, head, rb, breached = self._agree([
+            mine.healthy, [ex.core_budget, mine.resized, mine.core_retraced,
+                           mine.fog_resized, mine.fog_retraced],
+            ex.region_budget if fog else [],
+            [s.name in names for s in self.slos]])
+        healthy, rb = healthy.astype(bool), rb.astype(np.int32)
+        budget, resized, core_rt, fog_rs, fog_rt = (int(x) for x in head)
+        breached = tuple(s.name for s, m in zip(self.slos, breached) if m)
+        if verdict is None:
+            self._prev_healthy = healthy.copy()
+            ex.set_health(healthy)
+            old_slots = ex.core_slots
+            if resized:
+                ex.set_core_budget(budget)
+                self._resizes += 1
+            if (ex.core_slots != old_slots) != bool(core_rt) \
+                    or ex.core_budget != budget:
+                raise RuntimeError(
+                    f"rank {dist.get_rank()}: the core budget {budget} "
+                    f"(retraced {bool(core_rt)}) does not apply here")
+            self._retraces += core_rt
+            if fog_rs:
+                old_fog = ex.fog_slots
+                ex.set_region_budget(rb)
+                self._resizes += 1
+                if (ex.fog_slots != old_fog) != bool(fog_rt):
+                    raise RuntimeError(
+                        f"rank {dist.get_rank()}: the fog budgets {rb} "
+                        f"(retraced {bool(fog_rt)}) do not apply here")
+                self._retraces += fog_rt
+        return _Verdict(healthy, bool(resized), bool(core_rt), bool(fog_rs),
+                        bool(fog_rt), breached)
 
     @property
     def max_trace_count(self) -> int:
@@ -659,9 +849,14 @@ class FleetController:
         return 1 + self._retraces + self.executor.remeshes
 
 
-def _one_card(ex, what: str) -> None:
-    if ex.ranks is not None:
-        raise NotImplementedError(f"{what} is not ported across ranks")
+class _Verdict(NamedTuple):
+    """What the deciding process decided in one tick."""
+    healthy: np.ndarray           # [S] bool, installed for the next tick
+    resized: bool                 # the core budget moved
+    core_retraced: bool           # ... past its slot ceiling
+    fog_resized: bool             # a fog budget moved
+    fog_retraced: bool            # ... past the fog ceiling
+    slo_breached: tuple           # names of the SLOs in breach
 
 
 def _pull(state: FleetState, ex=None) -> tuple:
@@ -671,22 +866,28 @@ def _pull(state: FleetState, ex=None) -> tuple:
     and emit counters.  The float32 leaves travel as their int32 bits,
     so one int32 tensor carries them all exactly.  Over an executor
     laid across ranks the per-shard leaves are first gathered (one
-    all-gather of them side by side), so every rank reads the fleet."""
+    all-gather of them side by side, the replicated watermark and fleet
+    counters beside them), so every rank reads the fleet, and reads the
+    replicated values off shard 0's row as one card does."""
     sh, m = state.shard, state.shard.metrics
     s = sh.max_ts.shape[0]
     per_shard = (sh.max_ts.view(torch.int32)[:, None],
                  m.windows_escalated[:, None], m.items_rejected[:, None],
                  m.items_deduped[:, None], m.drift_counts.reshape(s, -1))
+    fleet = (state.watermark.view(torch.int32), state.fleet.windows_dropped,
+             state.fleet.windows_emitted)
     if ex is not None and ex.ranks is not None:
+        per_shard += tuple(v[:, None] for v in fleet)
         cols = [p.shape[1] for p in per_shard]
         rows = ex.gather(torch.cat([p.to(torch.int32) for p in per_shard],
                                    1))
         per_shard = torch.split(rows, cols, 1)
+        fleet = tuple(p.reshape(-1) for p in per_shard[5:])
+        per_shard = per_shard[:5]
         s = rows.shape[0]
     mx, esc, rej, ded, drift = (p.reshape(-1) for p in per_shard)
-    parts = (mx, esc, state.watermark[:1].view(torch.int32), rej, ded,
-             drift, state.fleet.windows_dropped[:1],
-             state.fleet.windows_emitted[:1])
+    parts = (mx, esc, fleet[0][:1], rej, ded, drift, fleet[1][:1],
+             fleet[2][:1])
     host = torch.cat([p.to(torch.int32) for p in parts]).cpu().numpy()
     at = 0
     out = []

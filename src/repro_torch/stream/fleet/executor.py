@@ -34,20 +34,28 @@ ring keeps draining on its own rows); ``remesh`` changes the width and
 migrates the state (a departed shard's unconsumed ring rows come back
 to the host).  Backup replay rides the per-shard ``mode`` operand.
 
-Across ranks (``mesh=`` a ``("region", "edge")`` ``DeviceMesh`` over
-N processes, :func:`rank_mesh`): each rank holds ``S / N`` consecutive
-shards -- their rows of every state tensor, on its own card (NCCL) or
-the CPU (gloo) -- and runs the per-shard work on them; the cross-shard
-phases are ``stream.fleet.federation``'s rank forms, the collectives
-the reference's ``shard_map`` runs (all-gathers of the watermark
-inputs and the counts, all-to-alls for both hops, one all-reduce of the
-counters).  ``init_state`` and ``step`` take and give this rank's rows;
-the fleet counters and the watermarks come back replicated, as the
-reference's do.  It is an SPMD program: every rank calls every method
-in the same order with the same masks and budgets (``set_health``,
-``set_active``, ``set_core_budget``, ``set_region_budget``), and the
-tick's ``now`` and fed wall time are rank 0's, broadcast inside the
-tick, so that no rank subtracts one process's clock from another's.
+Across ranks (``mesh=`` a ``("region", "edge")`` mesh over N of the
+world's processes, :func:`rank_mesh`): each of the fleet's ranks holds
+``S / N`` consecutive shards -- their rows of every state tensor, on
+its own card (NCCL) or the CPU (gloo) -- and runs the per-shard work on
+them; the cross-shard phases are ``stream.fleet.federation``'s rank
+forms, the collectives the reference's ``shard_map`` runs over the
+fleet's groups (all-gathers of the watermark inputs and the counts,
+all-to-alls for both hops, one all-reduce of the counters).
+``init_state`` and ``step`` take and give this rank's rows; the fleet
+counters and the watermarks come back replicated, as the reference's
+do.  It is an SPMD program: every rank calls every method in the same
+order with the same masks and budgets (``set_health``, ``set_active``,
+``set_core_budget``, ``set_region_budget``), and the tick's ``now`` and
+fed wall time are rank 0's, broadcast inside the tick, so that no rank
+subtracts one process's clock from another's.  World rank 0 is in
+every fleet's rank set.  A world rank outside the fleet (the mesh left
+it out) holds no rows and enters none of the fleet's collectives: its
+``step`` does nothing.  ``remesh`` is the one call every world rank
+makes, member or not: it lays the fleet over a new width (form (a),
+the same ranks) or a new rank set (form (b): ranks leave the fleet or
+rejoin it), making the new groups on every world rank and moving the
+rows rank to rank (``launch.mesh.move_rows``).
 
 The tick compiles once, as the reference's does: it is a
 ``runtime.capture.Step`` (``trace_count``, ``_compile_count``), eager at
@@ -286,23 +294,39 @@ def _layout(cfg: FleetConfig) -> AbstractMesh:
                         (REGION_AXIS, EDGE_AXIS))
 
 
-def rank_mesh(cfg: FleetConfig, device: str | torch.device | None = None):
-    """The ``("region", "edge")`` ``DeviceMesh`` that lays ``cfg``'s
-    shards over the default process group's N ranks
-    (``routing.rank_mesh_shape``: ``(R, N / R)`` when each region spans
-    ``N / R`` ranks, ``(N, 1)`` when each rank holds whole regions); on
+def rank_mesh(cfg: FleetConfig, device: str | torch.device | None = None,
+              ranks=None) -> M.RankMesh:
+    """The ``("region", "edge")`` mesh (``launch.mesh.RankMesh``) that
+    lays ``cfg``'s shards over ``ranks`` (world ranks, ascending, rank 0
+    among them; ``None``: every rank of the default process group):
+    ``routing.rank_mesh_shape``, ``(R, N / R)`` when each region spans
+    ``N / R`` ranks, ``(N, 1)`` when each rank holds whole regions; on
     the card (``None``) or the CPU.  Raises when N ranks cannot hold the
-    shards as whole runs.  Every rank calls it."""
+    shards as whole runs.  Every world rank calls it, member or not
+    (it makes the mesh's groups)."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
     dev = resolve_device(device)
     if not dist.is_initialized():
         raise RuntimeError("no process group: start the ranks first "
                            "(launch.mesh.spawn)")
+    ranks = _rank_set(ranks)
     shape = FR.rank_mesh_shape(cfg.num_regions, cfg.edges_per_region,
-                               dist.get_world_size())
-    return init_device_mesh(dev.type, shape,
-                            mesh_dim_names=(REGION_AXIS, EDGE_AXIS))
+                               len(ranks))
+    return M.RankMesh(dev.type, ranks, shape, (REGION_AXIS, EDGE_AXIS))
+
+
+def _rank_set(ranks) -> tuple:
+    """``ranks`` checked: distinct ascending world ranks with rank 0
+    (``None``: the whole world)."""
+    import torch.distributed as dist
+    n = dist.get_world_size()
+    ranks = tuple(range(n)) if ranks is None else tuple(int(r) for r in ranks)
+    if not ranks or list(ranks) != sorted(set(ranks)) or ranks[0] != 0 \
+            or ranks[-1] >= n:
+        raise ValueError(f"a fleet's ranks are distinct ascending ranks of "
+                         f"the world's {n}, rank 0 among them; got "
+                         f"{list(ranks)}")
+    return ranks
 
 
 def _map_rows(fn, tree):
@@ -326,10 +350,12 @@ class FleetExecutor:
     mesh: the reference's ``(region, edge)`` device layout, as any mesh
     ``launch.mesh.axis_sizes`` reads (``None``: the config's own,
     ``self.mesh``); a shape that does not match the config raises, as
-    the reference's does.  All shards stay rows on the one card.  A
-    ``DeviceMesh`` (:func:`rank_mesh`) lays them over its ranks instead
-    (see the module docstring): ``device`` is then this rank's (``None``:
-    its current card), of the mesh's device type.
+    the reference's does.  All shards stay rows on the one card.  A mesh
+    of ranks (:func:`rank_mesh`, a ``launch.mesh.RankMesh``) lays them
+    over its ranks instead (see the module docstring): ``device`` is
+    then this rank's (``None``: its current card), of the mesh's device
+    type.  A ``DeviceMesh`` raises: it would leave the rank set and the
+    fleet's groups to ``init_device_mesh``.
     """
 
     def __init__(self, cfg: FleetConfig, engine: R.RuleEngine,
@@ -345,11 +371,14 @@ class FleetExecutor:
                 "not tabular (threshold_rule-style rules only) -- callable "
                 "rules cannot run inside the fused kernel; use fused=False")
         from torch.distributed.device_mesh import DeviceMesh
+        if isinstance(mesh, DeviceMesh):
+            raise ValueError("a fleet over ranks takes rank_mesh(cfg, "
+                             "device), a launch.mesh.RankMesh")
         if mesh is None:
             mesh = _layout(cfg)
         self.device = resolve_device(device)
         self.ranks = None
-        if isinstance(mesh, DeviceMesh):
+        if isinstance(mesh, M.RankMesh):
             if mesh.device_type != self.device.type:
                 raise ValueError(f"a {mesh.device_type} mesh cannot run "
                                  f"shards on {self.device}")
@@ -401,16 +430,26 @@ class FleetExecutor:
                                        name="fleet tick")
 
     @property
+    def member(self) -> bool:
+        """Whether this rank holds rows of the fleet (always on one
+        card)."""
+        return self.ranks is None or self.ranks.member
+
+    @property
     def local_shards(self) -> int:
-        """Shards this rank holds: ``S / N`` across ranks, else S."""
-        return self.cfg.num_shards if self.ranks is None \
-            else self.ranks.layout.shards
+        """Shards this rank holds: ``S / N`` across ranks (0 on a rank
+        outside the fleet), else S."""
+        if self.ranks is None:
+            return self.cfg.num_shards
+        return self.ranks.layout.shards if self.ranks.member else 0
 
     @property
     def shard_offset(self) -> int:
         """The global index of this rank's first shard (0 on one card):
         its rows of a fleet-wide ``[S, ...]`` feed start here."""
-        return 0 if self.ranks is None else self.ranks.layout.first_shard
+        if self.ranks is None or not self.ranks.member:
+            return 0
+        return self.ranks.layout.first_shard
 
     def _rows(self, mask: np.ndarray) -> np.ndarray:
         """This rank's entries of a fleet-wide ``[S]`` host mask."""
@@ -421,9 +460,13 @@ class FleetExecutor:
         """Every rank's rows of each tensor in ``tree`` (a ``StepOutput``,
         a ``FleetMetrics``, ...), stacked in shard order: the fleet-wide
         ``[S, ...]`` view, on every rank (one all-gather a tensor; every
-        rank calls it).  On one card ``tree`` itself."""
+        rank calls it).  On one card ``tree`` itself.  A rank outside
+        the fleet has nothing to gather (raises)."""
         if self.ranks is None:
             return tree
+        if not self.ranks.member:
+            raise ValueError("this rank is outside the fleet: it enters "
+                             "none of the fleet's collectives")
         return _map_rows(lambda t: F.gather_rows(t, self.ranks), tree)
 
     @property
@@ -811,8 +854,12 @@ class FleetExecutor:
 
         ``last_step_seconds`` is the host wall time of the call; with
         ``measure_steps`` (the default) it synchronizes the card before
-        the clock stops, so it includes the device's work."""
+        the clock stops, so it includes the device's work.  On a rank
+        outside the fleet it does nothing and returns ``(state,
+        None)``."""
         cfg, dev = self.cfg, self.device
+        if not self.member:
+            return state, None
         if replay is not None and mode is not None:
             raise ValueError("pass either replay (bool shorthand) or "
                              "mode (MODE_* codes), not both")
@@ -875,10 +922,54 @@ class FleetExecutor:
         return state, out
 
     # -- a change of width ------------------------------------------------
+    def _plan_remesh(self, devices, keep=None, num_core=None,
+                     num_regions=None, ranks=None) -> _Remesh:
+        """A remesh's new layout, checked before anything moves: the new
+        config, the ``keep`` map, the departed shards and, across ranks,
+        the new rank set and its mesh shape.  Raises ``ValueError`` on
+        every rank alike (the checks read host values only)."""
+        cfg = self.cfg
+        num_shards = len(devices) if isinstance(devices, (list, tuple)) \
+            else int(devices)
+        old_e, old_r = cfg.num_shards, cfg.num_regions
+        fix_regions = num_regions is None or num_regions == old_r
+        new_r, new_ee = elastic.remesh(old_r, cfg.edges_per_region,
+                                       num_shards, fix_regions)
+        if not fix_regions and new_r != num_regions:
+            raise ValueError(
+                f"{num_shards} devices at edge width "
+                f"{cfg.edges_per_region} form {new_r} regions, not "
+                f"num_regions={num_regions} -- resize one axis per call")
+        new_e = new_r * new_ee
+        if keep is None:
+            keep = [i if i < old_e else None for i in range(new_e)]
+        keep = list(keep)
+        if len(keep) != new_e:
+            raise ValueError(f"keep must name {new_e} slots, got {keep}")
+        kept = [k for k in keep if k is not None]
+        if len(set(kept)) != len(kept) \
+                or any(not (0 <= k < old_e) for k in kept):
+            raise ValueError(f"keep must be distinct old indices < "
+                             f"{old_e} (or None), got {keep}")
+        new_cfg = dataclasses.replace(
+            cfg, num_shards=new_e, num_regions=new_r,
+            num_core=min(cfg.num_core, new_ee) if num_core is None
+            else num_core)
+        shape = None
+        if self.ranks is None:
+            if ranks is not None:
+                raise ValueError("a fleet on one card has no ranks to lay "
+                                 "anew")
+        else:
+            ranks = self.ranks.members if ranks is None else _rank_set(ranks)
+            shape = FR.rank_mesh_shape(new_r, new_ee, len(ranks))
+        departed = [i for i in range(old_e) if i not in kept]
+        return _Remesh(new_cfg, keep, kept, departed, ranks, shape)
+
     def remesh(self, state: FleetState, devices, *,
                keep: list | None = None, num_core: int | None = None,
                num_regions: int | None = None,
-               fold_counters: dict | None = None
+               fold_counters: dict | None = None, ranks=None
                ) -> tuple[FleetState, dict]:
         """Re-lay the fleet over ``devices`` (the reference's surviving
         device list, whose length is the new shard count, or that count)
@@ -903,55 +994,52 @@ class FleetExecutor:
         column 0, the ingest stamp in column 1), the backup-replay
         payload.  A region keeps its identity across an edge resize
         (its watermark and fog budget carry over); a region-count change
-        re-derives them.  Not across ranks: a new width there is a new
-        process group (raises)."""
-        if self.ranks is not None:
-            raise NotImplementedError(
-                "remesh across ranks needs a new process group; it is not "
-                "ported yet")
-        cfg = self.cfg
-        num_shards = len(devices) if isinstance(devices, (list, tuple)) \
-            else int(devices)
-        old_e, old_r = cfg.num_shards, cfg.num_regions
-        fix_regions = num_regions is None or num_regions == old_r
-        new_r, new_ee = elastic.remesh(old_r, cfg.edges_per_region,
-                                       num_shards, fix_regions)
-        if not fix_regions and new_r != num_regions:
-            raise ValueError(
-                f"{num_shards} devices at edge width "
-                f"{cfg.edges_per_region} form {new_r} regions, not "
-                f"num_regions={num_regions} -- resize one axis per call")
-        new_e = new_r * new_ee
-        if keep is None:
-            keep = [i if i < old_e else None for i in range(new_e)]
-        if len(keep) != new_e:
-            raise ValueError(f"keep must name {new_e} slots, got {keep}")
-        kept = [k for k in keep if k is not None]
-        if len(set(kept)) != len(kept) \
-                or any(not (0 <= k < old_e) for k in kept):
-            raise ValueError(f"keep must be distinct old indices < "
-                             f"{old_e} (or None), got {keep}")
-        departed_idx = [i for i in range(old_e) if i not in kept]
-        fold_counters = fold_counters or {}
-        if any(src not in departed_idx or dst not in kept
+        re-derives them.  The health and membership masks are renumbered
+        by ``keep``, and the old tick graphs are dropped: the next tick
+        builds anew.
+
+        Across ranks every world rank calls it, member of the fleet or
+        not, with the same arguments: ``state`` is this rank's rows (none
+        outside the fleet) and so is the returned state.  ``ranks``: the
+        new rank set (world ranks, ascending, rank 0 among them;
+        ``None``: the fleet's own), which must hold the new shards as
+        whole runs (``routing.rank_mesh_shape``).  Form (a) keeps the
+        ranks and changes the width; form (b) lays the fleet over other
+        ranks, a rank leaving it (it then holds no rows) or rejoining.
+        Each rank first takes rank 0's host knobs (budgets, slot
+        ceilings, masks, the latency histogram: a rank outside the fleet
+        missed the ticks since it left), the departed rows come back on the host of every rank
+        (each rank feeds the same ``FaultInjector``), the new groups are
+        made on every world rank (``launch.mesh.RankMesh``) and new row
+        ``j`` moves from the rank holding old row ``keep[j]`` to the one
+        holding row ``j`` (``launch.mesh.move_rows``; a row that stays on
+        its rank moves nothing), the folded counters and lineage the same
+        way.  Every check runs before any of that: a width the rank set
+        cannot hold raises on every rank with nothing moved."""
+        plan = self._plan_remesh(devices, keep, num_core, num_regions, ranks)
+        keep, kept = plan.keep, plan.kept
+        fold_counters = dict(fold_counters or {})
+        if any(src not in plan.departed or dst not in kept
                for src, dst in fold_counters.items()):
             raise ValueError(f"fold_counters must map departed -> kept "
                              f"old indices, got {fold_counters} with "
-                             f"departed={departed_idx}")
-
+                             f"departed={plan.departed}")
+        if self.ranks is not None:
+            self._take_knobs()
+            return self._remesh_ranks(state, plan, fold_counters)
+        cfg = self.cfg
         rb = state.shard.rb
         head, tail = rb.head.cpu().numpy(), rb.tail.cpu().numpy()
         cap = rb.store.shape[1] - 1
         departed = {}
-        for i in departed_idx:
+        for i in plan.departed:
             idx = (int(tail[i]) + np.arange(int(head[i]) - int(tail[i]))) \
                 % cap
             departed[i] = rb.store[i][torch.as_tensor(
                 idx, device=rb.store.device)].cpu().numpy()
         if fold_counters:
             folded = {}
-            for name in ("escalations_sent", "fog_shed", "core_received",
-                         "core_processed", "late_excluded"):
+            for name in _FOLDED:
                 folded[name] = getattr(state, name).clone()
             shard_m = [v.clone() for v in state.shard.metrics]
             for src, dst in fold_counters.items():
@@ -962,43 +1050,21 @@ class FleetExecutor:
                 **folded)
 
         feature_dim = rb.store.shape[-1] - META_COLS
-        self.cfg = dataclasses.replace(
-            cfg, num_shards=new_e, num_regions=new_r,
-            num_core=min(cfg.num_core, new_ee) if num_core is None
-            else num_core)
+        self.cfg = plan.cfg
         fresh = self.init_state(feature_dim)
         new_state = elastic.reshard_state(state, keep, fresh)
-        f32_min = torch.finfo(torch.float32).min
-        if new_r == old_r:
+        new_ee = plan.cfg.edges_per_region
+        if plan.cfg.num_regions == cfg.num_regions:
             # an edge-width resize keeps region identity: each region's
-            # watermark carries over, whoever fills its slots, and the
-            # fog ceiling only grows
-            old_rwm = state.region_watermark.reshape(old_r, -1)[:, 0]
+            # watermark carries over, whoever fills its slots
+            old_rwm = state.region_watermark.reshape(cfg.num_regions,
+                                                     -1)[:, 0]
             new_state = new_state._replace(
                 region_watermark=old_rwm.repeat_interleave(new_ee))
-            self._fog_slots = max(self._fog_slots, self.cfg.fog_slots)
-            if self.cfg.fog_budget is None \
-                    and self.cfg.fog_budget_max is None:
-                self._region_budget = np.maximum(
-                    self._region_budget,
-                    np.int32(self.cfg.initial_fog_budget))
         else:
-            # a region-count change re-forms the regions: their
-            # watermarks and fog budgets re-derive
-            new_state = new_state._replace(region_watermark=torch.full(
-                (new_e,), f32_min, dtype=torch.float32, device=self.device))
-            self._fog_slots = self.cfg.fog_slots
-            rbud = np.full(new_r, min(self.cfg.initial_fog_budget,
-                                      self._fog_slots), np.int32)
-            lap = min(old_r, new_r)
-            rbud[:lap] = np.minimum(self._region_budget[:lap],
-                                    self._fog_slots)
-            self._region_budget = rbud
-
-        self._healthy = np.asarray(
-            [self._healthy[k] if k is not None else True for k in keep])
-        self._active = np.asarray(
-            [self._active[k] if k is not None else True for k in keep])
+            new_state = new_state._replace(
+                region_watermark=_f32_min((plan.cfg.num_shards,),
+                                          self.device))
         # the lineage banks are per-shard: fold departed rows into their
         # counter-fold survivor, then renumber by keep
         lin = self._lineage.clone()
@@ -1007,7 +1073,169 @@ class FleetExecutor:
         self._lineage = torch.stack(
             [lin[k] if k is not None else torch.zeros_like(lin[0])
              for k in keep])
-        self.mesh = _layout(self.cfg)
+        self._relaid(cfg, keep, _layout(self.cfg))
+        return new_state, departed
+
+    def _relaid(self, old_cfg: FleetConfig, keep: list, mesh) -> None:
+        """The host side of a remesh, the same on one card and on every
+        rank: the fog ceiling and budgets (a region keeps its identity
+        across an edge resize: its fog budget carries over and the
+        ceiling only grows; a region-count change re-derives them), the
+        masks renumbered by ``keep``, the new mesh, and the old tick
+        graphs dropped."""
+        if self.cfg.num_regions == old_cfg.num_regions:
+            self._fog_slots = max(self._fog_slots, self.cfg.fog_slots)
+            if self.cfg.fog_budget is None \
+                    and self.cfg.fog_budget_max is None:
+                self._region_budget = np.maximum(
+                    self._region_budget,
+                    np.int32(self.cfg.initial_fog_budget))
+        else:
+            self._fog_slots = self.cfg.fog_slots
+            new_r = self.cfg.num_regions
+            rbud = np.full(new_r, min(self.cfg.initial_fog_budget,
+                                      self._fog_slots), np.int32)
+            lap = min(old_cfg.num_regions, new_r)
+            rbud[:lap] = np.minimum(self._region_budget[:lap],
+                                    self._fog_slots)
+            self._region_budget = rbud
+        self._healthy = np.asarray(
+            [self._healthy[k] if k is not None else True for k in keep])
+        self._active = np.asarray(
+            [self._active[k] if k is not None else True for k in keep])
+        self.mesh = mesh
         self._remeshes += 1
         self._tick_step.clear()         # the next tick builds anew
+
+    def _take_knobs(self, extra: list = ()) -> list:
+        """Every world rank takes rank 0's host knobs -- the budgets, the
+        slot ceilings, the masks, the remesh count, the latency
+        histogram and its warm-up count: a rank outside the fleet missed
+        every tick and setter call since it left -- and a caller's
+        ``extra`` int arrays (the controller's state), in one broadcast
+        over the world (``launch.mesh.broadcast_ints``).  Returns
+        ``extra`` as rank 0 gave it."""
+        import torch.distributed as dist
+        head, rbud, healthy, active, hist, *extra = M.broadcast_ints(
+            [[self._budget, self._slots, self._fog_slots, self._remeshes,
+              self.warmup_excluded], self._region_budget, self._healthy,
+             self._active, self._lat_hist.cpu(), *extra],
+            dist.group.WORLD, self.device)
+        (self._budget, self._slots, self._fog_slots, self._remeshes,
+         self.warmup_excluded) = (int(x) for x in head)
+        self._region_budget = rbud.astype(np.int32)
+        self._healthy, self._active = healthy.astype(bool), active.astype(bool)
+        self._lat_hist = torch.as_tensor(hist, dtype=self._lat_hist.dtype,
+                                         device=self.device)
+        return extra
+
+    def _departed_rows(self, state: FleetState, departed: list,
+                       src: M.RowLayout) -> dict:
+        """Each departed shard's unconsumed ring rows on the host of every
+        world rank: their counts in one all-reduce over the world, then
+        each holder's rows in one broadcast."""
+        import torch.distributed as dist
+        world, me, dev = dist.group.WORLD, dist.get_rank(), self.device
+        if not departed:
+            return {}
+        rb = state.shard.rb
+        cap = rb.store.shape[1] - 1
+        mine, counts = {}, np.zeros(len(departed), np.int64)
+        for n, i in enumerate(departed):
+            owner, li = src.where(i)
+            if owner == me:
+                head, tail = int(rb.head[li]), int(rb.tail[li])
+                idx = (tail + np.arange(head - tail)) % cap
+                mine[i] = rb.store[li][torch.as_tensor(idx, device=dev)]
+                counts[n] = len(idx)
+        counts = M.all_reduce(torch.as_tensor(counts, device=dev),
+                              dist.ReduceOp.SUM, world).cpu().numpy()
+        out = {}
+        for n, i in enumerate(departed):
+            k = int(counts[n])
+            rows = mine.get(i)
+            if rows is None:
+                rows = rb.store.new_zeros((k,) + tuple(rb.store.shape[2:]))
+            if k:
+                rows = M.broadcast(rows, world, src=src.where(i)[0])
+            out[i] = rows.cpu().numpy()
+        return out
+
+    def _remesh_ranks(self, state: FleetState, plan: _Remesh,
+                      fold: dict) -> tuple[FleetState, dict]:
+        """:meth:`remesh` across ranks, on every world rank (see there),
+        after :meth:`_take_knobs`."""
+        old_cfg, dev = self.cfg, self.device
+        src = self.ranks.rows(old_cfg.num_shards)
+        departed = self._departed_rows(state, plan.departed, src)
+        feature_dim = state.shard.rb.store.shape[-1] - META_COLS
+        mesh = M.RankMesh(dev.type, plan.ranks, plan.shape,
+                          (REGION_AXIS, EDGE_AXIS))
+        self.cfg = plan.cfg
+        self.ranks = F.ranks_of(mesh, plan.cfg.num_regions,
+                                plan.cfg.edges_per_region)
+        dst = self.ranks.rows(plan.cfg.num_shards)
+        s = self.local_shards
+        new_state = self.init_state(feature_dim)
+        lineage = torch.zeros((s,) + tuple(self._lineage.shape[1:]),
+                              dtype=self._lineage.dtype, device=dev)
+        # new row j <- old row keep[j], rank to rank, every leaf and the
+        # lineage banks in one batch of sends
+        elastic.reshard_state((state, self._lineage), plan.keep,
+                              (new_state, lineage), src=src, dst=dst)
+        # the departed rows' counters and lineage add into their fold
+        # targets' new rows: one move a round, a round for each departed
+        # row a target takes (ints: the order of the sums is immaterial)
+        by_dst: dict = {}
+        for a, b in sorted(fold.items()):
+            by_dst.setdefault(b, []).append(a)
+        for r in range(max(map(len, by_dst.values()), default=0)):
+            moved = [(v[r], plan.keep.index(b)) for b, v in
+                     sorted(by_dst.items()) if r < len(v)]
+            olds = _folded_leaves(state, self._lineage)
+            news = _folded_leaves(new_state, lineage)
+            bufs = [torch.zeros_like(x) for x in news]
+            M.move_rows(olds, moved, src, dst, bufs)
+            for x, b in zip(news, bufs):
+                x.add_(b)
+        new_ee = plan.cfg.edges_per_region
+        if plan.cfg.num_regions == old_cfg.num_regions:
+            # region identity: every new slot of region r takes old
+            # region r's watermark (its first shard's row)
+            moved = [((j // new_ee) * old_cfg.edges_per_region, j)
+                     for j in range(plan.cfg.num_shards)]
+            M.move_rows([state.region_watermark], moved, src, dst,
+                        [new_state.region_watermark])
+        else:
+            new_state = new_state._replace(
+                region_watermark=_f32_min((s,), dev))
+        self._lineage = lineage
+        self._relaid(old_cfg, plan.keep, mesh)
         return new_state, departed
+
+
+#: the fleet counters a remesh folds from a departed row into its target
+_FOLDED = ("escalations_sent", "fog_shed", "core_received", "core_processed",
+           "late_excluded")
+
+
+def _folded_leaves(state: FleetState, lineage: torch.Tensor) -> list:
+    """The tensors a remesh folds, in one order: each shard counter, the
+    fleet counters of :data:`_FOLDED`, the lineage banks."""
+    return [*state.shard.metrics, *(getattr(state, n) for n in _FOLDED),
+            lineage]
+
+
+def _f32_min(shape: tuple, device) -> torch.Tensor:
+    return torch.full(shape, torch.finfo(torch.float32).min,
+                      dtype=torch.float32, device=device)
+
+
+class _Remesh(NamedTuple):
+    """A checked remesh (:meth:`FleetExecutor._plan_remesh`)."""
+    cfg: FleetConfig
+    keep: list
+    kept: list
+    departed: list
+    ranks: tuple | None             # the new rank set (across ranks)
+    shape: tuple | None             # its (region, edge) mesh shape

@@ -26,10 +26,12 @@ the exchange to the core ranks), and the core budget (the first
 results).  Nothing here reads a device value on the host.
 
 Across ranks (``ranks=``, a :class:`Ranks`: one process a rank, each
+of the fleet's N ranks -- all of the world's, or some of them --
 holding ``S / N`` consecutive region-major shards, :func:`ranks_of`)
 each function takes and returns this rank's rows, as the reference's
 run on one shard's block, and the ranks agree through
-``torch.distributed`` collectives (``launch.mesh``):
+``torch.distributed`` collectives (``launch.mesh``) over the fleet's
+groups:
 
 ===========================  =========================================
 reference (per shard)        port across ranks (per rank)
@@ -68,33 +70,52 @@ _F32_MAX = torch.finfo(torch.float32).max
 
 class Ranks(NamedTuple):
     """A fleet laid over ranks, seen from one rank: where its shards sit
-    and the process groups it agrees through."""
-    layout: FR.RankLayout
-    world: object           # every rank of the fleet, in rank order
+    and the process groups it agrees through.  On a world rank outside
+    the fleet ``layout`` and the groups are ``None``: it holds no rows
+    and enters no collective of the fleet."""
+    layout: FR.RankLayout | None
+    world: object           # the fleet's group: every rank of the fleet,
+    #                         in rank order (the world's only when the
+    #                         fleet spans it)
     region: object          # the ranks along the mesh's "region" dim
     #                         (this rank's edge columns in every region)
     edge: object            # the ranks along its "edge" dim (the rest
     #                         of this rank's regions)
+    members: tuple = ()     # the fleet's world ranks, ascending: member
+    #                         p holds shards p S / N onward
+
+    @property
+    def member(self) -> bool:
+        """Whether this rank holds rows of the fleet."""
+        return self.layout is not None
+
+    def rows(self, num_shards: int) -> M.RowLayout:
+        """Where the fleet's ``num_shards`` rows lie over the world's
+        ranks (``launch.mesh.move_rows``)."""
+        return M.RowLayout(self.members, num_shards // len(self.members))
 
 
-def ranks_of(mesh, num_regions: int, edges_per_region: int) -> Ranks:
+def ranks_of(mesh: M.RankMesh, num_regions: int,
+             edges_per_region: int) -> Ranks:
     """This rank's :class:`Ranks` on a ``("region", "edge")``
-    ``DeviceMesh`` over the default process group (row-major, as
-    ``init_device_mesh`` lays it); raises when the mesh cannot hold
+    ``launch.mesh.RankMesh`` (row-major over any ascending set of the
+    world's ranks, ``executor.rank_mesh``; a rank outside it gets a
+    :class:`Ranks` with no layout).  Raises when the mesh cannot hold
     ``num_regions x edges_per_region`` shards as whole runs a rank
-    (``routing.rank_layout``)."""
+    (``routing.rank_layout``: a rank's shards lie in one region, or a
+    region's shards fill whole ranks)."""
     if tuple(mesh.mesh_dim_names) != ("region", "edge"):
         raise ValueError(f"a fleet mesh has dims ('region', 'edge'), not "
                          f"{mesh.mesh_dim_names}")
-    if mesh.mesh.flatten().tolist() != list(range(dist.get_world_size())):
-        raise ValueError("the fleet mesh must span the default process "
-                         "group in rank order")
     rr, er = (int(x) for x in mesh.mesh.shape)
+    FR.rank_layout(num_regions, edges_per_region, rr, er)
+    if not mesh.member:
+        return Ranks(None, None, None, None, mesh.ranks)
     layout = FR.rank_layout(num_regions, edges_per_region, rr, er,
                             mesh.get_local_rank("region"),
                             mesh.get_local_rank("edge"))
-    return Ranks(layout, dist.group.WORLD, mesh.get_group("region"),
-                 mesh.get_group("edge"))
+    return Ranks(layout, mesh.group, mesh.get_group("region"),
+                 mesh.get_group("edge"), mesh.ranks)
 
 
 def local_layout(ranks: Ranks | None, rr: int, ee: int) -> FR.RankLayout:
@@ -112,7 +133,7 @@ def gather_rows(x: torch.Tensor, ranks: Ranks | None) -> torch.Tensor:
     """Every rank's rows of ``x [L, ...]``, in shard order: ``[S, ...]``."""
     if ranks is None:
         return x
-    return M.all_gather(x, ranks.world).reshape((-1,) + tuple(x.shape[1:]))
+    return M.all_gather(x, ranks.world).flatten(0, 1)
 
 
 def _gather_masks(max_ts, healthy, active, ranks: Ranks):

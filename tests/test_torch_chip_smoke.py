@@ -2,10 +2,12 @@
 CPU at a tiny size: the same functions the card runs, with the kernels'
 plain versions; the serve runs of Yi-6B and of the recurrent and MoE
 families (RecurrentGemma-2B, RWKV6-7B, Mixtral-8x7B) at their smoke
-widths.  The card-only pieces (``torch.cuda.synchronize``, the kernels'
-launch counts, which stay 0 on the CPU) are stubbed."""
+widths; phase 12's controlled arc and remesh over 2 gloo ranks.  The
+card-only pieces (``torch.cuda.synchronize``, the kernels' launch
+counts, which stay 0 on the CPU) are stubbed."""
 import importlib.util
 import json
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -843,3 +845,50 @@ def test_launch_phase_fails_on_scores_off_the_cpu(smoke, score):
         0, ["stored", "stored"], [3.0, score]), launches)}
     with pytest.raises(RuntimeError, match="features off the CPU"):
         smoke._compare_examples(card, cpu)
+
+
+# -- phase 12: the control plane and remesh across ranks ---------------------
+
+def test_phase12_control_and_remesh_over_two_gloo_ranks(smoke, monkeypatch,
+                                                        capsys):
+    """Phase 12's checks (i) and (ii) at 512 rows a shard over 2 gloo
+    ranks (``launch.mesh.spawn`` of ``_rank_control_phase``) against one
+    card in this process: the controlled arc without ``step_times`` and
+    the remeshes 8 -> 6 -> 8, twice (form (a), payload requeued), every
+    check the card's run makes but the launch counts; then a rank whose
+    decision, payload or output row differs fails the check."""
+    from repro_torch.launch import mesh as M
+    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)
+    monkeypatch.syspath_prepend(str(ROOT))
+    sz = smoke.Sizes(batch=512, d=16, window=64, stride=32,
+                     capacity=1 << 12, ticks=4, cpu_ticks=2, dedupe=0,
+                     warmup=1)
+    fz = smoke.FLEET_SMALL._replace(core_budget=16, fog_budget=12)
+    refs = smoke.phase12_control_references(sz, fz, "cpu")
+    parts = M.spawn(smoke._rank_control_phase, 2, "cpu", sz, fz)
+    got = smoke.check_phase12_control(refs, parts, fz, launches=False)
+    assert got["ticks"] > smoke.CONTROL_TICKS and got["payload"] > 0
+    assert got["idle"] == [] and got["flagged"] > 0
+    assert got["backup"] // fz.edges == smoke.CONTROL_CHURN[0] // fz.edges
+    assert [len(p["remesh"]["decisions"]) for p in parts] == \
+        [(1 + len(smoke.REMESH_WIDTHS)) * smoke.REMESH_TICKS] * 2
+    smoke.print_phase12_control(refs, parts, got, "CPU rehearsal")
+    out = capsys.readouterr().out
+    assert "phase 12 (i) controlled fleet across 2 gloo" in out
+    assert "phase 12 (ii) remesh across 2 gloo" in out
+    for fault, match in (("decision", "decision at tick 3"),
+                         ("payload", "payload"), ("row", "tick 1's outputs")):
+        bad = [dict(p, control=dict(p["control"]),
+                    remesh=dict(p["remesh"])) for p in parts]
+        if fault == "decision":
+            bad[1]["control"]["decisions"] = [
+                dict(d, budget=d["budget"] + (i == 3))
+                for i, d in enumerate(bad[1]["control"]["decisions"])]
+        elif fault == "payload":
+            bad[1]["remesh"]["payload"] = {}
+        else:
+            outs = [dict(o) for o in bad[1]["control"]["outs"]]
+            outs[1][0] = [d + 1 for d in outs[1][0]]
+            bad[1]["control"]["outs"] = outs
+        with pytest.raises(RuntimeError, match=match):
+            smoke.check_phase12_control(refs, bad, fz, launches=False)

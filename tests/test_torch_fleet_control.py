@@ -17,7 +17,10 @@ the elastic core and fog budgets growing past their slot ceilings and
 shrinking, a controller remesh (shrink, then grow) with the injector
 translated through it, and the SLO lane (``tests/test_lineage.py``): a
 latency and a drop SLO breaching and recovering, with contract rejects
-and drift in the event log.
+and drift in the event log.  Two more arcs hold what a fleet across
+ranks leans on: the elastic budgets under a controller that ticks
+without ``step_times`` (the executor's own wall time, the fake clock's),
+and a sliding carry handoff between shards of different regions.
 
 Held per tick: every ``ControlDecision`` field and every ``FleetState``
 leaf bitwise, ``metrics.as_dict()`` equal, core outputs within 1e-6; at
@@ -274,7 +277,7 @@ _ARCS = textwrap.dedent("""
                                     (7, 4, [0, 1, 2, None])):
                 if t == at:
                     st, payload = api.remesh(ctl, st, width, keep=keep)
-                    fold = log.of_kind("remesh")[-1]["fold"]
+                    fold = api.fold(ctl, log)
                     inj.translate(keep, t)
                     for k, rows in sorted(payload.items()):
                         rec[f"remesh/payload{t}/{k}"] = np.asarray(rows)
@@ -346,6 +349,52 @@ _ARCS = textwrap.dedent("""
         r.finish(ctl, ex, log)
 
 
+    def arc_nostep(api, rec):
+        # 8 shards in 2 regions under the default elastic policies, the
+        # hot/cold feed; the controller ticks without step_times (the
+        # deciding process's own last_step_seconds, the fake clock's)
+        e = 8
+        ex = api.make(TUMBLING, dict(num_shards=e, num_core=2, core_budget=2,
+                                     core_budget_max=4, num_regions=2,
+                                     fog_budget=4), HOT)
+        log = api.EventLog()
+        ctl = api.FleetController(ex, event_log=log)
+        rng = np.random.default_rng(9)
+        st = ex.init_state(D)
+        r = Recorder(api, rec, "nostep")
+        for t in range(8):
+            items, ts = feed_tick(rng, e, t)
+            st, out = api.step(ex, st, items, ts)
+            r.tick(t, st, out, ctl.tick(st))
+        r.finish(ctl, ex, log)
+
+
+    def arc_handoff(api, rec):
+        # the sliding carry handoff between far-apart shards (stream 1,
+        # backup 6: other regions, and other ranks when the fleet is
+        # laid over 2 or 4): 2 ticks, the handoff, 2 ticks with stream 1
+        # away, the carry back, 2 ticks
+        e = 8
+        ex = api.make(SLIDING, dict(num_shards=e, num_core=2, core_budget=64,
+                                    num_regions=2), HOT)
+        log = api.EventLog()
+        ctl = api.FleetController(ex, event_log=log)
+        rng = np.random.default_rng(10)
+        st = ex.init_state(D)
+        r = Recorder(api, rec, "handoff")
+        for t in range(6):
+            if t == 2:
+                st = ctl.begin_replay_carry(st, 1, 6)
+            if t == 4:
+                st = ctl.end_replay_carry(st, 1, 6)
+            items, ts = feed_tick(rng, e, t)
+            offered = np.ones(ts.shape, bool)
+            offered[1] = not 2 <= t < 4
+            st, out = api.step(ex, st, items, ts, offered=offered)
+            r.tick(t, st, out, ctl.tick(st, step_times=np.full(e, 0.1)))
+        r.finish(ctl, ex, log)
+
+
     ARCS = {
         "stall": arc_stall,
         "churn": lambda api, rec: churn_arc(api, rec, "churn", TUMBLING, 1,
@@ -355,6 +404,8 @@ _ARCS = textwrap.dedent("""
         "elastic": arc_elastic,
         "remesh": arc_remesh,
         "slo": arc_slo,
+        "nostep": arc_nostep,
+        "handoff": arc_handoff,
     }
 """)
 
@@ -403,6 +454,7 @@ _SCRIPT = textwrap.dedent("""
             **{k: jnp.asarray(v) for k, v in kw.items()}),
         remesh=lambda ctl, st, n, **kw: ctl.remesh(st, jax.devices()[:n],
                                                    **kw),
+        fold=lambda ctl, log: log.of_kind("remesh")[-1]["fold"],
         out=lambda out: flatten(jax.device_get(out)),
         state=lambda st: flatten(jax.device_get(st)))
 
@@ -455,6 +507,8 @@ PORT = type("Port", (), dict(
     step=staticmethod(lambda ex, st, items, ts, **kw:
                       ex.step(st, items, ts, **kw)),
     remesh=staticmethod(lambda ctl, st, n, **kw: ctl.remesh(st, n, **kw)),
+    fold=staticmethod(lambda ctl, log: {str(k): v for k, v in
+                                        ctl.remesh_fold.items()}),
     out=staticmethod(lambda out: {k: v.numpy()
                                   for k, v in out._asdict().items()}),
     state=staticmethod(lambda st: _NS["flatten"](
@@ -566,6 +620,12 @@ def test_arcs_exercise_what_they_name(ref):
         == [3, 15]
     assert len(_events(ref, "slo", "drift_detected")) == 2
     assert _decisions(ref, "slo")[-1]["slo_breached"] == []
+    # nostep: the budgets moved with no step_times given
+    assert any(d["resized"] for d in _decisions(ref, "nostep"))
+    # handoff: stream 1's carry moved onto shard 6 and came back
+    valid = ref["handoff/state2/shard.carry_valid"]
+    assert not valid[1].any() and valid[6].any()
+    assert len(_events(ref, "handoff", "backup_assign")) == 2
 
 
 def test_fault_injector_matches_the_jax_injector():

@@ -164,9 +164,8 @@ def _rank_arcs(rank: int, device, arcs: tuple) -> dict:
     """One rank's side: every arc of ``arcs`` and both modes, on its rows
     over the rank mesh the arc's layout takes; and the flat exchange and
     watermark of :func:`_flat_inputs` over a ``(1, N)`` mesh."""
-    from torch.distributed.device_mesh import init_device_mesh
     n = torch.distributed.get_world_size()
-    mesh = init_device_mesh("cpu", (1, n), mesh_dim_names=("region", "edge"))
+    mesh = M.RankMesh("cpu", range(n), (1, n), ("region", "edge"))
     ranks = TF.ranks_of(mesh, 1, 8)
     rec_, esc, max_ts, healthy, active = _flat_inputs()
     rows = slice(ranks.layout.first_shard,
@@ -400,16 +399,15 @@ def test_rank_layout_rows_are_consecutive():
         FR.rank_layout(2, 4, 1, 2)
 
 
-def _rank_remesh(rank: int, device) -> str:
-    spec = _spec("regions", "staged")
-    cfg = FleetConfig(stream=StreamConfig(**spec["stream"]), **spec["fleet"])
-    ex = _make(spec, device, TFX.rank_mesh(cfg, device))
-    st = ex.init_state(D)
+def test_a_device_mesh_is_refused():
+    """A fleet is laid over ranks by ``rank_mesh`` alone: a
+    ``DeviceMesh`` raises rather than run every shard on every rank."""
+    host = M.make_host_mesh(device="cpu")
     try:
-        ex.remesh(st, 6)
-    except NotImplementedError as e:
-        return str(e)
-    return "no error"
+        with pytest.raises(ValueError, match="rank_mesh"):
+            _make(_spec("regions", "staged"), "cpu", host)
+    finally:
+        M.release_host_mesh()
 
 
 def _nccl_fleet(rank: int, device, arcs: tuple) -> dict:
@@ -423,13 +421,6 @@ def _nccl_fleet(rank: int, device, arcs: tuple) -> dict:
         _record(spec, name, rec, device, TFX.rank_mesh(cfg, device),
                 full=False)
     return rec
-
-
-def test_remesh_over_ranks_raises():
-    """A new width across ranks is a new process group: not ported, and
-    it says so rather than falling back."""
-    msgs = M.spawn(_rank_remesh, 2, "cpu")
-    assert all("remesh across ranks" in m for m in msgs)
 
 
 @pytest.fixture
