@@ -212,14 +212,35 @@ launch counts include the replays' and the warm-up's:
    (on 4 cards the 6 shards on ranks 0 and 2, ranks 1 and 3 idle; on 1
    or 2 cards the same ranks), the departed rows requeued through the
    injector on every rank and 2 ticks at each width, against the same
-   widths on one card, bitwise.  It prints the rank count and the
-   backend, each path's p50/p99 tick, step or call ms (the slowest
-   rank's), the device busy share, the bytes each rank sends a tick,
-   the controller tick's p50/p99 beside one card's, each remesh's ms
-   and bytes a rank, and the card's name and power limit; the ranks'
-   launches join the fused_tick, window_reduce and hilbert entries of
-   the kernels line as ``rank_launches``.  ``python3 chip_smoke.py --phase12`` runs phase 1's
-   build and this phase alone (the four-card run).
+   widths on one card, bitwise; then, over the host mesh of every rank
+   (``make_host_mesh()``, ``(N, 1)``), data-parallel serving and
+   training, each model freed before the next: (iii) Yi-6B at full
+   width and depth (seed-0 float32 weights, bf16 compute) through
+   ``launch/serve``, 16 requests a rank (16N in all), 24 prompt ids
+   teacher-forced + 8 generated: each rank's ids, final logits, caches
+   and lengths bitwise one card serving its rows (run first in this
+   process), every rank holding all 16N rows of ids, 32 decode_attn
+   launches a step (none generic), one armatch lookup and
+   ``aot_cached`` 1 on every rank; (iv) Yi-6B's widths cut to 2 layers
+   in float32, 3 steps of a global batch of 2N x 1,024 tokens in 2
+   microbatches through ``launch/train`` against one card on the same
+   batch (run first on rank 0): losses and grad norms within 1e-5
+   relative, the first step's gradients within 1e-5 and the parameters
+   within 1e-4 of each leaf's largest, every replica's parameters and
+   moments bitwise rank 0's after every step; (v) phase 9's run a rank
+   (16 layers, 2 x 4,096 tokens a rank in 2 microbatches, 8 steps at lr
+   3e-4): every loss finite and the replicas bitwise after every step,
+   then the gradient all-reduce alone.  It prints the rank count and
+   the backend, each path's p50/p99 tick, step or call ms (the slowest
+   rank's), the device busy share, the bytes each rank sends a tick or
+   step, the controller tick's p50/p99 beside one card's, each remesh's
+   ms and bytes a rank, tokens/s over all ranks, each rank's peak
+   memory, the gradient all-reduce's ms and bytes, and the card's name
+   and power limit; the ranks' launches join the fused_tick,
+   window_reduce, hilbert, decode_attn and armatch entries of the
+   kernels line as ``rank_launches``.  ``python3 chip_smoke.py
+   --phase12`` runs phase 1's build and this phase alone (the four-card
+   run).
 
 The line before the last is a JSON object of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -227,6 +248,7 @@ script exits 1 before printing either.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -3791,13 +3813,15 @@ def rank_grads(rank: int, device, smoke: bool = False) -> dict:
 
 
 def _rank_phase(rank: int, device, sz: Sizes, fz: FleetSizes, n_ar: int,
-                pod_data: tuple, smoke: bool = False) -> dict:
+                pod_data: tuple, smoke: bool = False,
+                models: tuple | None = None) -> dict:
     """Phase 12 on one rank (``launch.mesh.spawn``, NCCL, this rank's
     card): the fleet fused (graphed, profiled, then eager) and staged
     over the ranks' fleet mesh; the AR route step over a ``(pod, data)``
     mesh, its post indices through the hilbert kernel; the cross-pod
-    all-reduce over this rank's pod group.  Digests, launches, bytes and
-    times come back to the parent."""
+    all-reduce over this rank's pod group; given ``models`` (the sizes
+    of (iii), (iv) and (v)), :func:`_rank_models_phase`.  Digests,
+    launches, bytes and times come back to the parent."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.core import routing, sfc
@@ -3882,6 +3906,11 @@ def _rank_phase(rank: int, device, sz: Sizes, fz: FleetSizes, n_ar: int,
         / RANK_ALLREDUCE_REPS
     res["allreduce_bytes"] = sum(g.numel() * 4 for g in grads.values())
     res["coords"] = (mesh.get_local_rank("pod"), mesh.get_local_rank("data"))
+    del grads
+    if card:
+        _free()
+    if models is not None:
+        res["models"] = _rank_models_phase(rank, device, *models)
     return res
 
 
@@ -4217,6 +4246,429 @@ def check_phase12_control(refs: dict, parts: list, fz: FleetSizes,
                            for e in one["events"]))
 
 
+# ---- phase 12 (iii)-(v): data-parallel serving and training across ranks ---
+
+#: (iii) Yi-6B at phase 3's width and depth (seed-0 float32 weights,
+#: bfloat16 compute), phase 11's 24 prompt ids teacher-forced and 8
+#: generated, ``requests`` a rank (N x that in all)
+RANK_SERVE = MESH_SERVE
+#: (iv) the equality check: Yi-6B's widths cut to 2 layers, float32
+#: compute (TF32 off), 3 steps of ``batch`` x 1,024 tokens a rank (a
+#: global batch of 2N rows) in 2 microbatches, ``TRAIN_SMALL``'s lr
+RANK_TRAIN_CHECK = TrainSizes(steps=3, batch=2, seq=1024, microbatches=2,
+                              layers=2, compute="float32", lr=2e-3)
+#: (v) phase 9's run a rank: Yi-6B at full width, 16 of 32 layers, 8
+#: steps of 2 x 4,096 tokens a rank in 2 microbatches at lr 3e-4
+RANK_TRAIN_FULL = TRAIN_FULL._replace(witness=())
+#: calls of the gradient all-reduce timed apart from the step
+RANK_GRAD_REPS = 3
+#: (iv)'s parameters after its 3 steps against one card's, of each
+#: leaf's largest magnitude.  AdamW divides each gradient element by its
+#: own magnitude plus 1e-8, so an element near 1e-8 turns the last-bit
+#: differences of the two sums (each rank's share, then the ring against
+#: one card's GEMMs) into up to its whole update, ``lr`` x the schedule
+#: (4e-4 at step 2): 2.81e-5 of the embedding's largest value on four
+#: H100s.  The sums themselves, the gradients the first step hands AdamW
+#: from the same weights, are held to :data:`TRAIN_CARD_VS_CPU`.
+RANK_TRAIN_PARAM = 1e-4
+
+
+@contextlib.contextmanager
+def _first_update(fn):
+    """Within the block, ``optim.update``'s first call hands its
+    gradients to ``fn`` first; ``fn``'s value is the list's one item."""
+    from repro_torch import optim
+    real, seen = optim.update, []
+
+    def update(grads, *args, **kw):
+        if not seen:
+            seen.append(fn(grads))
+        return real(grads, *args, **kw)
+    optim.update = update
+    try:
+        yield seen
+    finally:
+        optim.update = real
+
+
+def _serve_digests(res) -> dict:
+    """A serve run's rows as 64-bit digests: this rank's ids, every
+    rank's block of the gathered ids, the final logits, caches and
+    lengths."""
+    ids = torch.from_numpy(res.tokens)
+    per = res.rows.stop - res.rows.start
+    return dict(ids=_digest(ids[res.rows]),
+                gathered=[_digest(ids[j:j + per])
+                          for j in range(0, ids.shape[0], per)],
+                shape=tuple(ids.shape), logits=_digest(res.logits),
+                caches=[{k: _digest(v) for k, v in c.items()}
+                        for c in res.caches],
+                lengths=_digest(res.lengths))
+
+
+def rank_serve(sz: ServeSizes, device, mesh=None, prompts=None,
+               model=None) -> dict:
+    """Yi-6B at ``sz`` through ``launch/serve``: over ``mesh``'s N data
+    ranks, ``sz.requests`` a rank of N x that many prompts (this rank's
+    rows); on one card, ``prompts``' rows.  The weights are seed 0's
+    (``model`` if given); the launch counts are zeroed just before the
+    run and read just after.  Returns :func:`_serve_digests`, the
+    launches, ``aot_cached`` and each step's seconds."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import data_group, dp_size
+    from repro_torch.models import transformer as T
+    cfg = serve_config(sz)
+    n = 1 if data_group(mesh) is None else dp_size(mesh)
+    if model is None:
+        model = T.init_params(cfg, seed=0, device=device)
+    zero_launches()
+    res = serve.run(cfg, sz.requests * n if prompts is None
+                    else len(prompts), sz.prompt_len, sz.tokens,
+                    device=device, model=model, mesh=mesh, prompts=prompts)
+    launches = read_launches()
+    n_attn = len(attn_caches(cfg, T.init_caches(cfg, 1, 1, "meta")))
+    return dict(_serve_digests(res), launches=launches,
+                loop_launches=res.launches, n_attn=n_attn,
+                generic=_wrappers()["decode_attn"].generic_launches,
+                aot_cached=res.aot_cached, secs=res.secs,
+                finite=res.finite, name=cfg.name)
+
+
+#: int64 words a chunk of :func:`_chunk_digests` holds (128 MiB)
+DIGEST_CHUNK = 1 << 24
+
+
+def _chunk_digests(t: torch.Tensor) -> list:
+    """``t``'s bytes as :func:`_digest`s of :data:`DIGEST_CHUNK`-word
+    chunks: a model's state is digested with one chunk's weights and
+    temporaries at a time, not its largest tensor's."""
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    if b.numel() % 8:
+        b = torch.nn.functional.pad(b, (0, -b.numel() % 8))
+    words = b.view(torch.int64)
+    return [_digest(words[i:i + DIGEST_CHUNK])
+            for i in range(0, words.numel(), DIGEST_CHUNK)]
+
+
+def _state_digests(model, opt_state) -> list:
+    """A parameter's and its moments' chunk digests, in parameter order
+    (the digests' weight cache is emptied after, so that the train
+    step's memory does not hold it)."""
+    out = []
+    for name, p in model.named_parameters():
+        for t in (p, opt_state.m[name], opt_state.v[name]):
+            out += _chunk_digests(t)
+    _DIGEST_W.clear()
+    return out
+
+
+def rank_train_check(tz: TrainSizes, device, mesh) -> dict:
+    """(iv): rank 0 first trains one card on the whole global batch
+    (``tz.batch`` x N rows, no mesh) from seed 0's weights and keeps the
+    losses, the gradients its first step hands AdamW and the final
+    parameters on the host; then every rank trains its share over
+    ``mesh`` from the same weights (rank 0's, broadcast), each
+    parameter's and moment's digest taken after every step.  Rank 0
+    returns the losses' and grad norms' relative differences and the
+    first gradients' and final parameters' leaf differences
+    (:func:`_leaf_err`) from one card."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import data_group, data_rank, dp_size
+    from repro_torch.models import transformer as T
+    cfg = train_config(tz)
+    n = 1 if data_group(mesh) is None else dp_size(mesh)
+    rank = data_rank(mesh)
+    kw = dict(microbatches=tz.microbatches, lr=tz.lr, device=device)
+    rec = {}
+    if rank == 0:
+        with _first_update(lambda g: {name: t.detach().cpu()
+                                      for name, t in g.items()}) as first:
+            one = train.run(cfg, tz.steps, tz.batch * n, tz.seq, model=(
+                T.init_params(cfg, seed=0, device=device, trainable=True)),
+                **kw)
+        want = {name: p.detach().cpu()
+                for name, p in one.model.named_parameters()}
+        want_grads = first[0]
+        rec["one_losses"], rec["one_norms"] = one.losses, one.grad_norms
+        del one, first
+        _free()
+    digests = []
+    with _first_update(lambda g: max(
+            _leaf_err(t, want_grads[name]) for name, t in g.items())
+            if rank == 0 else None) as grad_err:
+        res = train.run(cfg, tz.steps, tz.batch * n, tz.seq, model=(
+            T.init_params(cfg, seed=0, device=device, trainable=True)),
+            mesh=mesh, on_step=lambda s, m, o: digests.append(
+                _state_digests(m, o)), **kw)
+    rec.update(losses=res.losses, grad_norms=res.grad_norms,
+               digests=digests, ranks=res.health.num_ranks)
+    if rank == 0:
+        rec["loss_err"] = max(abs(a - b) / abs(b) for a, b in
+                              zip(res.losses + res.grad_norms,
+                                  rec["one_losses"] + rec["one_norms"]))
+        rec["grad_err"] = grad_err[0]
+        rec["param_err"] = max(_leaf_err(p, want[name]) for name, p in
+                               res.model.named_parameters())
+    return rec
+
+
+def rank_train_full(tz: TrainSizes, device, mesh) -> dict:
+    """(v): phase 9's run a rank over ``mesh`` (``tz.batch`` x N rows a
+    step, this rank's share), each parameter's and moment's digest and
+    the bytes this rank has sent (``COLLECTIVES``) after every step, the
+    peak of ``max_memory_allocated``; then the gradient all-reduce alone
+    (:func:`steps.sum_gradients` of zeros of every parameter's shape, as
+    the step sums them) :data:`RANK_GRAD_REPS` times, each between two
+    synchronizes, and the bytes a call sends."""
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import COLLECTIVES, data_group, dp_size
+    from repro_torch.models import transformer as T
+    cfg = train_config(tz)
+    group = data_group(mesh)
+    n = 1 if group is None else dp_size(mesh)
+    card = device.type == "cuda"
+    if card:
+        torch.cuda.reset_peak_memory_stats(device)
+    digests, sent = [], []
+
+    def on_step(step, model, opt_state):
+        sent.append(COLLECTIVES.sent_bytes)
+        digests.append(_state_digests(model, opt_state))
+    res = train.run(cfg, tz.steps, tz.batch * n, tz.seq,
+                    microbatches=tz.microbatches, lr=tz.lr, device=device,
+                    model=T.init_params(cfg, seed=0, device=device,
+                                        trainable=True),
+                    mesh=mesh, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated(device) if card else 0
+    retries = torch.cuda.memory_stats(device).get("num_alloc_retries", 0) \
+        if card else 0
+    grad_bytes = sum(p.numel() * p.element_size()
+                     for p in res.model.parameters())
+    ar_secs, ar_sent = [], 0.0
+    if group is not None:
+        grads = {name: torch.zeros_like(p)
+                 for name, p in res.model.named_parameters()}
+        sent0 = COLLECTIVES.sent_bytes
+        for _ in range(RANK_GRAD_REPS):
+            _sync(device)
+            t0 = time.perf_counter()
+            steps.sum_gradients(grads, group)
+            _sync(device)
+            ar_secs.append(time.perf_counter() - t0)
+        ar_sent = (COLLECTIVES.sent_bytes - sent0) / RANK_GRAD_REPS
+        del grads
+    return dict(losses=res.losses, grad_norms=res.grad_norms,
+                secs=res.secs, digests=digests,
+                step_sent=np.diff(sent).tolist(), peak=peak,
+                retries=retries,
+                ar_secs=ar_secs, ar_sent=ar_sent, grad_bytes=grad_bytes,
+                ranks=res.health.num_ranks, layers=cfg.n_layers,
+                name=cfg.name)
+
+
+def _rank_models_phase(rank: int, device, serve_sz: ServeSizes,
+                       check_tz: TrainSizes, full_tz: TrainSizes) -> dict:
+    """Phase 12 (iii)-(v) on one rank (``launch.mesh.spawn``; also run by
+    :func:`_rank_phase`) over the host mesh of every rank, each model
+    freed before the next is built."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    card = device.type == "cuda"
+    _DIGEST_W.clear()               # the fleet rows' digest weights
+    if card:
+        _free()
+    mesh = make_host_mesh(device=device)
+    res = {"rank": rank, "backend": dist.get_backend(),
+           "serve": rank_serve(serve_sz, device, mesh)}
+    if rank == 0:       # its rows on one card in this process: the timing
+        from repro_torch.launch import serve
+        prompts = serve.prompts_for(serve_config(serve_sz), serve_sz.requests
+                                    * dist.get_world_size(),
+                                    serve_sz.prompt_len)
+        res["serve_here"] = rank_serve(serve_sz, device, prompts=prompts[
+            :serve_sz.requests])["secs"]
+    if card:
+        _free()
+    res["train_check"] = rank_train_check(check_tz, device, mesh)
+    if card:
+        _free()
+    res["train_full"] = rank_train_full(full_tz, device, mesh)
+    if card:
+        _free()
+    return res
+
+
+def phase12_model_references(sz: ServeSizes, device, n: int) -> dict:
+    """(iii)'s one-card runs in this process: rank r's ``sz.requests``
+    rows of the N x ``sz.requests`` prompts, one run a rank from the same
+    seed-0 weights, freed after."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = serve_config(sz)
+    model = T.init_params(cfg, seed=0, device=device)
+    prompts = serve.prompts_for(cfg, sz.requests * n, sz.prompt_len)
+    q = sz.requests
+    out = [rank_serve(sz, device, prompts=prompts[r * q:(r + 1) * q],
+                      model=model) for r in range(n)]
+    del model
+    if torch.device(device).type == "cuda":
+        _free()
+    return {"serve": out}
+
+
+def _check_replicas(tag: str, runs: list) -> None:
+    """Every rank's losses, grad norms and per-step digests equal rank
+    0's."""
+    first = runs[0]
+    for r, run in enumerate(runs):
+        if len(run["digests"]) != len(first["losses"]):
+            _fail(f"phase 12 {tag}: rank {r} took {len(run['digests'])} "
+                  f"digests over {len(first['losses'])} steps")
+        for step, (a, b) in enumerate(zip(run["digests"], first["digests"])):
+            if a != b:
+                bad = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+                _fail(f"phase 12 {tag}: rank {r}'s replica differs from "
+                      f"rank 0's after step {step} (parameter/moment "
+                      f"digests {bad[:8]})")
+        if run["losses"] != first["losses"] \
+                or run["grad_norms"] != first["grad_norms"]:
+            _fail(f"phase 12 {tag}: rank {r}'s losses or grad norms differ "
+                  f"from rank 0's")
+        if run["ranks"] != len(runs):
+            _fail(f"phase 12 {tag}: rank {r}'s monitors count "
+                  f"{run['ranks']} rank(s), want {len(runs)}")
+
+
+def check_phase12_models(refs: dict, parts: list, sz: ServeSizes,
+                         launches: bool = True) -> None:
+    """(iii)-(v) on every rank, each check failing the run: (iii) each
+    rank's ids, final logits, caches and lengths equal to one card
+    serving its rows (:func:`phase12_model_references`) through their
+    digests, every rank holding all N x ``sz.requests`` rows of ids,
+    ``aot_cached`` 1, and with ``launches`` the attention layers'
+    decode_attn launches every step (none generic) and one armatch
+    lookup; (iv) rank 0's losses, grad norms and first gradients within
+    :data:`TRAIN_CARD_VS_CPU` of one card's, its parameters within
+    :data:`RANK_TRAIN_PARAM`, and (iv) and (v) every replica bitwise
+    rank 0's after every step (:func:`_check_replicas`), every loss
+    finite."""
+    n = len(parts)
+    for r, p in enumerate(parts):
+        got, want = p["serve"], refs["serve"][r]
+        for key in ("ids", "logits", "caches", "lengths"):
+            if got[key] != want[key]:
+                _fail(f"phase 12 (iii): rank {r}'s served {key} differ from "
+                      f"one card serving its {sz.requests} requests")
+        if got["gathered"] != [w["ids"] for w in refs["serve"]] \
+                or got["shape"] != (n * sz.requests, sz.tokens):
+            _fail(f"phase 12 (iii): rank {r}'s gathered ids {got['shape']} "
+                  f"are not every rank's rows")
+        if got["aot_cached"] != 1 or not got["finite"]:
+            _fail(f"phase 12 (iii): rank {r} aot_cached {got['aot_cached']}, "
+                  f"logits finite {got['finite']}")
+        steps = sz.prompt_len + sz.tokens
+        if launches and (got["loop_launches"] != got["n_attn"] * steps
+                         or got["generic"] or got["launches"]["armatch"] != 1):
+            _fail(f"phase 12 (iii): rank {r} launched decode_attn "
+                  f"{got['loop_launches']} times in its loop ({got['generic']}"
+                  f" generic), armatch {got['launches']['armatch']}; want "
+                  f"{got['n_attn']} a step x {steps} steps, 0, 1")
+    check = parts[0]["train_check"]
+    if check["loss_err"] > TRAIN_CARD_VS_CPU \
+            or check["grad_err"] > TRAIN_CARD_VS_CPU \
+            or check["param_err"] > RANK_TRAIN_PARAM:
+        _fail(f"phase 12 (iv): {n} rank(s) against one card: losses "
+              f"{check['losses']} vs {check['one_losses']} (losses and "
+              f"grad norms within {check['loss_err']:.3e} relative), the "
+              f"first step's gradients within {check['grad_err']:.3e} of "
+              f"each leaf's largest (tolerance {TRAIN_CARD_VS_CPU}), the "
+              f"parameters within {check['param_err']:.3e} (tolerance "
+              f"{RANK_TRAIN_PARAM})")
+    for tag, key in (("(iv)", "train_check"), ("(v)", "train_full")):
+        runs = [p[key] for p in parts]
+        if not np.isfinite(runs[0]["losses"]).all():
+            _fail(f"phase 12 {tag}: non-finite losses {runs[0]['losses']}")
+        _check_replicas(tag, runs)
+
+
+def print_phase12_models(refs: dict, parts: list, sz: ServeSizes,
+                         check_tz: TrainSizes, full_tz: TrainSizes,
+                         card: str) -> dict:
+    """(iii)-(v)'s lines, each with the card's name and power limit:
+    tokens/s over all ranks, the slowest rank's step p50/p99, the peaks,
+    the gradient all-reduce's ms and bytes.  Returns the ranks' launch
+    totals for the kernels line."""
+    n = len(parts)
+    backend = parts[0]["backend"]
+    sv = [p["serve"] for p in parts]
+    steps = len(sv[0]["secs"])
+    slow = [max(s["secs"][i] for s in sv) for i in range(steps)]
+    q, q1 = _quant(slow), _quant(refs["serve"][0]["secs"])
+    q0 = _quant(parts[0]["serve_here"])
+    print(f"phase 12 (iii) serve across {n} {backend} rank(s): "
+          f"{sv[0]['name']} at full width and depth, {sz.requests} requests "
+          f"a rank ({n * sz.requests} in all), {sz.prompt_len} prompt ids "
+          f"teacher-forced + {sz.tokens} generated: every rank's ids, final "
+          f"logits, caches and lengths == one card serving its rows "
+          f"bitwise, every rank holds the {sv[0]['shape']} ids; "
+          f"aot_cached 1 on every rank; decode_attn "
+          f"{[s['loop_launches'] for s in sv]} loop launches a rank "
+          f"({sv[0]['n_attn']} a step, none generic), armatch "
+          f"{[s['launches']['armatch'] for s in sv]} a rank; "
+          f"{n * sz.requests * steps / sum(slow):.1f} tokens/s over all "
+          f"ranks (every rank's ids over the slowest rank's steps); step "
+          f"p50 {q[0]:.3f} ms, p99 {q[1]:.3f} ms (the slowest rank's; one "
+          f"card at {sz.requests} requests p50 {q1[0]:.3f} ms, p99 "
+          f"{q1[1]:.3f} ms in this process, {q0[0]:.3f} ms, {q0[1]:.3f} ms "
+          f"without the mesh in rank 0's); {card}")
+    c = parts[0]["train_check"]
+    print(f"phase 12 (iv) train across {n} {backend} rank(s): "
+          f"{check_tz.arch}'s widths at {check_tz.layers} layers, "
+          f"{check_tz.compute} (TF32 off), {check_tz.steps} steps of "
+          f"{check_tz.batch * n} x {check_tz.seq} tokens ({check_tz.batch} "
+          f"rows a rank) in {check_tz.microbatches} microbatches at lr "
+          f"{check_tz.lr}: losses {c['losses']} against one card's "
+          f"{c['one_losses']} (losses and grad norms within "
+          f"{c['loss_err']:.3e} relative), the first step's gradients "
+          f"within {c['grad_err']:.3e} of each leaf's largest (tolerance "
+          f"{TRAIN_CARD_VS_CPU}), the parameters after {check_tz.steps} "
+          f"steps within {c['param_err']:.3e} (tolerance "
+          f"{RANK_TRAIN_PARAM}); every replica's parameters and moments "
+          f"bitwise rank 0's after every step; {card}")
+    full = [p["train_full"] for p in parts]
+    f0 = full[0]
+    slow = [max(f["secs"][i] for f in full)
+            for i in range(1, len(f0["secs"]))]
+    q = _quant(slow)
+    tokens = full_tz.batch * n * full_tz.seq
+    ar_ms = _quant([max(f["ar_secs"][i] for f in full)
+                    for i in range(len(f0["ar_secs"]))])[0] \
+        if f0["ar_secs"] else 0.0
+    sent = [int(np.mean(f["step_sent"])) if f["step_sent"] else 0
+            for f in full]
+    ar = (f"gradient all-reduce alone {ar_ms:.3f} ms "
+          f"p50 over {RANK_GRAD_REPS} calls (the slowest rank's; "
+          f"{f0['grad_bytes'] / 1e9:.3f} GB of float32 gradients), "
+          f"{f0['ar_sent'] / 1e9:.3f} GB sent a rank a call "
+          f"(COLLECTIVES: bytes x (N - 1))"
+          if f0["ar_secs"] else "no gradient all-reduce on one rank")
+    print(f"phase 12 (v) train across {n} {backend} rank(s): {f0['name']} "
+          f"at full width, {f0['layers']} layers, {full_tz.steps} steps of "
+          f"{full_tz.batch} x {full_tz.seq} tokens a rank ({full_tz.batch * n}"
+          f" rows in all) in {full_tz.microbatches} microbatches at lr "
+          f"{full_tz.lr}: losses {[round(x, 4) for x in f0['losses']]}, all "
+          f"finite, every replica bitwise rank 0's after every step; "
+          f"{tokens * len(slow) / sum(slow):.1f} trained tokens/s over all "
+          f"ranks; step p50 {q[0]:.3f} ms, p99 {q[1]:.3f} ms (the slowest "
+          f"rank's, the first step left out; rank 0's first "
+          f"{f0['secs'][0] * 1e3:.3f} ms); peak max_memory_allocated a rank "
+          f"{[round(f['peak'] / 2**30, 3) for f in full]} GiB (allocator "
+          f"retries {[f['retries'] for f in full]}); {ar}; bytes "
+          f"sent a rank a step {sent}; {card}")
+    return {"decode_attn": sum(s["launches"]["decode_attn"] for s in sv),
+            "armatch": sum(s["launches"]["armatch"] for s in sv)}
+
+
 def phase12_mesh(n: int) -> tuple:
     """The AR exchange's and the all-reduce's ``(pod, data)`` mesh of
     ``n`` ranks: two pods from 2 ranks on."""
@@ -4326,10 +4778,16 @@ def run_ranks_phase(sz: Sizes, fz: FleetSizes, device, rows: list,
     n_ar = AR_FULL.n if n_ar is None else n_ar
     card = _card_line()
     refs = phase12_references(sz, fz, device, n, n_ar)
+    refs["models"] = phase12_model_references(RANK_SERVE, device, n)
+    _DIGEST_W.clear()               # card 0's memory for its rank
+    _free()
     t_ref = time.perf_counter() - t0
-    parts = M.spawn(_rank_phase, n, "cuda", sz, fz, n_ar, pod_data)
+    parts = M.spawn(_rank_phase, n, "cuda", sz, fz, n_ar, pod_data, False,
+                    (RANK_SERVE, RANK_TRAIN_CHECK, RANK_TRAIN_FULL))
     t_ranks = time.perf_counter() - t0 - t_ref
     kept, ctl = check_phase12(refs, parts, fz, n_ar)
+    models = [p["models"] for p in parts]
+    check_phase12_models(refs["models"], models, RANK_SERVE)
     per = fz.shards // n
     print(f"phase 12 ranks: {n} NCCL rank(s), one a card ({parts[0]['card']}"
           f"), started by launch.mesh.spawn over a FileStore; fleet mesh "
@@ -4379,6 +4837,9 @@ def run_ranks_phase(sz: Sizes, fz: FleetSizes, device, rows: list,
               "window_reduce": sum(p["staged"]["launches"]["window_reduce"]
                                    for p in parts),
               "hilbert": sum(p["ar_launches"]["hilbert"] for p in parts)}
+    totals.update(print_phase12_models(refs["models"], models, RANK_SERVE,
+                                       RANK_TRAIN_CHECK, RANK_TRAIN_FULL,
+                                       card))
     seen = set()
     for row in rows:
         name = row["name"]
@@ -4435,7 +4896,7 @@ def print_phase12_control(refs: dict, parts: list, ctl: dict,
 
 def run_phase12_alone(device="cuda") -> dict:
     """Phase 1's build and phase 12 alone (``--phase12``: the run on four
-    cards); the kernels line holds the three kernels phase 12 drives."""
+    cards); the kernels line holds the five kernels phase 12 drives."""
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4444,7 +4905,8 @@ def run_phase12_alone(device="cuda") -> dict:
     print(f"phase 1 build: {len(build.SOURCES)} kernels ready in "
           f"{time.perf_counter() - t0:.2f} s ({build.builds} compiled)")
     print(f"card: {_card_line()}")
-    rows = [{"name": k} for k in ("fused_tick", "window_reduce", "hilbert")]
+    rows = [{"name": k} for k in ("fused_tick", "window_reduce", "hilbert",
+                                  "decode_attn", "armatch")]
     run_ranks_phase(FULL, FLEET, device, rows)
     return {"kernels": rows}
 

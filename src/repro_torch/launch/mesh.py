@@ -16,8 +16,9 @@ A rank is one process.  :func:`spawn` starts N of them over a
 ``cuda:r`` (a rank without a card of its own raises, it never goes on
 on the CPU), a CPU run uses gloo, and each rank runs torch on one
 intra-op thread.  The collectives the ranks agree through
-(:func:`all_to_all`, :func:`all_gather`, :func:`all_reduce`,
-:func:`broadcast` and :func:`broadcast_ints`, and the point-to-point
+(:func:`all_to_all`, :func:`all_gather`, :func:`all_reduce` and
+:func:`broadcast`, their in-place forms :func:`all_reduce_` and
+:func:`broadcast_`, :func:`broadcast_ints`, and the point-to-point
 :func:`move_rows`) count the
 bytes this rank sends to the others in ``COLLECTIVES.sent_bytes`` (a
 captured step adds its share on every replay, as it does the kernels'
@@ -153,6 +154,28 @@ def model_axis(mesh) -> str:
 def dp_size(mesh) -> int:
     sizes = axis_sizes(mesh)
     return math.prod(sizes[a] for a in dp_axes(mesh))
+
+
+def data_group(mesh):
+    """The process group over a ``DeviceMesh``'s data axis, whose ranks
+    each take a share of the batch, or ``None`` where there is none to
+    reduce over: no mesh, an :class:`AbstractMesh` (no process group
+    behind it), or one data rank."""
+    if mesh is None or isinstance(mesh, AbstractMesh) or dp_size(mesh) == 1:
+        return None
+    dp = dp_axes(mesh)
+    if len(dp) != 1:
+        raise NotImplementedError(f"data parallelism over {len(dp)} data "
+                                  f"axes {dp}; the host mesh has one")
+    return mesh.get_group(dp[0])
+
+
+def data_rank(mesh) -> int:
+    """This rank's index along the mesh's data axis (0 where
+    :func:`data_group` is ``None``)."""
+    if data_group(mesh) is None:
+        return 0
+    return mesh.get_local_rank(dp_axes(mesh)[0])
 
 
 # -- ranks --------------------------------------------------------------------
@@ -382,21 +405,47 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
 
 def all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
     """``x`` reduced over the group (``dist.ReduceOp``), in a new tensor."""
-    out = _wire(x).clone()
-    dist.all_reduce(out, op=op, group=group)
-    COLLECTIVES.sent_bytes += _nbytes(out) * (dist.get_world_size(group) - 1)
-    return out.to(x.dtype)
+    return all_reduce_(_wire(x).clone(), op, group).to(x.dtype)
+
+
+def all_reduce_(x: torch.Tensor, op, group) -> torch.Tensor:
+    """``x`` reduced over the group in place, and returned: no copy is
+    made, so a model's gradients are summed without a second set.  ``x``
+    must be contiguous and not ``bool``."""
+    if x.dtype == torch.bool or not x.is_contiguous():
+        raise ValueError(f"all_reduce_ in place needs a contiguous non-bool "
+                         f"tensor, got {x.dtype}, strides {x.stride()}")
+    dist.all_reduce(x, op=op, group=group)
+    COLLECTIVES.sent_bytes += _nbytes(x) * (dist.get_world_size(group) - 1)
+    return x
 
 
 def broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
     """The group's rank ``src``'s ``x`` on every rank, in a new tensor
     (every rank passes a tensor of the same shape and dtype)."""
-    out = _wire(x).clone()
-    dist.broadcast(out, src=dist.get_global_rank(group, src), group=group)
+    return broadcast_(_wire(x).clone(), group, src).to(x.dtype)
+
+
+def broadcast_(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """The group's rank ``src``'s ``x`` written into every rank's ``x``
+    in place, and returned (contiguous, not ``bool``; a parameter's
+    ``detach()`` shares its storage)."""
+    if x.dtype == torch.bool or not x.is_contiguous():
+        raise ValueError(f"broadcast_ in place needs a contiguous non-bool "
+                         f"tensor, got {x.dtype}, strides {x.stride()}")
+    dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
     if dist.get_rank(group) == src:
-        COLLECTIVES.sent_bytes += _nbytes(out) * (
-            dist.get_world_size(group) - 1)
-    return out.to(x.dtype)
+        COLLECTIVES.sent_bytes += _nbytes(x) * (dist.get_world_size(group) - 1)
+    return x
+
+
+def broadcast_params(model: torch.nn.Module, group) -> None:
+    """The group's rank 0's parameters into every rank's ``model``, in
+    place, one tensor at a time in ``named_parameters()`` order (every
+    rank passes a model of the same shapes)."""
+    with torch.no_grad():
+        for p in model.parameters():
+            broadcast_(p.detach(), group)
 
 
 def broadcast_ints(parts: list, group, device) -> list:

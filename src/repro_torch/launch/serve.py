@@ -19,6 +19,13 @@ states.  The model is the port's seeded random init unless the caller
 hands one in; given a host mesh, its parameters are laid out by
 ``launch.sharding``'s rules (one rank: every shard is the whole tensor,
 so nothing moves) and the registry keys the captured step on the mesh.
+Over N > 1 data ranks (one a process, ``launch.mesh.spawn``) the
+requests are split by rank, as ``cache_shardings`` lays the decode
+batch over "data": every replica takes rank 0's parameters (broadcast
+once), rank r serves rows ``[r B / N, (r + 1) B / N)`` of the prompts
+with caches of B / N rows through its own registry and captured step,
+and one all-gather gives every rank all B rows of ids at the end.  A B
+that N does not divide replicates: every rank serves all of it.
 Runs on the CUDA card unless the caller asks for the CPU.
 """
 from __future__ import annotations
@@ -37,12 +44,15 @@ from repro_torch.core.serverless import FunctionRegistry
 from repro_torch.kernels.decode_attn import decode_attention
 from repro_torch.launch import sharding as shd
 from repro_torch.launch import steps as steps_mod
-from repro_torch.launch.mesh import axis_sizes, make_host_mesh
+from repro_torch.launch.mesh import (all_gather, axis_sizes,
+                                     broadcast_params, data_group, data_rank,
+                                     dp_size, make_host_mesh)
 from repro_torch.models import transformer as T
 
 
 class ServeResult(NamedTuple):
-    tokens: np.ndarray          # [requests, tokens] generated ids
+    tokens: np.ndarray          # [requests, tokens] generated ids (every
+                                # rank's rows, gathered)
     secs: list                  # wall seconds of each decode step
     launches: int               # decode_attn kernel launches in the loop
                                 # (0 for a model without attention),
@@ -55,6 +65,8 @@ class ServeResult(NamedTuple):
     resolved: str               # the registry entry that served
     aot_cached: int             # the registry's captured steps
     step: Callable              # the captured decode step
+    rows: slice                 # the requests this rank served (logits,
+                                # caches and lengths hold these rows)
 
 
 def prompts_for(cfg, requests: int, prompt_len: int,
@@ -64,19 +76,37 @@ def prompts_for(cfg, requests: int, prompt_len: int,
     return rng.integers(0, cfg.vocab, (requests, prompt_len)).astype(np.int32)
 
 
+def request_rows(requests: int, mesh) -> slice:
+    """The rows of ``requests`` this rank serves on ``mesh``: its
+    ``1 / N`` of them over N data ranks, all of them where N does not
+    divide them (or there is one rank)."""
+    n = 1 if data_group(mesh) is None else dp_size(mesh)
+    if requests % n:
+        return slice(0, requests)
+    per = requests // n
+    r = data_rank(mesh)
+    return slice(r * per, (r + 1) * per)
+
+
 def run(cfg, requests: int, prompt_len: int, tokens: int, *,
         device: str | torch.device | None = None, seed: int = 0,
-        model: T.Transformer | None = None, mesh=None) -> ServeResult:
-    """Serve ``requests`` prompts of ``prompt_len`` ids (seeded) and
-    generate ``tokens`` ids each, on the host ``mesh`` if given.  Every
-    step is timed with a synchronize on the card; nothing is read back
-    inside the loop."""
+        model: T.Transformer | None = None, mesh=None,
+        prompts: np.ndarray | None = None) -> ServeResult:
+    """Serve ``requests`` prompts of ``prompt_len`` ids (seeded, or
+    ``prompts [requests, prompt_len]``) and generate ``tokens`` ids
+    each, on the host ``mesh`` if given (over N > 1 data ranks, this
+    rank's :func:`request_rows`).  Every step is timed with a
+    synchronize on the card; nothing is read back inside the loop."""
     dev = resolve_device(device)
     if model is None:
         model = T.init_params(cfg, seed=seed, device=dev)
     if mesh is not None:
         model = shd.place(model, shd.param_shardings(cfg, mesh, model), mesh)
-    b, max_len = requests, prompt_len + tokens
+    group = data_group(mesh)
+    if group is not None:           # the replicas serve rank 0's weights
+        broadcast_params(model, group)
+    rows = request_rows(requests, mesh)
+    b, max_len = rows.stop - rows.start, prompt_len + tokens
 
     # serverless front door: register the decode topology under a profile
     registry = FunctionRegistry(dev)
@@ -91,7 +121,9 @@ def run(cfg, requests: int, prompt_len: int, tokens: int, *,
                                               lengths, mesh=mesh,
                                               donate_argnums=(2, 3))
 
-    prompts = torch.from_numpy(prompts_for(cfg, b, prompt_len, seed)).to(dev)
+    if prompts is None:
+        prompts = prompts_for(cfg, requests, prompt_len, seed)
+    prompts = torch.from_numpy(np.ascontiguousarray(prompts[rows])).to(dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     finite = torch.ones((), dtype=torch.bool, device=dev)
     secs, gen = [], []
@@ -109,12 +141,14 @@ def run(cfg, requests: int, prompt_len: int, tokens: int, *,
         sync()
         secs.append(time.perf_counter() - t0)
         finite &= torch.isfinite(logits).all()
+    launches = decode_attention.launches - launches0
     out = torch.cat(gen, dim=1) if gen \
-        else torch.zeros((b, 0), dtype=torch.int32)
-    return ServeResult(out.cpu().numpy(), secs,
-                       decode_attention.launches - launches0, bool(finite),
+        else torch.zeros((b, 0), dtype=torch.int32, device=dev)
+    if group is not None and b < requests:  # every rank's rows, everywhere
+        out = all_gather(out, group).reshape(requests, out.shape[1])
+    return ServeResult(out.cpu().numpy(), secs, launches, bool(finite),
                        logits, caches, lengths, model, entry.name,
-                       registry.statistics()["aot_cached"], step)
+                       registry.statistics()["aot_cached"], step, rows)
 
 
 def main() -> None:

@@ -17,14 +17,20 @@ experts over "data" (ZeRO-style).
 
 :func:`placements` turns a spec into ``DTensor`` placements on a
 ``DeviceMesh``; :func:`shard_shape` gives a tensor's shard on a mesh
-(what the dry run's per-device bytes count).
+(what the dry run's per-device bytes count).  :func:`batch_share` gives
+one data rank its rows of a global batch, as :func:`batch_shardings`
+lays the batch over the data axes (the train step across ranks).
 """
 from __future__ import annotations
 
 import re
 
+import numpy as np
+import torch
+
 from repro_torch import convert
-from repro_torch.launch.mesh import axis_sizes, dp_axes, model_axis
+from repro_torch.launch.mesh import (axis_sizes, data_group, data_rank,
+                                     dp_axes, dp_size, model_axis)
 from repro_torch.launch.shardctx import entry
 from repro_torch.optim import AdamWState
 
@@ -176,6 +182,55 @@ def batch_shardings(cfg, mesh, batch_shape: dict) -> dict:
         else:
             spec = (dp,) + (None,) * (v.dim() - 1)
         out[k] = _fit(mesh, spec, tuple(v.shape))
+    return out
+
+
+def _batch_rows(batch: dict) -> int:
+    """The rows (sequences) of a batch: axis 0 of each leaf, axis 1 of
+    the ``[3, B, T]`` M-RoPE position streams; every leaf must agree."""
+    rows = {k: v.shape[1 if k == "mrope_positions" else 0]
+            for k, v in batch.items()}
+    if len(set(rows.values())) != 1:
+        raise ValueError(f"a batch's leaves disagree on its rows: {rows}")
+    return next(iter(rows.values()))
+
+
+def batch_splits(batch: dict, mesh, microbatches: int = 1) -> bool:
+    """Whether ``batch`` splits over the mesh's data ranks
+    (:func:`batch_share`): more than one data rank, and N x K dividing
+    its rows.  A batch that does not split replicates, as ``_fit`` drops
+    a batch spec that does not divide."""
+    if data_group(mesh) is None:
+        return False
+    return _batch_rows(batch) % (dp_size(mesh) * microbatches) == 0
+
+
+def batch_share(batch: dict, mesh, microbatches: int = 1) -> dict:
+    """This data rank's rows of a global ``batch`` (numpy arrays or
+    tensors), laid out as :func:`batch_shardings` lays the batch over
+    the data axes: leaves split on axis 0, ``mrope_positions`` on axis 1.
+
+    The rows respect ``microbatched_grads``' split: microbatch m of K is
+    global rows ``[m B / K, (m + 1) B / K)``, and data rank r of N holds
+    the r-th of N equal parts of every microbatch, so that slice m of
+    its share is its part of the same global microbatch.  A batch that
+    does not split (:func:`batch_splits`) is returned whole: every rank
+    takes it."""
+    if not batch_splits(batch, mesh, microbatches):
+        return batch
+    n, k, r = dp_size(mesh), microbatches, data_rank(mesh)
+    b = _batch_rows(batch)
+    part = b // (n * k)
+    idx = (np.arange(k)[:, None] * (b // k) + r * part
+           + np.arange(part)[None, :]).reshape(-1)
+    out = {}
+    for key, a in batch.items():
+        ax = 1 if key == "mrope_positions" else 0
+        if isinstance(a, np.ndarray):
+            out[key] = np.take(a, idx, axis=ax)
+        else:
+            out[key] = a.index_select(ax, torch.as_tensor(idx,
+                                                          device=a.device))
     return out
 
 

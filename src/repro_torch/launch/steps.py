@@ -12,6 +12,14 @@ forward inside ``shardctx.activation_sharding`` as the reference's do:
 the batch over the mesh's data axes, the sequence over "model" when
 ``sequence_shard``, MoE buckets on ``moe_compute_axes``.  The serve
 step takes a mesh and runs unconstrained, as the reference's does.
+
+Across ranks (a ``DeviceMesh`` whose data axis spans N > 1 ranks, one a
+process: ``launch.mesh.spawn``), the train step is data parallel, as
+XLA runs the reference's step on its mesh: each rank takes its share of
+the global batch (``sharding.batch_share``), divides its microbatch
+losses by the global microbatch's label count, and the gradients are
+summed over "data" in place before AdamW, so every replica takes the
+same update.
 """
 from __future__ import annotations
 
@@ -19,10 +27,11 @@ import contextlib
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import optim
 from repro_torch.launch import shardctx
-from repro_torch.launch.mesh import dp_axes
+from repro_torch.launch.mesh import all_reduce_, data_group, dp_axes, dp_size
 from repro_torch.models import transformer as T
 from repro_torch.runtime.overlap import microbatched_grads
 
@@ -41,6 +50,16 @@ def _activation_ctx(cfg, mesh, sequence_shard: bool):
         sequence_axis="model" if sequence_shard else None, moe_axes=moe)
 
 
+def sum_gradients(grads: dict, group) -> dict:
+    """Sum ``grads`` over ``group`` in place, one tensor at a time in the
+    mapping's order (a model's ``named_parameters()``: every rank issues
+    the same sequence of all-reduces), and return them.  No second copy
+    of the gradients is held."""
+    for g in grads.values():
+        all_reduce_(g, dist.ReduceOp.SUM, group)
+    return grads
+
+
 def build_train_step(cfg, opt_cfg: optim.AdamWConfig | None = None, *,
                      num_microbatches: int = 1,
                      schedule: Callable | None = None,
@@ -51,18 +70,54 @@ def build_train_step(cfg, opt_cfg: optim.AdamWConfig | None = None, *,
     holds tensors (``loss``, ``grad_norm``, ``ce``, ``aux``); nothing is
     read back to the host.  The moments are bfloat16 when the
     parameters are, float32 otherwise; ``schedule(step)`` scales the
-    learning rate."""
+    learning rate.
+
+    On a mesh of N > 1 data ranks (``launch.mesh.data_group``),
+    ``batch`` is this rank's share of a global batch
+    (``sharding.batch_share``): microbatch m's losses are divided by its
+    count of labels >= 0 over all ranks (one all-reduce of the K
+    counts), the gradients are summed over "data"
+    (:func:`sum_gradients`) before ``optim.update``, and ``loss`` and
+    ``ce`` are the global batch's, equal on every rank, as is
+    ``grad_norm``.  An MoE config over N > 1 data ranks raises
+    ``NotImplementedError``."""
     opt_cfg = opt_cfg or optim.AdamWConfig(
         moment_dtype=cfg.param_dtype if cfg.param_dtype == torch.bfloat16
         else torch.float32)
+    group = data_group(mesh)
+    if group is not None and cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training over {dp_size(mesh)} data ranks needs "
+            "the Switch aux loss's me and fe all-reduced over 'data'; see "
+            "ROADMAP.md (the MoE item of section 1)")
+    k = num_microbatches
 
     def loss(m, b):
         return T.loss_fn(cfg, m, b)
 
+    def rank_grads(model, batch):
+        """This rank's share of the global microbatches' loss and
+        gradients, summed over "data"."""
+        labels = batch["labels"]
+        counts = (labels >= 0).reshape(k, -1).sum(1)        # [K] int64
+        counts = iter(all_reduce_(counts, dist.ReduceOp.SUM, group)
+                      .to(torch.float32))
+
+        def share_loss(m, b):       # the K microbatches come in order
+            return T.loss_fn(cfg, m, b, count=next(counts))
+
+        l, aux, grads = microbatched_grads(share_loss, model, batch, k)
+        sum_gradients(grads, group)
+        both = all_reduce_(torch.stack([l, aux["ce"]]), dist.ReduceOp.SUM,
+                           group)
+        return both[0], {**aux, "ce": both[1]}, grads
+
     def train_step(model, opt_state, batch):
         with _activation_ctx(cfg, mesh, sequence_shard):
-            l, aux, grads = microbatched_grads(loss, model, batch,
-                                               num_microbatches)
+            if group is None:
+                l, aux, grads = microbatched_grads(loss, model, batch, k)
+            else:
+                l, aux, grads = rank_grads(model, batch)
         lr_scale = schedule(opt_state.step) if schedule is not None else 1.0
         model, opt_state, om = optim.update(grads, opt_state, model,
                                             opt_cfg, lr_scale)

@@ -16,6 +16,16 @@ from the latest one, and the health and straggler bookkeeping.  A
 resumed run continues the token stream at its step (the reference's
 loop restarts the stream from its first batch).  A non-finite loss
 raises.  Runs on the CUDA card unless the caller asks for the CPU.
+
+On a host mesh of N > 1 ranks (one a process, ``launch.mesh.spawn``),
+the run is data parallel, as the reference's is over every device:
+every replica starts from rank 0's parameters (broadcast once), every
+rank draws the same global batch and keeps its share
+(``sharding.batch_share``) before the ``Prefetcher`` copies it to its
+device, the step sums the gradients over "data" before AdamW, the
+monitors count N ranks (each step's seconds all-gathered), and rank 0
+alone writes the checkpoints while the others wait.  The losses are the
+global batch's, equal on every rank.
 """
 from __future__ import annotations
 
@@ -23,10 +33,11 @@ import argparse
 import os
 import tempfile
 import time
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import convert, optim, resolve_device
 from repro_torch.checkpoint import CheckpointManager
@@ -34,7 +45,9 @@ from repro_torch.configs.registry import ARCH_IDS, get_config, smoke_config
 from repro_torch.data import Prefetcher, SyntheticTokens
 from repro_torch.launch import sharding as shd
 from repro_torch.launch import steps as steps_mod
-from repro_torch.launch.mesh import axis_sizes, make_host_mesh
+from repro_torch.launch.mesh import (all_gather, axis_sizes,
+                                     broadcast_params, data_group, data_rank,
+                                     dp_size, make_host_mesh)
 from repro_torch.models import transformer as T
 from repro_torch.optim.schedule import cosine_with_warmup
 from repro_torch.runtime import HealthMonitor, StragglerDetector
@@ -48,24 +61,36 @@ class TrainResult(NamedTuple):
     opt_state: optim.AdamWState
     start_step: int             # the step resumed from (0: a fresh run)
     checkpoints: list           # the steps kept in ``ckpt_dir``
+    health: HealthMonitor       # one rank a data rank
+    stragglers: StragglerDetector
 
 
 def run(cfg, steps: int, batch: int, seq: int, *, microbatches: int = 1,
         lr: float = 3e-4, ckpt_dir: str | None = None, ckpt_every: int = 10,
         resume: bool = False, device: str | torch.device | None = None,
-        model: T.Transformer | None = None, mesh=None) -> TrainResult:
+        model: T.Transformer | None = None, mesh=None,
+        on_step: Callable | None = None) -> TrainResult:
     """Train ``cfg`` for steps ``[start, steps)`` on ``batch`` x ``seq``
     tokens a step.  ``ckpt_dir`` (``None``: no checkpoints) is written
     every ``ckpt_every`` steps; ``resume`` restores its latest step
     first, in place of ``model``'s weights.  ``mesh``: the host mesh the
-    parameters are laid out on and the step runs on (``None``: none).
-    Every step is timed with a synchronize on the card; the loss and
-    grad norm are read after the step's time is taken."""
+    parameters are laid out on and the step runs on (``None``: none);
+    over N > 1 data ranks ``batch`` is the global batch, of which each
+    rank trains its share (every rank takes all of a batch N x
+    ``microbatches`` does not divide).  Every step is timed with a
+    synchronize on the card; the loss and grad norm are read after the
+    step's time is taken.  ``on_step(step, model, opt_state)`` is called
+    after each step (its checkpoint written)."""
     dev = resolve_device(device)
     if model is None:
         model = T.init_params(cfg, seed=0, device=dev, trainable=True)
     if mesh is not None:
         model = shd.place(model, shd.param_shardings(cfg, mesh, model), mesh)
+    group = data_group(mesh)
+    ranks = 1 if group is None else dp_size(mesh)
+    rank = data_rank(mesh)
+    if group is not None:           # the replicas start from rank 0's
+        broadcast_params(model, group)
     opt_cfg = optim.AdamWConfig(lr=lr)
     opt_state = optim.init(model, opt_cfg)
 
@@ -77,20 +102,26 @@ def run(cfg, steps: int, batch: int, seq: int, *, microbatches: int = 1,
         model = convert.train_model_from_numpy(cfg, params, dev)
         opt_state = convert.adamw_state_from_numpy(cfg, model, ref_state, dev)
         del params, ref_state
-        print(f"resumed from step {start}")
+        if rank == 0:
+            print(f"resumed from step {start}")
 
     def sched(s):
         return cosine_with_warmup(s, warmup=10, total=steps * 10)
 
+    source = SyntheticTokens(cfg.vocab, seq, batch)
+    feed = (source.batch_at(s) for s in range(start, steps))
+    split = shd.batch_splits(source.batch_at(start), mesh, microbatches)
+    if split:
+        feed = (shd.batch_share(b, mesh, microbatches) for b in feed)
+    # a batch the ranks do not split is every rank's whole batch: each
+    # replica takes the one-rank step on it, with nothing to sum
     step_fn = steps_mod.build_train_step(
         cfg, opt_cfg, num_microbatches=microbatches, schedule=sched,
-        mesh=mesh, sequence_shard=False)
-
-    source = SyntheticTokens(cfg.vocab, seq, batch)
-    data = Prefetcher((source.batch_at(s) for s in range(start, steps)),
-                      depth=2, device=dev)
-    health = HealthMonitor(num_ranks=1)
-    stragglers = StragglerDetector(num_ranks=1)
+        mesh=mesh if group is None or split else None,
+        sequence_shard=False)
+    data = Prefetcher(feed, depth=2, device=dev)
+    health = HealthMonitor(num_ranks=ranks)
+    stragglers = StragglerDetector(num_ranks=ranks)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     losses, gnorms, secs = [], [], []
     try:
@@ -110,20 +141,33 @@ def run(cfg, steps: int, batch: int, seq: int, *, microbatches: int = 1,
             losses.append(loss)
             gnorms.append(float(metrics["grad_norm"]))
             secs.append(dt)
-            health.heartbeat(0)
-            stragglers.observe(np.full(1, dt))
-            if step % 5 == 0 or step == steps - 1:
+            if group is None:
+                each = np.full(1, dt)
+            else:                   # every rank's seconds, on every rank
+                each = all_gather(torch.tensor(dt, dtype=torch.float64,
+                                               device=dev), group) \
+                    .cpu().numpy()
+            for r in range(ranks):
+                health.heartbeat(r)
+            stragglers.observe(each)
+            if rank == 0 and (step % 5 == 0 or step == steps - 1):
                 print(f"step {step:5d}  loss {loss:.4f}  "
                       f"gnorm {gnorms[-1]:.3f}  {dt * 1e3:.0f} ms")
             if not np.isfinite(loss):
                 raise RuntimeError(f"non-finite loss at step {step}")
             if cm is not None and (step + 1) % ckpt_every == 0:
-                cm.save(step + 1,
-                        convert.train_state_tree(cfg, model, opt_state))
+                if rank == 0:
+                    cm.save(step + 1,
+                            convert.train_state_tree(cfg, model, opt_state))
+                if group is not None:   # the others wait for rank 0's file
+                    dist.barrier(group=group)
+            if on_step is not None:
+                on_step(step, model, opt_state)
     finally:
         data.close()
     return TrainResult(losses, gnorms, secs, model, opt_state, start,
-                       cm.all_steps() if cm is not None else [])
+                       cm.all_steps() if cm is not None else [], health,
+                       stragglers)
 
 
 def main() -> None:

@@ -476,11 +476,16 @@ def forward(cfg: ArchConfig, model: Transformer, batch: dict, *,
     return _logits(cfg, model, x), aux, caches
 
 
-def loss_fn(cfg: ArchConfig, model: Transformer, batch: dict):
+def loss_fn(cfg: ArchConfig, model: Transformer, batch: dict,
+            count: torch.Tensor | None = None):
     """(loss, {"ce", "aux"}): the mean next-token cross entropy over the
     positions whose label is >= 0, plus the MoE aux loss.  Memory-lean
     as the reference's: a float32 logsumexp less the gathered label
-    logit, never the float32 log-probabilities over the vocabulary."""
+    logit, never the float32 log-probabilities over the vocabulary.
+    ``count``: the float32 count of labels >= 0 to divide by, where
+    ``batch`` is one data rank's share of a batch holding that many (the
+    ranks' losses then sum to the whole batch's); ``None``: this
+    batch's own count."""
     logits, aux, _ = forward(cfg, model, batch)
     labels = batch["labels"]
     mask = (labels >= 0).to(torch.float32)
@@ -488,7 +493,9 @@ def loss_fn(cfg: ArchConfig, model: Transformer, batch: dict):
     lse = torch.logsumexp(logits.to(torch.float32), dim=-1)
     lab = torch.gather(logits, -1, lsafe[..., None])[..., 0]
     nll = lse - lab.to(torch.float32)
-    ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    if count is None:
+        count = torch.sum(mask)
+    ce = torch.sum(nll * mask) / torch.clamp(count, min=1.0)
     return ce + aux, {"ce": ce, "aux": aux}
 
 

@@ -892,3 +892,58 @@ def test_phase12_control_and_remesh_over_two_gloo_ranks(smoke, monkeypatch,
             bad[1]["control"]["outs"] = outs
         with pytest.raises(RuntimeError, match=match):
             smoke.check_phase12_control(refs, bad, fz, launches=False)
+
+
+def test_phase12_models_over_two_gloo_ranks(smoke, monkeypatch, capsys):
+    """Phase 12's (iii)-(v) at Yi-6B's smoke config over 2 gloo ranks
+    (``launch.mesh.spawn`` of ``_rank_models_phase``) against one card in
+    this process: each rank's served rows equal to one card serving them,
+    the ids gathered on every rank, the train step's losses and
+    parameters against one card and every replica equal after every
+    step, every check but the launch counts; then a rank whose replica
+    digest, served ids or gathered ids differ fails the check."""
+    from repro_torch.launch import mesh as M
+    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)
+    monkeypatch.syspath_prepend(str(ROOT))
+    sv = smoke.ServeSizes(requests=2, prompt_len=4, tokens=3,
+                          compute="float32", smoke=True)
+    check = smoke.TrainSizes(steps=2, batch=2, seq=16, microbatches=2,
+                             compute="float32", lr=2e-3, smoke=True)
+    full = smoke.TrainSizes(steps=3, batch=2, seq=16, microbatches=2,
+                            smoke=True)
+    refs = smoke.phase12_model_references(sv, "cpu", 2)
+    parts = M.spawn(smoke._rank_models_phase, 2, "cpu", sv, check, full)
+    smoke.check_phase12_models(refs, parts, sv, launches=False)
+    assert [p["serve"]["shape"] for p in parts] == [(4, 3)] * 2
+    assert parts[0]["train_check"]["loss_err"] <= smoke.TRAIN_CARD_VS_CPU
+    assert parts[0]["train_check"]["grad_err"] <= smoke.TRAIN_CARD_VS_CPU
+    assert all(p["train_full"]["ranks"] == 2 for p in parts)
+    assert len(parts[0]["train_full"]["ar_secs"]) == smoke.RANK_GRAD_REPS
+    assert parts[0]["train_full"]["ar_sent"] == \
+        parts[0]["train_full"]["grad_bytes"]
+    smoke.print_phase12_models(refs, parts, sv, check, full,
+                               "CPU rehearsal")
+    out = capsys.readouterr().out
+    for tag in ("(iii) serve", "(iv) train", "(v) train"):
+        assert f"phase 12 {tag} across 2 gloo" in out, tag
+    assert all("CPU rehearsal" in l for l in out.splitlines()
+               if l.startswith("phase 12"))
+    for fault, match in (
+            ("replica", "rank 1's replica differs from rank 0's after step 1"),
+            ("check", "\\(iv\\): rank 1's replica differs"),
+            ("ids", "rank 1's served ids differ"),
+            ("gathered", "rank 0's gathered ids")):
+        bad = [dict(p, serve=dict(p["serve"]),
+                    train_check=dict(p["train_check"]),
+                    train_full=dict(p["train_full"])) for p in parts]
+        if fault in ("replica", "check"):
+            key = "train_full" if fault == "replica" else "train_check"
+            digests = [list(d) for d in bad[1][key]["digests"]]
+            digests[1][0] += 1
+            bad[1][key]["digests"] = digests
+        elif fault == "ids":
+            bad[1]["serve"]["ids"] += 1
+        else:
+            bad[0]["serve"]["gathered"] = bad[0]["serve"]["gathered"][::-1]
+        with pytest.raises(RuntimeError, match=match):
+            smoke.check_phase12_models(refs, bad, sv, launches=False)
