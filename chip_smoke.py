@@ -230,7 +230,23 @@ launch counts include the replays' and the warm-up's:
    moments bitwise rank 0's after every step; (v) phase 9's run a rank
    (16 layers, 2 x 4,096 tokens a rank in 2 microbatches, 8 steps at lr
    3e-4): every loss finite and the replicas bitwise after every step,
-   then the gradient all-reduce alone.  It prints the rank count and
+   then the gradient all-reduce alone; then the same three for
+   Mixtral-8x7B, whose MoE layers plan over the global batch: (vi) its
+   full width at 8 layers, 16 requests a rank, 64 prompt ids + 32
+   generated, against one card serving all 16N requests in one run on
+   the ranks' path (their ids teacher-forced, eager, a hook reading
+   every MoE call's expert ids): every id the card's pick or a near tie
+   within 5e-2 of the largest logit, a late step from the ranks' caches
+   within 5e-2 by phase 3's near-tie rule, the count of MoE calls
+   whose global plan keeps other choices than the per-rank plans (above
+   0 on N > 1), decode_attn launches a rank with none generic; (vii)
+   its widths at 2 layers in float32, (iv)'s batch (one MoE group a
+   microbatch spanning the ranks) against one card: losses within 1e-6
+   relative, parameters within 1e-4, replicas bitwise; (viii) the same
+   2 layers in bf16 at (v)'s batch (a group a rank), timed as (v) is.
+   (vi) runs in float32 (bf16's rounding, 16 rows against 64, turns
+   greedy ids) and then in bf16, timed.
+   It prints the rank count and
    the backend, each path's p50/p99 tick, step or call ms (the slowest
    rank's), the device busy share, the bytes each rank sends a tick or
    step, the controller tick's p50/p99 beside one card's, each remesh's
@@ -2639,8 +2655,11 @@ def train_flops(cfg, n: int, batch: int, seq: int) -> dict:
 
 def _leaf_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """The largest difference of two tensors over ``b``'s largest
-    magnitude."""
-    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    magnitude, computed on ``a``'s device (``b`` copied there): a rank
+    runs torch on one CPU thread, where a 3 B-parameter model's leaves
+    take half a minute."""
+    a = a.detach().float()
+    b = b.detach().to(a.device).float()
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
@@ -3820,7 +3839,8 @@ def _rank_phase(rank: int, device, sz: Sizes, fz: FleetSizes, n_ar: int,
     over the ranks' fleet mesh; the AR route step over a ``(pod, data)``
     mesh, its post indices through the hilbert kernel; the cross-pod
     all-reduce over this rank's pod group; given ``models`` (the sizes
-    of (iii), (iv) and (v)), :func:`_rank_models_phase`.  Digests,
+    of (iii), (iv) and (v), then of (vi)-(viii)),
+    :func:`_rank_models_phase`.  Digests,
     launches, bytes and times come back to the parent."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -4308,12 +4328,13 @@ def _serve_digests(res) -> dict:
 
 def rank_serve(sz: ServeSizes, device, mesh=None, prompts=None,
                model=None) -> dict:
-    """Yi-6B at ``sz`` through ``launch/serve``: over ``mesh``'s N data
-    ranks, ``sz.requests`` a rank of N x that many prompts (this rank's
-    rows); on one card, ``prompts``' rows.  The weights are seed 0's
-    (``model`` if given); the launch counts are zeroed just before the
-    run and read just after.  Returns :func:`_serve_digests`, the
-    launches, ``aot_cached`` and each step's seconds."""
+    """``sz``'s model (Yi-6B for (iii)) through ``launch/serve``: over
+    ``mesh``'s N data ranks, ``sz.requests`` a rank of N x that many
+    prompts (this rank's rows); on one card, ``prompts``' rows.  The
+    weights are seed 0's (``model`` if given); the launch counts are
+    zeroed just before the run and read just after.  Returns
+    :func:`_serve_digests`, the launches, ``aot_cached`` and each
+    step's seconds."""
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import data_group, dp_size
     from repro_torch.models import transformer as T
@@ -4406,6 +4427,8 @@ def rank_train_check(tz: TrainSizes, device, mesh) -> dict:
         rec["loss_err"] = max(abs(a - b) / abs(b) for a, b in
                               zip(res.losses + res.grad_norms,
                                   rec["one_losses"] + rec["one_norms"]))
+        rec["losses_err"] = max(abs(a - b) / abs(b) for a, b in
+                                zip(res.losses, rec["one_losses"]))
         rec["grad_err"] = grad_err[0]
         rec["param_err"] = max(_leaf_err(p, want[name]) for name, p in
                                res.model.named_parameters())
@@ -4467,10 +4490,13 @@ def rank_train_full(tz: TrainSizes, device, mesh) -> dict:
 
 
 def _rank_models_phase(rank: int, device, serve_sz: ServeSizes,
-                       check_tz: TrainSizes, full_tz: TrainSizes) -> dict:
+                       check_tz: TrainSizes, full_tz: TrainSizes,
+                       moe: tuple | None = None) -> dict:
     """Phase 12 (iii)-(v) on one rank (``launch.mesh.spawn``; also run by
-    :func:`_rank_phase`) over the host mesh of every rank, each model
-    freed before the next is built."""
+    :func:`_rank_phase`) over the host mesh of every rank, then, given
+    ``moe`` (the sizes of (vi), (vii) and (viii)), the same three for
+    the MoE model (:func:`_rank_moe_phase`), each model freed before the
+    next is built."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     card = device.type == "cuda"
@@ -4495,16 +4521,57 @@ def _rank_models_phase(rank: int, device, serve_sz: ServeSizes,
     res["train_full"] = rank_train_full(full_tz, device, mesh)
     if card:
         _free()
+    if moe is not None:
+        res.update(_rank_moe_phase(rank, device, mesh, *moe))
+    return res
+
+
+def _rank_moe_phase(rank: int, device, mesh, serve_sz: ServeSizes,
+                    timed_sz: ServeSizes, check_tz: TrainSizes,
+                    full_tz: TrainSizes) -> dict:
+    """(vi)-(viii) on one rank over ``mesh``: the MoE model served at
+    ``serve_sz`` a rank (:func:`rank_moe_serve`), then at ``timed_sz``
+    (:func:`rank_serve`; on rank 0 also its rows alone on one card: the
+    one-card step time), trained at ``check_tz`` against one card
+    (:func:`rank_train_check`) and at ``full_tz``
+    (:func:`rank_train_full`), each model freed before the next."""
+    import torch.distributed as dist
+    from repro_torch.launch import serve
+    card = device.type == "cuda"
+    res = {"moe_serve": rank_moe_serve(serve_sz, device, mesh)}
+    if card:
+        _free()
+    res["moe_timed"] = rank_serve(timed_sz, device, mesh)
+    if rank == 0:
+        prompts = serve.prompts_for(serve_config(timed_sz), timed_sz.requests
+                                    * dist.get_world_size(),
+                                    timed_sz.prompt_len)
+        res["moe_timed_here"] = rank_serve(timed_sz, device, prompts=prompts[
+            :timed_sz.requests])["secs"]
+    if card:
+        _free()
+    res["moe_check"] = rank_train_check(check_tz, device, mesh)
+    if card:
+        _free()
+    res["moe_full"] = rank_train_full(full_tz, device, mesh)
+    if card:
+        _free()
     return res
 
 
 def phase12_model_references(sz: ServeSizes, device, n: int) -> dict:
     """(iii)'s one-card runs in this process: rank r's ``sz.requests``
     rows of the N x ``sz.requests`` prompts, one run a rank from the same
-    seed-0 weights, freed after."""
+    seed-0 weights, freed after.  That is a dense model's reference
+    only: an MoE layer plans over every rank's rows, so an MoE model's
+    is one card serving the whole batch, (vi)'s
+    (:func:`phase12_moe_reference`); an MoE ``sz`` raises."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     cfg = serve_config(sz)
+    if cfg.moe is not None:
+        raise ValueError(f"{cfg.name} is an MoE model: its reference is one "
+                         "card serving the whole batch, (vi)'s")
     model = T.init_params(cfg, seed=0, device=device)
     prompts = serve.prompts_for(cfg, sz.requests * n, sz.prompt_len)
     q = sz.requests
@@ -4539,6 +4606,23 @@ def _check_replicas(tag: str, runs: list) -> None:
                   f"{run['ranks']} rank(s), want {len(runs)}")
 
 
+def _check_serve_run(tag: str, r: int, got: dict, sz: ServeSizes,
+                     launches: bool) -> None:
+    """Rank ``r``'s serve run: ``aot_cached`` 1 and finite logits; with
+    ``launches`` the attention layers' decode_attn launches every step,
+    none generic, and one armatch lookup."""
+    if got["aot_cached"] != 1 or not got["finite"]:
+        _fail(f"phase 12 {tag}: rank {r} aot_cached {got['aot_cached']}, "
+              f"logits finite {got['finite']}")
+    steps = sz.prompt_len + sz.tokens
+    if launches and (got["loop_launches"] != got["n_attn"] * steps
+                     or got["generic"] or got["launches"]["armatch"] != 1):
+        _fail(f"phase 12 {tag}: rank {r} launched decode_attn "
+              f"{got['loop_launches']} times in its loop ({got['generic']}"
+              f" generic), armatch {got['launches']['armatch']}; want "
+              f"{got['n_attn']} a step x {steps} steps, 0, 1")
+
+
 def check_phase12_models(refs: dict, parts: list, sz: ServeSizes,
                          launches: bool = True) -> None:
     """(iii)-(v) on every rank, each check failing the run: (iii) each
@@ -4563,16 +4647,7 @@ def check_phase12_models(refs: dict, parts: list, sz: ServeSizes,
                 or got["shape"] != (n * sz.requests, sz.tokens):
             _fail(f"phase 12 (iii): rank {r}'s gathered ids {got['shape']} "
                   f"are not every rank's rows")
-        if got["aot_cached"] != 1 or not got["finite"]:
-            _fail(f"phase 12 (iii): rank {r} aot_cached {got['aot_cached']}, "
-                  f"logits finite {got['finite']}")
-        steps = sz.prompt_len + sz.tokens
-        if launches and (got["loop_launches"] != got["n_attn"] * steps
-                         or got["generic"] or got["launches"]["armatch"] != 1):
-            _fail(f"phase 12 (iii): rank {r} launched decode_attn "
-                  f"{got['loop_launches']} times in its loop ({got['generic']}"
-                  f" generic), armatch {got['launches']['armatch']}; want "
-                  f"{got['n_attn']} a step x {steps} steps, 0, 1")
+        _check_serve_run("(iii)", r, got, sz, launches)
     check = parts[0]["train_check"]
     if check["loss_err"] > TRAIN_CARD_VS_CPU \
             or check["grad_err"] > TRAIN_CARD_VS_CPU \
@@ -4635,7 +4710,19 @@ def print_phase12_models(refs: dict, parts: list, sz: ServeSizes,
           f"steps within {c['param_err']:.3e} (tolerance "
           f"{RANK_TRAIN_PARAM}); every replica's parameters and moments "
           f"bitwise rank 0's after every step; {card}")
-    full = [p["train_full"] for p in parts]
+    print(_train_full_line("(v)", [p["train_full"] for p in parts],
+                           full_tz, backend, card))
+    return {"decode_attn": sum(s["launches"]["decode_attn"] for s in sv),
+            "armatch": sum(s["launches"]["armatch"] for s in sv)}
+
+
+def _train_full_line(tag: str, full: list, full_tz: TrainSizes,
+                     backend: str, card: str) -> str:
+    """(v)'s or (viii)'s line: the losses, tokens/s over all ranks, the
+    slowest rank's step p50/p99 (the first step left out), each rank's
+    peak memory, the gradient all-reduce alone and the bytes a rank
+    sends a step."""
+    n = len(full)
     f0 = full[0]
     slow = [max(f["secs"][i] for f in full)
             for i in range(1, len(f0["secs"]))]
@@ -4652,21 +4739,432 @@ def print_phase12_models(refs: dict, parts: list, sz: ServeSizes,
           f"{f0['ar_sent'] / 1e9:.3f} GB sent a rank a call "
           f"(COLLECTIVES: bytes x (N - 1))"
           if f0["ar_secs"] else "no gradient all-reduce on one rank")
-    print(f"phase 12 (v) train across {n} {backend} rank(s): {f0['name']} "
-          f"at full width, {f0['layers']} layers, {full_tz.steps} steps of "
-          f"{full_tz.batch} x {full_tz.seq} tokens a rank ({full_tz.batch * n}"
-          f" rows in all) in {full_tz.microbatches} microbatches at lr "
-          f"{full_tz.lr}: losses {[round(x, 4) for x in f0['losses']]}, all "
-          f"finite, every replica bitwise rank 0's after every step; "
-          f"{tokens * len(slow) / sum(slow):.1f} trained tokens/s over all "
-          f"ranks; step p50 {q[0]:.3f} ms, p99 {q[1]:.3f} ms (the slowest "
-          f"rank's, the first step left out; rank 0's first "
-          f"{f0['secs'][0] * 1e3:.3f} ms); peak max_memory_allocated a rank "
-          f"{[round(f['peak'] / 2**30, 3) for f in full]} GiB (allocator "
-          f"retries {[f['retries'] for f in full]}); {ar}; bytes "
-          f"sent a rank a step {sent}; {card}")
-    return {"decode_attn": sum(s["launches"]["decode_attn"] for s in sv),
-            "armatch": sum(s["launches"]["armatch"] for s in sv)}
+    return (f"phase 12 {tag} train across {n} {backend} rank(s): "
+            f"{f0['name']} "
+            f"at full width, {f0['layers']} layers, {full_tz.steps} steps of "
+            f"{full_tz.batch} x {full_tz.seq} tokens a rank "
+            f"({full_tz.batch * n} rows in all) in {full_tz.microbatches} "
+            f"microbatches at lr "
+            f"{full_tz.lr}: losses {[round(x, 4) for x in f0['losses']]}, all "
+            f"finite, every replica bitwise rank 0's after every step; "
+            f"{tokens * len(slow) / sum(slow):.1f} trained tokens/s over all "
+            f"ranks; step p50 {q[0]:.3f} ms, p99 {q[1]:.3f} ms (the slowest "
+            f"rank's, the first step left out; rank 0's first "
+            f"{f0['secs'][0] * 1e3:.3f} ms); peak max_memory_allocated a rank "
+            f"{[round(f['peak'] / 2**30, 3) for f in full]} GiB (allocator "
+            f"retries {[f['retries'] for f in full]}); {ar}; bytes "
+            f"sent a rank a step {sent}; {card}")
+
+
+# ---- phase 12 (vi)-(viii): MoE serving and training across ranks -----------
+
+#: (vi) Mixtral-8x7B at full width cut to 8 of 32 layers (phase 6's
+#: run), ``requests`` a rank (N x that in all), 64 prompt ids
+#: teacher-forced and 32 generated: every decode step's N x 16 tokens
+#: are one MoE group across the ranks.  Checked in float32 compute: in
+#: bfloat16 a rank's GEMMs of 16 rows round otherwise than one card's of
+#: 64, and greedy decoding carries that into other ids (on four H100s,
+#: 189 of 2,048 ids off the card's picks on the ranks' own path, by up
+#: to 0.15 of the largest logit); then timed in bfloat16 (phase 6's run)
+RANK_MOE_SERVE = MIXTRAL_FULL._replace(compute="float32")
+RANK_MOE_TIMED = MIXTRAL_FULL
+#: (vii) Mixtral's widths cut to 2 layers (3.17 B parameters, 50.6 GB of
+#: float32 AdamW state), float32 compute (TF32 off), (iv)'s 3 steps of 2
+#: x 1,024 tokens a rank in 2 microbatches: a global microbatch's N x
+#: 1,024 tokens are one MoE group, which spans every rank
+RANK_MOE_CHECK = RANK_TRAIN_CHECK._replace(arch="mixtral_8x7b")
+#: (viii) the same 2 layers, bfloat16 compute with float32 parameters,
+#: (v)'s 8 steps of 2 x 4,096 tokens a rank in 2 microbatches: a rank's
+#: 4,096 tokens a microbatch are a group of their own, and only the
+#: expert ids and the load statistics cross the ranks
+RANK_MOE_FULL = RANK_TRAIN_FULL._replace(layers=2, arch="mixtral_8x7b")
+#: (vi), (vii) and (viii)'s sizes, as ``_rank_moe_phase`` takes them
+RANK_MOE = (RANK_MOE_SERVE, RANK_MOE_TIMED, RANK_MOE_CHECK, RANK_MOE_FULL)
+#: (vii)'s losses against one card's, relative: the ranks' aux-loss
+#: shares and cross-entropy shares sum in another order than one card's
+#: means (the grad norms and first gradients keep (iv)'s
+#: :data:`TRAIN_CARD_VS_CPU`, the parameters :data:`RANK_TRAIN_PARAM`)
+RANK_MOE_LOSS = 1e-6
+
+
+@contextlib.contextmanager
+def _moe_routes(model, inputs: bool = False):
+    """Within the block, every call of ``model``'s MoE layers appends a
+    record to the list the block gets: its tokens' top-k expert ids
+    (``ids``, ``[tokens * k]``, token-major) and, with ``inputs``, the
+    router's probabilities (``probs``, ``[tokens, E]``) and the layer's
+    input (``h``, float32).  A forward hook: the calls Python runs (an
+    eager step; a replayed graph runs none)."""
+    from repro_torch.models import moe as M
+    recs = []
+
+    def hook(mod, args, result):
+        h = args[0].reshape(-1, args[0].shape[-1])
+        probs, _, ids = M.route(h[None], mod.p["router"], mod.cfg.top_k)
+        rec = {"ids": ids.reshape(-1)}
+        if inputs:
+            rec.update(probs=probs[0], h=h.float())
+        recs.append(rec)
+    hooks = [layer.moe.register_forward_hook(hook) for layer in model.layers
+             if getattr(layer, "moe", None) is not None]
+    try:
+        yield recs
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _keep(cfg, dest: torch.Tensor) -> torch.Tensor:
+    """Which of the choices ``dest`` (``[tokens * k]``, one call's whole
+    batch) the layer keeps: its groups, capacity and plan."""
+    from repro_torch.models import moe as M
+    t = dest.numel() // cfg.top_k
+    g = M._pick_groups(t)
+    return M.dispatch_plan(dest.reshape(g, -1), cfg.num_experts,
+                           M.capacity(cfg, t // g)).keep.reshape(-1)
+
+
+def plan_differences(cfg, ids: list, n: int) -> tuple[int, int]:
+    """Of the MoE calls whose expert ids ``ids`` holds (each over the
+    global batch), (those whose plan keeps other choices than the plans
+    each of ``n`` ranks would make of its own contiguous share, those
+    whose plan drops a choice)."""
+    differ = drop = 0
+    for dest in ids:
+        per = dest.numel() // n
+        keep = _keep(cfg, dest)
+        local = torch.cat([_keep(cfg, dest[r * per:(r + 1) * per])
+                           for r in range(n)])
+        differ += not torch.equal(keep, local)
+        drop += not bool(keep.all())
+    return differ, drop
+
+
+def _late_moe_step(cfg, model, tok: torch.Tensor, caches, lengths,
+                   split) -> tuple:
+    """One more eager decode step of ``tok`` ``[b, 1]`` from ``caches``
+    (written in place) under the batch split ``split`` (``None``: the
+    whole batch): (its logits, float32, and each MoE layer's routing of
+    these rows with probabilities and inputs, on the host)."""
+    from repro_torch.launch import shardctx
+    from repro_torch.models import transformer as T
+    with torch.inference_mode(), shardctx.batch_split(split), \
+            _moe_routes(model, inputs=True) as recs:
+        logits, _, _ = T.decode_step(cfg, model, tok, caches, lengths)
+    return logits.float().cpu(), [{k: v.cpu() for k, v in r.items()}
+                                  for r in recs]
+
+
+def rank_moe_serve(sz: ServeSizes, device, mesh) -> dict:
+    """(vi) on one rank: the MoE model at ``sz`` through ``launch/serve``
+    over ``mesh``'s N data ranks, ``sz.requests`` a rank of N x that
+    many prompts, from seed 0's weights, the launch counts zeroed just
+    before the run and read just after; then one late step
+    (:func:`_late_moe_step`) of each request's next greedy id, under
+    the batch split, as every rank takes it.  Returns the gathered ids,
+    the next ids (gathered), this rank's final logits, its caches and
+    lengths before the late step (on the host), its late logits and
+    late routing, the launches, ``aot_cached`` and each step's
+    seconds."""
+    from repro_torch.launch import serve, shardctx
+    from repro_torch.launch.mesh import all_gather, data_group, dp_size
+    from repro_torch.models import transformer as T
+    cfg = serve_config(sz)
+    group = data_group(mesh)
+    n = 1 if group is None else dp_size(mesh)
+    model = T.init_params(cfg, seed=0, device=device)
+    zero_launches()
+    res = serve.run(cfg, sz.requests * n, sz.prompt_len, sz.tokens,
+                    device=device, model=model, mesh=mesh)
+    launches = read_launches()
+    generic = _wrappers()["decode_attn"].generic_launches
+    nxt = torch.argmax(res.logits, dim=-1).to(torch.int32)
+    every = nxt if group is None else all_gather(nxt, group).reshape(-1)
+    caches = [{k: v.cpu() for k, v in c.items()} for c in res.caches]
+    late, routes = _late_moe_step(cfg, res.model, nxt[:, None], res.caches,
+                                  res.lengths, shardctx.mesh_split(mesh))
+    return dict(tokens=res.tokens, next=every.cpu(),
+                logits=res.logits.float().cpu(), caches=caches,
+                lengths=res.lengths.cpu(), late=late, routes=routes,
+                rows=(res.rows.start, res.rows.stop), launches=launches,
+                loop_launches=res.launches, generic=generic,
+                n_attn=len(attn_caches(cfg, res.caches)),
+                aot_cached=res.aot_cached, secs=res.secs, finite=res.finite,
+                name=cfg.name)
+
+
+def phase12_moe_reference(sz: ServeSizes, device, runs: list) -> dict:
+    """(vi)'s reference, in this process after the ranks (``runs``: each
+    rank's :func:`rank_moe_serve`): one card serving all N x
+    ``sz.requests`` prompts in one run from seed 0's weights, each
+    prompt followed by the ranks' generated ids teacher-forced, so that
+    the card takes the ranks' path: at each step where the ranks
+    generated an id, the card's greedy pick and the margin of its
+    largest logit over that id's; the final logits.  Eager
+    (``capture.disable``) so that a hook reads every MoE call's expert
+    ids: the calls whose plan of the whole batch differs from the
+    per-rank plans, and those that drop a choice
+    (:func:`plan_differences`).  Then the late step
+    (:func:`_late_moe_step`) from the ranks' own caches and next ids,
+    stacked in rank order: the inputs the ranks' late step took, bit
+    for bit.  Freed after."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import capture
+    cfg = serve_config(sz)
+    n, tokens = len(runs), runs[0]["tokens"]
+    model = T.init_params(cfg, seed=0, device=device)
+    prompts = serve.prompts_for(cfg, sz.requests * n, sz.prompt_len)
+    forced = torch.as_tensor(tokens, device=device).long()
+    picks, margins, scales = [], [], []
+    real = T.decode_step
+
+    def decode_step(*args, **kw):   # the ranks' step j follows prompt id
+        out = real(*args, **kw)     # P - 1 + j
+        j = int(args[4][0]) - (sz.prompt_len - 1)
+        if 0 <= j < sz.tokens:
+            logits = out[0].float()
+            top = logits.max(-1)
+            picks.append(top.indices)
+            margins.append(top.values - logits.gather(
+                1, forced[:, j:j + 1])[:, 0])
+            scales.append(logits.abs().max())
+        return out
+    T.decode_step = decode_step
+    try:
+        with capture.disable(), _moe_routes(model) as recs:
+            res = serve.run(cfg, sz.requests * n,
+                            sz.prompt_len + sz.tokens, 0, device=device,
+                            model=model, prompts=np.concatenate(
+                                [prompts, tokens], axis=1))
+    finally:
+        T.decode_step = real
+    stacked = [{k: torch.cat([r["caches"][i][k] for r in runs]).to(device)
+                for k in c} for i, c in enumerate(runs[0]["caches"])]
+    late, routes = _late_moe_step(
+        cfg, res.model, runs[0]["next"].to(device)[:, None], stacked,
+        torch.cat([r["lengths"] for r in runs]).to(device), None)
+    differ, drop = plan_differences(cfg.moe, [r["ids"] for r in recs], n)
+    out = dict(forced=tokens, picks=torch.stack(picks, 1).cpu(),
+               margins=torch.stack(margins, 1).cpu(),
+               scales=torch.stack(scales).cpu(),
+               logits=res.logits.float().cpu(), late=late, routes=routes,
+               calls=len(recs), differing=differ, dropping=drop,
+               moe=cfg.moe, name=cfg.name)
+    del model, res, recs, stacked
+    if torch.device(device).type == "cuda":
+        _free()
+    return out
+
+
+def moe_serve_stats(ref: dict, runs: list) -> dict:
+    """(vi)'s comparison of the ranks (``runs``: each rank's
+    :func:`rank_moe_serve`) with one card (:func:`phase12_moe_reference`),
+    checking nothing: ``ties``, the generated ids the card would not
+    pick, each a (request, step, margin over the largest logit);
+    ``final``, each rank's final logits' largest difference over the
+    largest; and the late step, which both sides took from the ranks'
+    caches, by :func:`late_step`'s rule: ``flips``,
+    the requests whose own expert choice differs in some MoE layer
+    (the first such layer, its input's difference over its largest,
+    the card's router margin there), ``moved``, those whose kept
+    choices differ only because another request's did, and ``late``,
+    the logits' difference over the other requests."""
+    ids = torch.from_numpy(runs[0]["tokens"]).long()
+    off = ref["picks"] != ids
+    rel = ref["margins"] / ref["scales"][None, :]
+    ties = [(int(i), int(j), float(rel[i, j]))
+            for i, j in off.nonzero().tolist()]
+    final = [_rel(g["logits"], ref["logits"][slice(*g["rows"])])
+             for g in runs]
+    cfg, k = ref["moe"], ref["moe"].top_k
+    rows = ids.shape[0]
+    flips, moved = {}, set()
+    for layer, want in enumerate(ref["routes"]):
+        got = {key: torch.cat([g["routes"][layer][key] for g in runs])
+               for key in ("ids", "probs", "h")}
+        mine = (got["ids"] != want["ids"]).reshape(rows, k).any(1)
+        for i in mine.nonzero()[:, 0].tolist():
+            if i not in flips:
+                top = torch.sort(want["probs"][i], descending=True).values
+                flips[i] = dict(request=i, layer=layer,
+                                input=_rel(got["h"][i], want["h"][i]),
+                                margin=float(top[k - 1] - top[k]))
+        kept = (_keep(cfg, got["ids"]) != _keep(cfg, want["ids"])) \
+            .reshape(rows, k).any(1)
+        moved |= set(kept.nonzero()[:, 0].tolist()) - set(flips)
+    same = torch.ones(rows, dtype=torch.bool)
+    same[list(flips) + list(moved)] = False
+    late = _rel(torch.cat([g["late"] for g in runs])[same],
+                ref["late"][same]) if same.any() else float("nan")
+    return dict(ties=ties, generated=int(ids.numel()), final=final,
+                flips=list(flips.values()), moved=sorted(moved),
+                late=late, rows=rows)
+
+
+def check_moe_serve(tag: str, ref: dict, runs: list, sz: ServeSizes,
+                    launches: bool = True) -> dict:
+    """An MoE model served over the ranks against one card serving the
+    whole batch on the ranks' path (:func:`moe_serve_stats`), each check
+    failing the run: over N > 1 ranks some MoE call's global plan
+    differs from the per-rank plans (else nothing is tested); every
+    rank holds the same gathered ids; every generated id is the card's
+    greedy pick or a near tie, its logit within
+    :data:`SERVE_KERNEL_VS_PLAIN` of the largest logit below the card's
+    pick (each rank's GEMMs take its rows alone and round otherwise
+    than the whole batch's); at the late step, by
+    :func:`late_step`'s rule, each request whose expert choice flipped
+    a near tie (its MoE input within the tolerance), not every request
+    left out, and the other requests' logits within the tolerance; each
+    rank's final logits within it of the card's on the same path;
+    :func:`_check_serve_run`.  Returns the stats."""
+    n = len(runs)
+    if n > 1 and ref["differing"] == 0:
+        _fail(f"phase 12 {tag}: at none of the {ref['calls']} MoE calls "
+              f"does the plan of the {n * sz.requests} requests differ from "
+              f"the {n} per-rank plans: the check tests nothing")
+    first = runs[0]
+    for r, got in enumerate(runs):
+        if got["tokens"].shape != (n * sz.requests, sz.tokens) \
+                or not (got["tokens"] == first["tokens"]).all() \
+                or not torch.equal(got["next"], first["next"]):
+            _fail(f"phase 12 {tag}: rank {r}'s gathered ids "
+                  f"{got['tokens'].shape} differ from rank 0's")
+        _check_serve_run(tag, r, got, sz, launches)
+    if not (first["tokens"] == ref["forced"]).all():
+        _fail(f"phase 12 {tag}: the card's reference followed other ids "
+              f"than the ranks generated")
+    st = moe_serve_stats(ref, runs)
+    far = [t for t in st["ties"] if t[2] > SERVE_KERNEL_VS_PLAIN]
+    if far:
+        _fail(f"phase 12 {tag}: {len(far)} generated id(s) one card serving "
+              f"all {n * sz.requests} requests on the ranks' path would not "
+              f"pick, by more than a near tie (request, step, margin over "
+              f"the largest logit; > {SERVE_KERNEL_VS_PLAIN}): {far[:6]}")
+    bad = [f for f in st["flips"] if f["input"] > SERVE_KERNEL_VS_PLAIN]
+    if bad or len(st["flips"]) + len(st["moved"]) == st["rows"]:
+        _fail(f"phase 12 {tag}: at the late step the expert choices of "
+              f"requests {[f['request'] for f in st['flips']]} differ from "
+              f"one card's (those whose MoE input differs by more than "
+              f"{SERVE_KERNEL_VS_PLAIN}: {bad[:4]}), and the kept choices "
+              f"of {st['moved']}")
+    if not st["late"] <= SERVE_KERNEL_VS_PLAIN \
+            or max(st["final"]) > SERVE_KERNEL_VS_PLAIN:
+        _fail(f"phase 12 {tag}: the late step's logits differ from one "
+              f"card's by {st['late']:.3e} of the largest over the requests "
+              f"whose routing agrees, each rank's final logits by "
+              f"{st['final']} (tolerance {SERVE_KERNEL_VS_PLAIN})")
+    return st
+
+
+def check_phase12_moe(ref: dict, parts: list, sz: ServeSizes,
+                      timed_sz: ServeSizes, launches: bool = True) -> dict:
+    """(vi)-(viii) on every rank, each check failing the run: (vi)
+    :func:`check_moe_serve`, and the timed run's ids gathered alike on
+    every rank and :func:`_check_serve_run`; (vii) rank 0's losses within
+    :data:`RANK_MOE_LOSS` of one card's, its grad norms and first
+    gradients within :data:`TRAIN_CARD_VS_CPU`, its parameters within
+    :data:`RANK_TRAIN_PARAM`; (vii) and (viii) every replica bitwise
+    rank 0's after every step (:func:`_check_replicas`), every loss
+    finite.  Returns (vi)'s stats (:func:`moe_serve_stats`)."""
+    n = len(parts)
+    out = check_moe_serve("(vi)", ref, [p["moe_serve"] for p in parts], sz,
+                          launches)
+    for r, p in enumerate(parts):
+        got = p["moe_timed"]
+        if got["gathered"] != parts[0]["moe_timed"]["gathered"] \
+                or got["shape"] != (n * timed_sz.requests, timed_sz.tokens):
+            _fail(f"phase 12 (vi) timed: rank {r}'s gathered ids "
+                  f"{got['shape']} differ from rank 0's")
+        _check_serve_run("(vi) timed", r, got, timed_sz, launches)
+    check = parts[0]["moe_check"]
+    if check["losses_err"] > RANK_MOE_LOSS \
+            or check["loss_err"] > TRAIN_CARD_VS_CPU \
+            or check["grad_err"] > TRAIN_CARD_VS_CPU \
+            or check["param_err"] > RANK_TRAIN_PARAM:
+        _fail(f"phase 12 (vii): {n} rank(s) against one card: losses "
+              f"{check['losses']} vs {check['one_losses']} (within "
+              f"{check['losses_err']:.3e} relative, tolerance "
+              f"{RANK_MOE_LOSS}; with the grad norms "
+              f"{check['loss_err']:.3e}), the first step's gradients "
+              f"within {check['grad_err']:.3e} of each leaf's largest "
+              f"(tolerance {TRAIN_CARD_VS_CPU}), the parameters within "
+              f"{check['param_err']:.3e} (tolerance {RANK_TRAIN_PARAM})")
+    for tag, key in (("(vii)", "moe_check"), ("(viii)", "moe_full")):
+        runs = [p[key] for p in parts]
+        if not np.isfinite(runs[0]["losses"]).all():
+            _fail(f"phase 12 {tag}: non-finite losses {runs[0]['losses']}")
+        _check_replicas(tag, runs)
+    return out
+
+
+def print_phase12_moe(ref: dict, parts: list, got: dict, sz: ServeSizes,
+                      timed_sz: ServeSizes, check_tz: TrainSizes,
+                      full_tz: TrainSizes, card: str) -> dict:
+    """(vi)-(viii)'s lines, each with the card's name and power limit.
+    Returns (vi)'s launch totals over the ranks for the kernels line."""
+    n = len(parts)
+    backend = parts[0]["backend"]
+    sv = [p["moe_serve"] for p in parts]
+    tv = [p["moe_timed"] for p in parts]
+    steps = len(tv[0]["secs"])
+    slow = [max(s["secs"][i] for s in tv) for i in range(steps)]
+    q, q0 = _quant(slow), _quant(parts[0]["moe_timed_here"])
+    flips = [(f["request"], f["layer"], f"{f['input']:.2e}",
+              f"{f['margin']:.2e}") for f in got["flips"][:4]]
+    print(f"phase 12 (vi) MoE serve across {n} {backend} rank(s): "
+          f"{sv[0]['name']} at full width, {sz.layers} layers, "
+          f"{sz.compute}, {sz.requests} requests a rank ({n * sz.requests} "
+          f"in all), {sz.prompt_len} prompt ids teacher-forced + "
+          f"{sz.tokens} generated, every MoE layer planning over all "
+          f"{n * sz.requests} requests, against one card serving all of them "
+          f"in one run on the ranks' path (their ids teacher-forced): the "
+          f"card's greedy pick at {got['generated'] - len(got['ties'])} of "
+          f"the {got['generated']} generated ids, near ties at the rest "
+          f"(largest margin "
+          f"{max([t[2] for t in got['ties']], default=0.0):.3e} of the "
+          f"largest logit, tolerance {SERVE_KERNEL_VS_PLAIN}; (request, "
+          f"step) {[t[:2] for t in got['ties'][:8]]}); final logits within "
+          f"{[f'{x:.3e}' for x in got['final']]} of the largest by rank; "
+          f"a late step from the ranks' own caches: {len(got['flips'])} "
+          f"request(s) flipped an expert choice ((request, layer, MoE input "
+          f"apart, router margin) {flips}), {len(got['moved'])} kept other "
+          f"choices because of them, the rest's logits within "
+          f"{got['late']:.3e}; MoE calls (layer-steps) whose global plan's "
+          f"kept set differs from the per-rank plans' {ref['differing']} of "
+          f"{ref['calls']} ({ref['dropping']} drop a choice); decode_attn "
+          f"{[s['loop_launches'] for s in sv]} loop launches a rank "
+          f"({sv[0]['n_attn']} a step, {[s['generic'] for s in sv]} "
+          f"generic); {card}")
+    print(f"phase 12 (vi) MoE serve timed across {n} {backend} rank(s): "
+          f"the same in {timed_sz.compute}: aot_cached 1 on every rank; "
+          f"decode_attn {[s['loop_launches'] for s in tv]} loop launches a "
+          f"rank ({tv[0]['n_attn']} a step, {[s['generic'] for s in tv]} "
+          f"generic), armatch {[s['launches']['armatch'] for s in tv]} a "
+          f"rank; {n * timed_sz.requests * steps / sum(slow):.1f} tokens/s "
+          f"over all ranks; step p50 {q[0]:.3f} ms, p99 {q[1]:.3f} ms (the "
+          f"slowest rank's; one card serving {timed_sz.requests} requests "
+          f"alone in rank 0's process p50 {q0[0]:.3f} ms, p99 "
+          f"{q0[1]:.3f} ms); {card}")
+    c = parts[0]["moe_check"]
+    print(f"phase 12 (vii) MoE train across {n} {backend} rank(s): "
+          f"{check_tz.arch}'s widths at {check_tz.layers} layers, "
+          f"{check_tz.compute} (TF32 off), {check_tz.steps} steps of "
+          f"{check_tz.batch * n} x {check_tz.seq} tokens ({check_tz.batch} "
+          f"rows a rank) in {check_tz.microbatches} microbatches at lr "
+          f"{check_tz.lr}, one MoE group a microbatch across the ranks: "
+          f"losses {c['losses']} against one card's {c['one_losses']} "
+          f"(within {c['losses_err']:.3e} relative, tolerance "
+          f"{RANK_MOE_LOSS}; with the grad norms {c['loss_err']:.3e}), the "
+          f"first step's gradients within {c['grad_err']:.3e} of each "
+          f"leaf's largest (tolerance {TRAIN_CARD_VS_CPU}), the parameters "
+          f"after {check_tz.steps} steps within {c['param_err']:.3e} "
+          f"(tolerance {RANK_TRAIN_PARAM}); every replica's parameters and "
+          f"moments bitwise rank 0's after every step; {card}")
+    print(_train_full_line("(viii) MoE", [p["moe_full"] for p in parts],
+                           full_tz, backend, card))
+    return {name: sum(s["launches"][name] for s in sv + tv)
+            for name in ("decode_attn", "armatch")}
 
 
 def phase12_mesh(n: int) -> tuple:
@@ -4783,11 +5281,15 @@ def run_ranks_phase(sz: Sizes, fz: FleetSizes, device, rows: list,
     _free()
     t_ref = time.perf_counter() - t0
     parts = M.spawn(_rank_phase, n, "cuda", sz, fz, n_ar, pod_data, False,
-                    (RANK_SERVE, RANK_TRAIN_CHECK, RANK_TRAIN_FULL))
+                    (RANK_SERVE, RANK_TRAIN_CHECK, RANK_TRAIN_FULL,
+                     RANK_MOE))
     t_ranks = time.perf_counter() - t0 - t_ref
     kept, ctl = check_phase12(refs, parts, fz, n_ar)
     models = [p["models"] for p in parts]
     check_phase12_models(refs["models"], models, RANK_SERVE)
+    refs["moe"] = phase12_moe_reference(           # on the ranks' path
+        RANK_MOE_SERVE, device, [p["moe_serve"] for p in models])
+    moe = check_phase12_moe(refs["moe"], models, *RANK_MOE[:2])
     per = fz.shards // n
     print(f"phase 12 ranks: {n} NCCL rank(s), one a card ({parts[0]['card']}"
           f"), started by launch.mesh.spawn over a FileStore; fleet mesh "
@@ -4840,6 +5342,9 @@ def run_ranks_phase(sz: Sizes, fz: FleetSizes, device, rows: list,
     totals.update(print_phase12_models(refs["models"], models, RANK_SERVE,
                                        RANK_TRAIN_CHECK, RANK_TRAIN_FULL,
                                        card))
+    for name, count in print_phase12_moe(refs["moe"], models, moe,
+                                         *RANK_MOE, card).items():
+        totals[name] += count
     seen = set()
     for row in rows:
         name = row["name"]

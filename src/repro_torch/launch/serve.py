@@ -24,8 +24,11 @@ requests are split by rank, as ``cache_shardings`` lays the decode
 batch over "data": every replica takes rank 0's parameters (broadcast
 once), rank r serves rows ``[r B / N, (r + 1) B / N)`` of the prompts
 with caches of B / N rows through its own registry and captured step,
-and one all-gather gives every rank all B rows of ids at the end.  A B
-that N does not divide replicates: every rank serves all of it.
+and one all-gather gives every rank all B rows of ids at the end.  An
+MoE layer plans over all B rows, as one process serving them would
+(one all-gather of its expert ids a step, inside the captured step:
+``steps.build_serve_step(split_requests=True)``).  A B that N does not
+divide replicates: every rank serves all of it, and plans on its own.
 Runs on the CUDA card unless the caller asks for the CPU.
 """
 from __future__ import annotations
@@ -111,7 +114,8 @@ def run(cfg, requests: int, prompt_len: int, tokens: int, *,
     # serverless front door: register the decode topology under a profile
     registry = FunctionRegistry(dev)
     registry.store_function(f"decode:{cfg.name}", P.profile("serve", cfg.name),
-                            steps_mod.build_serve_step(cfg, mesh=mesh))
+                            steps_mod.build_serve_step(
+                                cfg, mesh=mesh, split_requests=b < requests))
     interest = P.ProfileBuilder().add_single("serve").build()
     caches = T.init_caches(cfg, b, max_len, dev)
     lengths = torch.zeros((b,), dtype=torch.int32, device=dev)

@@ -9,15 +9,66 @@ tick are what they were without it.  On a ``DTensor`` inside a context
 it redistributes to the placements the template resolves to on the
 context's ``DeviceMesh``; while a ``launch.partition`` pass runs (the
 dry run's, on ``meta``) it moves the tensor's placement there.
+
+:func:`batch_split` is the one piece with no counterpart there: where
+a step hands each data rank its share of a batch (one process a rank),
+it tells the layers that plan over the whole batch -- the MoE dispatch
+-- which share this rank holds, as XLA's partitioning keeps the
+reference's whole-batch semantics on any mesh.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+from typing import NamedTuple
 
-from repro_torch.launch.mesh import axis_sizes
+from repro_torch.launch.mesh import (axis_sizes, data_group, data_rank,
+                                     dp_size)
 
 _CTX = contextvars.ContextVar("repro_torch_shard_ctx", default=None)
+
+
+class BatchSplit(NamedTuple):
+    """A batch split over the data ranks: rank ``rank`` of ``ranks``
+    (over the process group ``group``) holds the ``rank``-th of
+    ``ranks`` equal contiguous parts of every microbatch or decode step
+    (``sharding.batch_share``, ``serve.request_rows``)."""
+    group: object
+    rank: int
+    ranks: int
+
+
+def mesh_split(mesh) -> BatchSplit | None:
+    """The split of a batch over ``mesh``'s data ranks, ``None`` where
+    there is one data rank (or no process group behind the mesh)."""
+    group = data_group(mesh)
+    if group is None:
+        return None
+    return BatchSplit(group, data_rank(mesh), dp_size(mesh))
+
+
+#: the split in force (:func:`batch_split`).  Process-wide, not a context
+#: variable: the autograd engine recomputes a rematerialized layer on its
+#: own device thread, which sees no context variable of the caller's
+_SPLIT: list = [None]
+
+
+@contextlib.contextmanager
+def batch_split(split: BatchSplit | None):
+    """Within the block, the batch a layer sees is this rank's share of
+    ``split`` (``None``: the whole batch, as outside any block).  The
+    block must hold the backward pass too: a rematerialized layer plans
+    again there."""
+    prev, _SPLIT[0] = _SPLIT[0], split
+    try:
+        yield
+    finally:
+        _SPLIT[0] = prev
+
+
+def split() -> BatchSplit | None:
+    """The :class:`BatchSplit` in force, or ``None``."""
+    return _SPLIT[0]
 
 
 @contextlib.contextmanager

@@ -308,13 +308,22 @@ def shard_shape(shape: tuple, spec: tuple, mesh) -> tuple:
 
 def place(model, shardings: dict, mesh):
     """Lay ``model``'s parameters out by ``shardings`` on ``mesh``.  On
-    the host mesh (one rank) every shard is the whole tensor: the
-    parameters stay plain tensors where they are, and the kernels and
-    graph capture see them as they would without a mesh.  A layout that
-    would cut a parameter raises: it needs a mesh of more ranks."""
+    the host mesh every shard is the whole tensor: the parameters stay
+    plain tensors where they are, and the kernels and graph capture see
+    them as they would without a mesh.  The data ranks are replicas, so
+    an entry naming a data axis (Kimi-K2's experts, ZeRO-style over
+    "data") holds the whole tensor on every rank.  A layout that would
+    cut a parameter over "model" raises: it needs a mesh of more
+    ranks."""
+    dp = set(dp_axes(mesh))
+
+    def model_only(e):
+        axes = () if e is None else e if isinstance(e, tuple) else (e,)
+        axes = tuple(a for a in axes if a not in dp)
+        return entry(axes) if axes else None
     for name, p in model.named_parameters():
-        if shard_shape(tuple(p.shape), shardings[name], mesh) \
-                != tuple(p.shape):
+        spec = tuple(model_only(e) for e in shardings[name])
+        if shard_shape(tuple(p.shape), spec, mesh) != tuple(p.shape):
             raise ValueError(f"{name}: spec {shardings[name]} cuts "
                              f"{tuple(p.shape)} on mesh {axis_sizes(mesh)}")
     return model

@@ -19,7 +19,10 @@ XLA runs the reference's step on its mesh: each rank takes its share of
 the global batch (``sharding.batch_share``), divides its microbatch
 losses by the global microbatch's label count, and the gradients are
 summed over "data" in place before AdamW, so every replica takes the
-same update.
+same update.  The train step, and a serve step told that the requests
+are split, run under ``shardctx.batch_split``: an MoE layer plans over
+the global microbatch or decode step, and its load-balance loss is
+this rank's share of the global one.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ import torch.distributed as dist
 
 from repro_torch import optim
 from repro_torch.launch import shardctx
-from repro_torch.launch.mesh import all_reduce_, data_group, dp_axes, dp_size
+from repro_torch.launch.mesh import all_reduce_, data_group, dp_axes
 from repro_torch.models import transformer as T
 from repro_torch.runtime.overlap import microbatched_grads
 
@@ -76,20 +79,18 @@ def build_train_step(cfg, opt_cfg: optim.AdamWConfig | None = None, *,
     ``batch`` is this rank's share of a global batch
     (``sharding.batch_share``): microbatch m's losses are divided by its
     count of labels >= 0 over all ranks (one all-reduce of the K
-    counts), the gradients are summed over "data"
-    (:func:`sum_gradients`) before ``optim.update``, and ``loss`` and
-    ``ce`` are the global batch's, equal on every rank, as is
-    ``grad_norm``.  An MoE config over N > 1 data ranks raises
-    ``NotImplementedError``."""
+    counts), an MoE layer plans over the global microbatch and adds
+    this rank's share of its load-balance loss (``shardctx.batch_split``,
+    ``models.moe``), the gradients are summed over "data"
+    (:func:`sum_gradients`) before ``optim.update``, and ``loss``,
+    ``ce`` and ``aux`` (the last microbatch's, as the reference's
+    ``microbatched_grads`` returns it) are the global batch's, equal on
+    every rank, as is ``grad_norm``."""
     opt_cfg = opt_cfg or optim.AdamWConfig(
         moment_dtype=cfg.param_dtype if cfg.param_dtype == torch.bfloat16
         else torch.float32)
     group = data_group(mesh)
-    if group is not None and cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training over {dp_size(mesh)} data ranks needs "
-            "the Switch aux loss's me and fe all-reduced over 'data'; see "
-            "ROADMAP.md (the MoE item of section 1)")
+    split = shardctx.mesh_split(mesh)
     k = num_microbatches
 
     def loss(m, b):
@@ -106,11 +107,12 @@ def build_train_step(cfg, opt_cfg: optim.AdamWConfig | None = None, *,
         def share_loss(m, b):       # the K microbatches come in order
             return T.loss_fn(cfg, m, b, count=next(counts))
 
-        l, aux, grads = microbatched_grads(share_loss, model, batch, k)
+        with shardctx.batch_split(split):
+            l, aux, grads = microbatched_grads(share_loss, model, batch, k)
         sum_gradients(grads, group)
-        both = all_reduce_(torch.stack([l, aux["ce"]]), dist.ReduceOp.SUM,
-                           group)
-        return both[0], {**aux, "ce": both[1]}, grads
+        every = all_reduce_(torch.stack([l, aux["ce"], aux["aux"]]),
+                            dist.ReduceOp.SUM, group)
+        return every[0], {"ce": every[1], "aux": every[2]}, grads
 
     def train_step(model, opt_state, batch):
         with _activation_ctx(cfg, mesh, sequence_shard):
@@ -138,12 +140,18 @@ def build_prefill_step(cfg, *, mesh=None, sequence_shard: bool = False):
     return prefill_step
 
 
-def build_serve_step(cfg, *, mesh=None):
+def build_serve_step(cfg, *, mesh=None, split_requests: bool = False):
     """(model, tokens [B, 1], caches, lengths [B]) -> (logits [B, V],
     caches, lengths + 1); the caches and recurrent states are written in
     place.  ``mesh`` is taken and not entered: the reference measured
-    its split-KV constraints slower than unconstrained decode."""
+    its split-KV constraints slower than unconstrained decode.  With
+    ``split_requests`` the B rows are this rank's share of the requests
+    split over ``mesh``'s data ranks (``serve.request_rows``): the step
+    enters ``shardctx.batch_split`` alone, so that an MoE layer plans
+    over every rank's rows (one all-gather a layer, inside the step)."""
+    split = shardctx.mesh_split(mesh) if split_requests else None
+
     def serve_step(model, tokens, caches, lengths):
-        with torch.inference_mode():
+        with torch.inference_mode(), shardctx.batch_split(split):
             return T.decode_step(cfg, model, tokens, caches, lengths)
     return serve_step

@@ -25,7 +25,8 @@ rank draws the same global batch and keeps its share
 device, the step sums the gradients over "data" before AdamW, the
 monitors count N ranks (each step's seconds all-gathered), and rank 0
 alone writes the checkpoints while the others wait.  The losses are the
-global batch's, equal on every rank.
+global batch's, equal on every rank; an MoE config's layers plan over
+the global microbatch and its load-balance loss is the global one.
 """
 from __future__ import annotations
 

@@ -21,6 +21,22 @@ Ties and order, against the reference:
 * the scatter-add is ``index_add_``, which on a CUDA tensor adds in no
   fixed order: at top-2 from zero the sum is exact whatever the order,
   at top-8 (Kimi-K2) it is not.
+
+Under a batch split over N data ranks (``shardctx.batch_split``: each
+rank holds the r-th of N contiguous parts of a microbatch or decode
+step), the layer plans over the global batch, as the reference's does
+on any mesh: the group count and capacity are those of the N x n_l
+global tokens, one all-gather of every rank's expert ids a call gives
+each rank the whole batch's plan (:func:`rank_plan`), and a choice is
+kept iff it is in the one-process plan.  A rank's buckets hold only its
+own kept choices, in the one-process bucket's order, at a local
+capacity of ``min(capacity, its most tokens in one group)``: no rank
+computes another's expert rows.  The load-balance loss is this rank's
+exact share of the global one: with ``fe`` (integer counts, no
+gradient) the global batch's, ``E sum_e me_e fe_e`` is linear in the
+router probabilities, so the ranks' shares sum to it and each share's
+gradient is the global loss's on this rank's tokens.  ``overflow_frac``
+and ``load_max`` are the global batch's.
 """
 from __future__ import annotations
 
@@ -32,6 +48,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.launch import shardctx
+from repro_torch.launch.mesh import all_gather
 from repro_torch.models import layers as L
 
 
@@ -126,11 +143,48 @@ def route(xt: torch.Tensor, router: torch.Tensor, k: int):
         expert_ids
 
 
+def rank_plan(dest: torch.Tensor, num_experts: int, groups: int, cap: int,
+              split: shardctx.BatchSplit) -> Plan:
+    """The global batch's plan, from this rank's choices ``dest``
+    ``[n_l * k]`` (token-major, this rank's tokens the ``split.rank``-th
+    contiguous part of the global batch): one all-gather of every rank's
+    ids (int32) over ``split.group``, :func:`dispatch_plan` of the
+    ``[groups, N n_l k / groups]`` whole.  ``pos`` and ``keep`` are cut
+    to this rank's choices (``[n_l * k]``); ``counts`` and ``overflow``
+    are the global ``[groups, E]``.  No host sync: the shapes are
+    static."""
+    nlk = dest.shape[0]
+    every = all_gather(dest.to(torch.int32), split.group).to(torch.int64)
+    plan = dispatch_plan(every.reshape(groups, -1), num_experts, cap)
+    lo = split.rank * nlk
+    return plan._replace(pos=plan.pos.reshape(-1)[lo:lo + nlk],
+                         keep=plan.keep.reshape(-1)[lo:lo + nlk])
+
+
+def _expert_ffn(p, buckets: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """The experts on their buckets ``[G, E, C, D]``: batched GEMMs in
+    the expert-parallel compute layout ("ep"/"cap")."""
+    buckets = shardctx.constrain(buckets, ("dp", "ep", "cap", None))
+    if cfg.gated:
+        h = F.silu(torch.einsum("gecd,edf->gecf", buckets, p["w_gate"])) \
+            * torch.einsum("gecd,edf->gecf", buckets, p["w_in"])
+    else:
+        h = L._gelu(torch.einsum("gecd,edf->gecf", buckets, p["w_in"]))
+    h = shardctx.constrain(h, ("dp", "ep", "cap", None))
+    return shardctx.constrain(torch.einsum("gecf,efd->gecd", h, p["w_out"]),
+                              ("dp", "ep", "cap", None))
+
+
 def moe_apply(p, x: torch.Tensor, cfg: MoEConfig,
               num_groups: int | None = None) -> tuple[torch.Tensor, dict]:
     """x: [B, T, D] -> ([B, T, D], stats: ``aux_loss``, ``overflow_frac``,
     ``load_max``).  Tokens are split into G contiguous groups (GShard
-    style), each with its own plan and capacity."""
+    style), each with its own plan and capacity.  Under a batch split
+    (``shardctx.split()``), ``x`` is this rank's share and G counts the
+    global batch's groups (:func:`_moe_split`)."""
+    split = shardctx.split()
+    if split is not None:
+        return _moe_split(p, x, cfg, split, num_groups)
     b, t, d = x.shape
     n = b * t
     e, k = cfg.num_experts, cfg.top_k
@@ -167,17 +221,7 @@ def moe_apply(p, x: torch.Tensor, cfg: MoEConfig,
     buckets = torch.gather(xt, 1, idx[..., None].expand(g, e * cap, d)) \
         .reshape(g, e, cap, d)
     buckets = buckets * kept[..., None].to(xt.dtype)         # [G, E, C, D]
-    # the expert-parallel compute layout ("ep"/"cap")
-    buckets = shardctx.constrain(buckets, ("dp", "ep", "cap", None))
-    if cfg.gated:
-        h = F.silu(torch.einsum("gecd,edf->gecf", buckets, p["w_gate"])) \
-            * torch.einsum("gecd,edf->gecf", buckets, p["w_in"])
-    else:
-        h = L._gelu(torch.einsum("gecd,edf->gecf", buckets, p["w_in"]))
-    h = shardctx.constrain(h, ("dp", "ep", "cap", None))
-    expert_out = shardctx.constrain(
-        torch.einsum("gecf,efd->gecd", h, p["w_out"]),
-        ("dp", "ep", "cap", None))
+    expert_out = _expert_ffn(p, buckets, cfg)
     weighted = expert_out * (gates * kept)[..., None].to(expert_out.dtype)
     rows = (idx + torch.arange(g, device=dev)[:, None] * ng).reshape(-1)
     out = torch.zeros((g * ng, d), dtype=x.dtype, device=dev).index_add_(
@@ -190,6 +234,73 @@ def moe_apply(p, x: torch.Tensor, cfg: MoEConfig,
 
     stats = {
         "aux_loss": aux_loss,
+        "overflow_frac": torch.sum(plan.overflow) / (n * k),
+        "load_max": torch.max(plan.counts) / cap,
+    }
+    return out.reshape(b, t, d), stats
+
+
+def _moe_split(p, x: torch.Tensor, cfg: MoEConfig,
+               split: shardctx.BatchSplit,
+               num_groups: int | None) -> tuple[torch.Tensor, dict]:
+    """:func:`moe_apply` on this rank's share ``x`` ``[b, T, D]`` of a
+    global batch of N x b rows: the global plan (:func:`rank_plan`), and
+    buckets ``[S, E, C_l, D]`` of this rank's own kept choices, one
+    segment for each global group its tokens touch (a rank's tokens may
+    fill whole groups, share one group with other ranks, or both), each
+    choice at its rank among this rank's choices of its segment and
+    expert.  ``stats["aux_loss"]`` is this rank's share of the global
+    loss; the other stats are the global batch's."""
+    b, t, d = x.shape
+    nl = b * t
+    n = split.ranks * nl
+    e, k = cfg.num_experts, cfg.top_k
+    g = num_groups or _pick_groups(n)
+    ng = n // g
+    cap = capacity(cfg, ng)
+    dev = x.device
+    xt = x.reshape(nl, d)
+
+    probs, gate_vals, expert_ids = route(xt[None], p["router"], k)
+    dest = expert_ids.reshape(nl * k)
+    plan = rank_plan(dest, e, g, cap, split)
+
+    # this rank's tokens [lo, lo + nl) of the global batch, by group
+    lo = split.rank * nl
+    first = lo // ng
+    segs = (lo + nl - 1) // ng - first + 1
+    longest = max(min(lo + nl, (first + s + 1) * ng)
+                  - max(lo, (first + s) * ng) for s in range(segs))
+    cl = min(cap, longest)          # a token picks an expert at most once
+    seg = (torch.arange(lo, lo + nl, device=dev) // ng - first) \
+        .repeat_interleave(k)
+    key = seg * e + dest                                     # [n_l k]
+    local = dispatch_plan(key[None], segs * e, cl).pos[0]    # rank in key
+    slot = torch.where(plan.keep, key * cl + local, segs * e * cl)
+
+    def to_slots(values, dtype):
+        flat = torch.zeros(segs * e * cl + 1, dtype=dtype, device=dev)
+        return flat.scatter_(0, slot, values.to(dtype))[:segs * e * cl]
+
+    tok_idx = torch.arange(nl, device=dev).repeat_interleave(k)
+    idx = to_slots(tok_idx, torch.int64)                     # [S*E*C_l]
+    kept = to_slots(plan.keep, torch.bool).reshape(segs, e, cl)
+    gates = to_slots(gate_vals.reshape(nl * k), torch.float32) \
+        .reshape(segs, e, cl)
+    buckets = xt[idx].reshape(segs, e, cl, d) * kept[..., None].to(xt.dtype)
+    expert_out = _expert_ffn(p, buckets, cfg)
+    weighted = expert_out * (gates * kept)[..., None].to(expert_out.dtype)
+    out = torch.zeros((nl, d), dtype=x.dtype, device=dev).index_add_(
+        0, idx, weighted.reshape(segs * e * cl, d).to(x.dtype))
+    if cfg.num_shared_experts:
+        out = out + L.ffn_apply("swiglu" if cfg.gated else "gelu",
+                                p["shared"], xt)
+
+    # E sum_e me_e fe_e, me this rank's share of the global mean
+    fe = torch.mean((plan.counts + plan.overflow).float(), dim=0) / ng
+    me = torch.sum(probs[0], dim=0) / n
+    stats = {
+        "aux_loss": cfg.router_aux_weight * e * torch.sum(me * fe),
         "overflow_frac": torch.sum(plan.overflow) / (n * k),
         "load_max": torch.max(plan.counts) / cap,
     }

@@ -894,7 +894,42 @@ def test_phase12_control_and_remesh_over_two_gloo_ranks(smoke, monkeypatch,
             smoke.check_phase12_control(refs, bad, fz, launches=False)
 
 
-def test_phase12_models_over_two_gloo_ranks(smoke, monkeypatch, capsys):
+#: (vi)-(viii) rehearsed at Kimi-K2's smoke config (E 8 top-2, a shared
+#: expert): at 16 requests a rank, 4 of its 14 MoE calls plan the 32
+#: global tokens otherwise than each rank's 16 would (Mixtral's smoke
+#: config, E 4, needs 64 a rank for any)
+MOE_SIZES = dict(arch="kimi_k2_1t_a32b", smoke=True)
+
+
+@pytest.fixture(scope="module")
+def phase12_models(smoke):
+    """Phase 12's (iii)-(viii) over 2 gloo ranks (one spawn of
+    ``_rank_models_phase``) and the one-card references in this process:
+    (sizes, (iii)'s references, (vi)'s, the ranks' records)."""
+    from repro_torch.launch import mesh as M
+    sv = smoke.ServeSizes(requests=2, prompt_len=4, tokens=3,
+                          compute="float32", smoke=True)
+    check = smoke.TrainSizes(steps=2, batch=2, seq=16, microbatches=2,
+                             compute="float32", lr=2e-3, smoke=True)
+    full = smoke.TrainSizes(steps=3, batch=2, seq=16, microbatches=2,
+                            smoke=True)
+    moe = (smoke.ServeSizes(requests=16, prompt_len=4, tokens=3,
+                            compute="float32", **MOE_SIZES),
+           smoke.ServeSizes(requests=16, prompt_len=4, tokens=3,
+                            **MOE_SIZES),
+           check._replace(**MOE_SIZES), full._replace(**MOE_SIZES))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "chip_smoke", smoke)
+        mp.syspath_prepend(str(ROOT))
+        refs = smoke.phase12_model_references(sv, "cpu", 2)
+        parts = M.spawn(smoke._rank_models_phase, 2, "cpu", sv, check, full,
+                        moe)
+    moe_ref = smoke.phase12_moe_reference(
+        moe[0], "cpu", [p["moe_serve"] for p in parts])
+    return (sv, check, full, moe), refs, moe_ref, parts
+
+
+def test_phase12_models_over_two_gloo_ranks(smoke, phase12_models, capsys):
     """Phase 12's (iii)-(v) at Yi-6B's smoke config over 2 gloo ranks
     (``launch.mesh.spawn`` of ``_rank_models_phase``) against one card in
     this process: each rank's served rows equal to one card serving them,
@@ -902,17 +937,7 @@ def test_phase12_models_over_two_gloo_ranks(smoke, monkeypatch, capsys):
     parameters against one card and every replica equal after every
     step, every check but the launch counts; then a rank whose replica
     digest, served ids or gathered ids differ fails the check."""
-    from repro_torch.launch import mesh as M
-    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)
-    monkeypatch.syspath_prepend(str(ROOT))
-    sv = smoke.ServeSizes(requests=2, prompt_len=4, tokens=3,
-                          compute="float32", smoke=True)
-    check = smoke.TrainSizes(steps=2, batch=2, seq=16, microbatches=2,
-                             compute="float32", lr=2e-3, smoke=True)
-    full = smoke.TrainSizes(steps=3, batch=2, seq=16, microbatches=2,
-                            smoke=True)
-    refs = smoke.phase12_model_references(sv, "cpu", 2)
-    parts = M.spawn(smoke._rank_models_phase, 2, "cpu", sv, check, full)
+    (sv, check, full, _), refs, _, parts = phase12_models
     smoke.check_phase12_models(refs, parts, sv, launches=False)
     assert [p["serve"]["shape"] for p in parts] == [(4, 3)] * 2
     assert parts[0]["train_check"]["loss_err"] <= smoke.TRAIN_CARD_VS_CPU
@@ -947,3 +972,72 @@ def test_phase12_models_over_two_gloo_ranks(smoke, monkeypatch, capsys):
             bad[0]["serve"]["gathered"] = bad[0]["serve"]["gathered"][::-1]
         with pytest.raises(RuntimeError, match=match):
             smoke.check_phase12_models(refs, bad, sv, launches=False)
+
+
+def test_phase12_moe_over_two_gloo_ranks(smoke, phase12_models, capsys):
+    """Phase 12's (vi)-(viii) at Kimi-K2's smoke config over 2 gloo
+    ranks: one card serving all 32 requests in one run on the ranks'
+    path picks every id they generated (float32 on the CPU: no near
+    tie), some MoE call's global plan differs from the per-rank plans,
+    the late step's routing and logits agree, the MoE train check
+    against one card and every replica equal after every step, every
+    check but the launch counts; the lines name the backend and the card
+    line.  An MoE size for (iii)'s per-rank reference raises."""
+    (sv, _, _, moe), _, ref, parts = phase12_models
+    assert ref["differing"] > 0 and ref["calls"] == 2 * 7
+    got = smoke.check_phase12_moe(ref, parts, *moe[:2], launches=False)
+    assert got["ties"] == [] and got["flips"] == [] and got["moved"] == []
+    assert got["generated"] == 32 * 3
+    assert max(got["final"]) <= smoke.SERVE_KERNEL_VS_PLAIN
+    assert got["late"] <= smoke.SERVE_KERNEL_VS_PLAIN
+    with pytest.raises(ValueError, match="MoE model"):
+        smoke.phase12_model_references(moe[0], "cpu", 2)
+    c = parts[0]["moe_check"]
+    assert c["losses_err"] <= smoke.RANK_MOE_LOSS
+    assert parts[0]["moe_serve"]["tokens"].shape == (32, 3)
+    smoke.print_phase12_moe(ref, parts, got, *moe, "CPU rehearsal")
+    out = capsys.readouterr().out
+    for tag in ("(vi) MoE serve", "(vii) MoE train", "(viii) MoE train"):
+        assert f"phase 12 {tag} across 2 gloo" in out, tag
+    assert all("CPU rehearsal" in l for l in out.splitlines()
+               if l.startswith("phase 12"))
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("rank ids", "rank 1's gathered ids"),
+    ("ids", "would not pick, by more than a near tie"),
+    ("same plans", "tests nothing"),
+    ("logits", "the late step's logits differ"),
+    ("replica", "\\(viii\\): rank 1's replica differs"),
+])
+def test_phase12_moe_check_fails_on_a_broken_rank(smoke, phase12_models,
+                                                  fault, match):
+    """(vi)'s check fails on a rank whose ids differ from rank 0's, on
+    ids one card would not pick (every rank's gathered ids changed at
+    one step, and the card's reference taken on them), on late logits off by more than the tolerance, and
+    when no MoE call's global plan differs from the per-rank plans (the
+    check would test nothing); (viii)'s on a replica that differs."""
+    (_, _, _, moe), _, ref, parts = phase12_models
+    bad = [dict(p, moe_serve=dict(p["moe_serve"]),
+                moe_full=dict(p["moe_full"])) for p in parts]
+    if fault == "rank ids":
+        tokens = bad[1]["moe_serve"]["tokens"].copy()
+        tokens[5, 2] = (tokens[5, 2] + 1) % 256
+        bad[1]["moe_serve"]["tokens"] = tokens
+    elif fault == "ids":            # every rank's step 2, every request,
+        tokens = bad[0]["moe_serve"]["tokens"].copy()   # the card on them
+        tokens[:, 2] = (tokens[:, 2] + 97) % 256
+        for part in bad:
+            part["moe_serve"]["tokens"] = tokens
+        ref = smoke.phase12_moe_reference(
+            moe[0], "cpu", [p["moe_serve"] for p in bad])
+    elif fault == "same plans":
+        ref = dict(ref, differing=0)
+    elif fault == "logits":
+        bad[0]["moe_serve"]["late"] = bad[0]["moe_serve"]["late"] * 1.2
+    else:
+        digests = [list(d) for d in bad[1]["moe_full"]["digests"]]
+        digests[2][0] += 1
+        bad[1]["moe_full"]["digests"] = digests
+    with pytest.raises(RuntimeError, match=match):
+        smoke.check_phase12_moe(ref, bad, *moe[:2], launches=False)
