@@ -1391,7 +1391,7 @@ def time_serve_kernel(sv: dict, errs: dict) -> dict:
     from repro_torch.kernels import checks, cost
     from repro_torch.kernels.decode_attn import decode_attention, \
         decode_attn_ref
-    from repro_torch.kernels.decode_attn.ops import plan_for
+    from repro_torch.kernels.decode_attn.ops import kernel_attrs, plan_for
     cfg, res = sv["cfg"], sv["res"]
     last = attn_caches(cfg, res.caches)[-1]
     kc, vc = last["k"], last["v"]
@@ -1415,6 +1415,7 @@ def time_serve_kernel(sv: dict, errs: dict) -> dict:
     tol = checks.DECODE_ATTN_TOL[kc.dtype]
     checks.max_err_within(library(), plain(), tol, "SDPA yardstick vs plain")
     how = plan_for(q, kc, vc, hkv)
+    attrs = kernel_attrs(q.dtype, d, g, how)
     junk = torch.ones(48 << 20, device=kc.device)     # 192 MB, > L2
 
     def kernel():
@@ -1446,15 +1447,18 @@ def time_serve_kernel(sv: dict, errs: dict) -> dict:
                     ("after a 192 MB read (L2 cold)", cold)):
         print(f"decode_attn {name} at {cfg.name} [{b} x {s} x {hkv} x "
               f"{d}], G {g}: instance {how.instance}, n_split "
-              f"{how.n_split}, scratch 0 bytes in device memory (the splits "
-              f"fold in the cluster's shared memory); kernel "
+              f"{how.n_split}, {attrs['warps']} warps a block, "
+              f"{attrs['registers']} registers and {attrs['local_bytes']} "
+              f"local (spill) bytes a thread, {attrs['smem_bytes']} bytes "
+              f"of shared memory a block, scratch 0 bytes in device memory "
+              f"(the splits fold in the cluster's shared memory); kernel "
               f"{r['ms'][0] * 1e3:.3f} us = {nbytes / r['ms'][0] / 1e6:.1f} "
               f"GB/s, {row['bound_ms'] / r['ms'][0]:.4f} of the "
               f"{row['bound_ms'] * 1e3:.3f} us bound; SDPA "
               f"{r['library_ms'][0] * 1e3:.3f} us; plain "
               f"{r['plain_ms'][0] * 1e3:.3f} us")
     row.update(serve=cfg.name, shape=[b, h, hkv, d, s],
-               instance=how.instance, n_split=how.n_split,
+               instance=how.instance, n_split=how.n_split, **attrs,
                cold_ms=cold["ms"][0], cold_plain_ms=cold["plain_ms"][0],
                cold_library_ms=cold["library_ms"][0])
     return row
@@ -1481,7 +1485,7 @@ def _profile(tag: str, steps: int, unit: str, fn,
     for e in dev:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    own = ""
+    own, mine = "", 0.0
     if kernel is not None:
         mine = sum(d for n, d in by_name.items()
                    if _base_name(n).startswith(kernel))
@@ -1493,7 +1497,7 @@ def _profile(tag: str, steps: int, unit: str, fn,
           + "; ".join(f"{n[:60]} {d / steps:.1f} us/{unit}"
                       for n, d in top))
     return dict(busy_share=busy / wall, ops=len(dev) / steps,
-                busy_ms=busy * 1e3 / steps)
+                busy_ms=busy * 1e3 / steps, kernel_us=mine / steps)
 
 
 def profile_ticks(sz: Sizes, device, ticks=8) -> None:
@@ -1525,17 +1529,17 @@ def profile_ar(sz: ARSizes, ar: dict, steps=8) -> None:
     _profile("ar", steps, "step", step, kernel="armatch_kernel")
 
 
-def profile_serve(sv: dict, steps=8, tag="serve") -> None:
+def profile_serve(sv: dict, steps=8, tag="serve") -> dict:
     """Where a decode step's time goes, over ``steps`` more steps from
     the run's final state (the ring cache wraps to its first row),
-    through the run's captured step (replays)."""
+    through the run's captured step (replays); ``_profile``'s record."""
     res = sv["res"]
     box = [res.logits, res.lengths]
 
     def one(i):
         tok = torch.argmax(box[0], dim=-1).to(torch.int32)[:, None]
         box[0], _, box[1] = res.step(res.model, tok, res.caches, box[1])
-    _profile(tag, steps, "step", one, kernel="decode_attn_")
+    return _profile(tag, steps, "step", one, kernel="decode_attn_")
 
 
 def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
@@ -1722,7 +1726,14 @@ def run_families(rg_sz: ServeSizes, device, errs: dict) -> dict:
     print(f"phase 6 serve path: {_serve_line(rg_sz, rg, small)}")
     print_serve(f"serve {rg['cfg'].name}", rg_sz, rg)
     row = time_serve_kernel(rg, errs)
-    profile_serve(rg, tag="serve_rg")
+    prof = profile_serve(rg, tag="serve_rg")
+    p50 = float(np.quantile(np.asarray(rg["res"].secs), 0.5))
+    print(f"phase 6 {rg['cfg'].name} step: graphed p50 {p50 * 1e3:.3f} ms "
+          f"over {len(rg['res'].secs)} steps; decode_attn "
+          f"({rg['instance']}, {rg['n_attn']} launches a step) "
+          f"{prof['kernel_us']:.3f} us a step device (profiled), "
+          f"{prof['kernel_us'] * 1e-3 / (p50 * 1e3):.4f} of the p50")
+    row.update(step_p50_ms=p50 * 1e3, step_us=prof["kernel_us"])
     del rg
     _free()
     for sz in (RWKV_FULL, MIXTRAL_FULL):

@@ -30,8 +30,8 @@ from repro_torch.core import profiles as P
 from repro_torch.kernels.armatch import armatch, armatch_ref
 from repro_torch.kernels.armatch.ops import plan as armatch_plan
 from repro_torch.kernels.decode_attn import decode_attention, decode_attn_ref
-from repro_torch.kernels.decode_attn.ops import (SUB_ROWS, plan_for,
-                                                 split_starts, warps)
+from repro_torch.kernels.decode_attn.ops import (plan_for, split_starts,
+                                                 unit_rows)
 from repro_torch.kernels.fused_tick import fused_tick, fused_tick_ref
 from repro_torch.kernels.hilbert import hilbert_xy2d, hilbert_xy2d_ref
 from repro_torch.kernels.window_reduce import (sliding_reduce,
@@ -391,30 +391,43 @@ DECODE_ATTN_SHAPES = ((2, 8, 4, 64, 1024), (1, 7, 7, 128, 512),
                       (1, 4, 2, 32, 100))
 #: (b, h, hkv, d, s) of the configurations' other head shapes, G 1, 6
 #: and 7 at D 128 and 64, the smoke configs' D 16, and D 256 (the bf16
-#: instance with 4 warps; float32 takes the generic one); S ragged
-#: around the split size
+#: D 256 instance, the second case with splits longer than its ring;
+#: float32 takes the generic one); S ragged around the split size
 DECODE_ATTN_HEADS = ((2, 4, 4, 128, 600), (2, 12, 2, 128, 530),
                      (2, 14, 2, 128, 300), (2, 8, 8, 64, 700),
                      (3, 12, 2, 64, 513), (2, 7, 1, 64, 257),
-                     (3, 16, 2, 16, 700), (1, 8, 2, 256, 300))
+                     (3, 16, 2, 16, 700), (1, 8, 2, 256, 300),
+                     (4, 8, 8, 256, 1000))
 #: float32: the kernel and the plain version sum in other orders;
 #: bfloat16: the reference's own tolerance (outputs rounded to bf16,
 #: whose ulp near 1 is 7.8e-3)
 DECODE_ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.5e-2}
 
 
-def split_edge_lengths(b: int, s: int, n_split: int,
-                       unit: int) -> torch.Tensor:
+def split_edge_lengths(b: int, s: int, n_split: int, unit: int,
+                       part: int = 0) -> torch.Tensor:
     """[b] int32 lengths on the kernel's split edges: 0, 1, the whole
     cache and one row less, then each split's first row less one, itself
     and one more (:func:`split_starts`), then a unit's edges; in turn,
-    clamped to [0, s]."""
-    starts = split_starts(s, n_split, unit)[1:-1]
-    edges = [0, 1, s, s - 1, *(x for st in starts
-                                for x in (st - 1, st, st + 1)),
-             unit - 1, unit, unit + 1]
-    return torch.tensor([min(max(edges[i % len(edges)], 0), s)
+    clamped to [0, s].  ``part`` p starts at the cycle's edge p x b, so
+    that parts 0 .. :func:`edge_parts` - 1 between them put a length at
+    every edge."""
+    edges = _split_edges(s, n_split, unit)
+    return torch.tensor([min(max(edges[(i + part * b) % len(edges)], 0), s)
                          for i in range(b)], dtype=torch.int32)
+
+
+def _split_edges(s: int, n_split: int, unit: int) -> list[int]:
+    starts = split_starts(s, n_split, unit)[1:-1]
+    return [0, 1, s, s - 1, *(x for st in starts
+                              for x in (st - 1, st, st + 1)),
+            unit - 1, unit, unit + 1]
+
+
+def edge_parts(b: int, s: int, n_split: int, unit: int) -> int:
+    """Calls of ``b`` rows that :func:`split_edge_lengths` needs to put a
+    length at every edge."""
+    return -(-len(_split_edges(s, n_split, unit)) // b)
 
 
 def max_err_within(a, b, tol: float, what: str) -> float:
@@ -437,7 +450,8 @@ def check_decode_attn(device, *serve) -> float:
     tensors, and against the CPU, in float32 and bfloat16, within
     :data:`DECODE_ATTN_TOL`: at each ``serve`` shape ``(b, h, hkv, d,
     s)`` (a serve step's full cache) with every row full but a length-0
-    one, and with :func:`split_edge_lengths`; at
+    one, and with :func:`split_edge_lengths` (:func:`edge_parts` calls,
+    which between them put a length at every split edge); at
     :data:`DECODE_ATTN_SHAPES` and :data:`DECODE_ATTN_HEADS` with random
     lengths; on a strided cache view that keeps 16-byte rows, and on
     one that does not.  Each call must launch the instance that
@@ -464,58 +478,74 @@ def check_decode_attn(device, *serve) -> float:
             lengths = torch.randint(1, s + 1, (b,), generator=gen,
                                     device=dev, dtype=torch.int32)
             how = plan_for(q, k, v, hkv)
+            rounds = [lengths]
             if kind == "full":
                 lengths.fill_(s)
-            elif kind == "edges":
-                lengths = split_edge_lengths(
-                    b, s, how.n_split, SUB_ROWS * warps(dtype, d)).to(dev)
-            lengths[0] = 0 if kind != "ragged" else lengths[0]
-            what = f"decode_attn {dtype} {(b, h, hkv, d, s)} {kind}"
-            wide_f32 = dtype == torch.float32 and d > 128
-            if (how.instance == "generic") != (kind == "unaligned"
-                                               or wide_f32):
-                raise AssertionError(f"{what}: planned {how}")
-            fast = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_d{d}"
-            if kind in ("full", "edges") and not wide_f32 \
-                    and how.instance != fast:
-                raise AssertionError(f"{what}: planned {how}, want {fast}")
-            generic = decode_attention.generic_launches
-            out = _counted(lambda: decode_attention(q, k, v, lengths,
-                                                    num_kv_heads=hkv),
-                           decode_attention, q, what)
-            want = int(q.is_cuda and how.instance == "generic")
-            rose = decode_attention.generic_launches - generic
-            if rose != want:
-                raise AssertionError(f"{what}: planned {how.instance}, "
-                                     f"generic launches rose by {rose}")
-            g = h // hkv
-            plain = decode_attn_ref(q.reshape(b, hkv, g, d), k.transpose(1, 2),
-                                    v.transpose(1, 2), lengths,
-                                    scale=1.0 / d ** 0.5).reshape(b, h, d)
-            if out.dtype != dtype or out.shape != (b, h, d):
-                raise AssertionError(f"{what}: {out.dtype} {out.shape}")
-            if kind != "ragged" and bool((out[0] != 0).any()):
-                raise AssertionError(f"{what}: a length-0 row is not zero")
-            again = _counted(lambda: decode_attention(q, k, v, lengths,
-                                                      num_kv_heads=hkv),
-                             decode_attention, q, f"{what} again")
-            if not torch.equal(again, out):
-                raise AssertionError(f"{what}: a second call on the same "
-                                     "inputs gives other bits")
-            held = [("kernel", "plain", plain)]
-            if dev.type == "cuda":
-                held.append(("card vs CPU", "cpu", decode_attention(
-                    q.cpu(), k.cpu(), v.cpu(), lengths.cpu(),
-                    num_kv_heads=hkv)))
-            for name, _, want in held:
-                try:
-                    err = max(err, max_err_within(out, want, tol,
-                                                  f"{what} {name}"))
-                except AssertionError as e:
-                    off = f64_errors(q, k, v, lengths, hkv, kernel=out,
-                                     **{side: w for _, side, w in held})
-                    raise AssertionError(f"{e}; largest difference of each "
-                                         f"from float64: {off}") from None
+            elif kind == "edges":       # as many calls as every edge needs
+                unit = unit_rows(dtype, d)
+                rounds = [split_edge_lengths(b, s, how.n_split, unit,
+                                             part).to(dev)
+                          for part in range(edge_parts(b, s, how.n_split,
+                                                       unit))]
+            for part, lengths in enumerate(rounds):
+                err = max(err, _check_decode_case(
+                    q, k, v, lengths, hkv, how, kind, part, tol))
+    return err
+
+
+def _check_decode_case(q, k, v, lengths, hkv: int, how, kind: str,
+                       part: int, tol: float) -> float:
+    """One call of :func:`check_decode_attn`: row 0 has length 0 but in
+    the ragged cases and the later parts of the split edges, where it
+    keeps its edge."""
+    (b, h, d), s, dtype, dev = q.shape, k.shape[1], q.dtype, q.device
+    zero_row = kind != "ragged" and part == 0
+    if zero_row:
+        lengths[0] = 0
+    what = f"decode_attn {dtype} {(b, h, hkv, d, s)} {kind}" \
+        + (f" (part {part})" if part else "")
+    wide_f32 = dtype == torch.float32 and d > 128
+    if (how.instance == "generic") != (kind == "unaligned" or wide_f32):
+        raise AssertionError(f"{what}: planned {how}")
+    fast = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_d{d}"
+    if kind in ("full", "edges") and not wide_f32 and how.instance != fast:
+        raise AssertionError(f"{what}: planned {how}, want {fast}")
+    generic = decode_attention.generic_launches
+    out = _counted(lambda: decode_attention(q, k, v, lengths,
+                                            num_kv_heads=hkv),
+                   decode_attention, q, what)
+    want = int(q.is_cuda and how.instance == "generic")
+    rose = decode_attention.generic_launches - generic
+    if rose != want:
+        raise AssertionError(f"{what}: planned {how.instance}, "
+                             f"generic launches rose by {rose}")
+    g = h // hkv
+    plain = decode_attn_ref(q.reshape(b, hkv, g, d), k.transpose(1, 2),
+                            v.transpose(1, 2), lengths,
+                            scale=1.0 / d ** 0.5).reshape(b, h, d)
+    if out.dtype != dtype or out.shape != (b, h, d):
+        raise AssertionError(f"{what}: {out.dtype} {out.shape}")
+    if zero_row and bool((out[0] != 0).any()):
+        raise AssertionError(f"{what}: a length-0 row is not zero")
+    again = _counted(lambda: decode_attention(q, k, v, lengths,
+                                              num_kv_heads=hkv),
+                     decode_attention, q, f"{what} again")
+    if not torch.equal(again, out):
+        raise AssertionError(f"{what}: a second call on the same "
+                             "inputs gives other bits")
+    held = [("kernel", "plain", plain)]
+    if dev.type == "cuda":
+        held.append(("card vs CPU", "cpu", decode_attention(
+            q.cpu(), k.cpu(), v.cpu(), lengths.cpu(), num_kv_heads=hkv)))
+    err = 0.0
+    for name, _, want in held:
+        try:
+            err = max(err, max_err_within(out, want, tol, f"{what} {name}"))
+        except AssertionError as e:
+            off = f64_errors(q, k, v, lengths, hkv, kernel=out,
+                             **{side: w for _, side, w in held})
+            raise AssertionError(f"{e}; largest difference of each "
+                                 f"from float64: {off}") from None
     return err
 
 

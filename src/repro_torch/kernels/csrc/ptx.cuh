@@ -1,9 +1,10 @@
 // Inline PTX for the kernels that stream tiles through shared memory and
 // multiply on the tensor cores (sm_80 and later; built for sm_90a):
 // cp.async 16-byte copies with zero fill and 4-byte copies, their
-// commit/wait groups, TMA bulk copies and their mbarriers, ldmatrix (plain
-// and transposed), movmatrix, the bf16 m16n8k16 MMA with float32
-// accumulators, and NaN-propagating max/min.
+// commit/wait groups or mbarrier arrivals, TMA bulk and tensor copies and
+// their mbarriers, ldmatrix (plain and transposed), movmatrix, the bf16
+// m16n8k16 MMA with float32 accumulators, asynchronous stores into
+// another block's shared memory, and NaN-propagating max/min.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,6 +35,21 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// one arrival on `bar` once every cp.async this thread has issued so far
+// has landed (the mbarrier's count includes this arrival)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+          smem_addr(bar))
+      : "memory");
+}
+
+// named barrier `id` (1 to 15; 0 is __syncthreads') of `threads` threads,
+// whole warps
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- bulk copies (the Tensor Memory Accelerator, sm_90) ------------------
@@ -77,6 +93,61 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
       "@!done bra WAIT;\n"
       "}\n" ::"r"(smem_addr(bar)),
       "r"(parity)
+      : "memory");
+}
+
+// one arrival on `bar`, announcing no bytes
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// the box at coordinates (c0 .. c4) of the 5-dimensional tensor map `map`
+// (a __grid_constant__ kernel parameter) from global to shared memory by
+// the TMA, in the map's layout and swizzle, completing on `bar`
+__device__ __forceinline__ void tma_load_5d(void* dst, const void* map, int c0,
+                                            int c1, int c2, int c3, int c4,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---- distributed shared memory (thread-block clusters, sm_90) -------------
+
+// the shared::cluster address of `p`'s place in the shared memory of the
+// cluster's block `rank`
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+
+// two or four floats into another block's shared memory (`addr`, 8- or
+// 16-byte aligned), the bytes completing on that block's mbarrier `bar`
+// (both shared::cluster addresses, cluster_addr)
+__device__ __forceinline__ void st_async_v2(uint32_t addr, float x, float y,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(addr),
+      "f"(x), "f"(y), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float4 v,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
       : "memory");
 }
 

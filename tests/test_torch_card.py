@@ -6,10 +6,11 @@ batch (hilbert) and its two match shapes (armatch) plus ragged ones;
 the Yi-6B and RecurrentGemma-2B serve steps' decode attention
 (decode_attn, to a stated tolerance, float32 and bfloat16) plus the
 reference's test shapes.  Then decode_attn's split clusters (1,000 calls
-of each fast instance at 2 and 4 splits, with length-0 rows, each
-bitwise the first), and the compile-once steps (``runtime.capture``)
-graphed against ``capture.disable()``, bitwise: the stream tick staged
-and fused, the fleet tick with masks and budgets changed after the
+of each fast instance at 2 and 4 splits, bf16 D 256 at 2, 3 and
+RecurrentGemma-2B's 6, with length-0 rows, each bitwise the first), and
+the compile-once steps (``runtime.capture``) graphed against
+``capture.disable()``, bitwise: the stream tick staged and fused, the
+fleet tick with masks and budgets changed after the
 capture, and the decode step the registry captures ahead of time; the
 replays count the launches eager makes.  Needs a CUDA card and
 ``nvcc``; skips without a card.  Imports no JAX, so it runs on the
@@ -69,35 +70,44 @@ class TestOnCard:
 
 # -- decode_attn's cluster start (fault A) -------------------------------------
 
-#: (dtype, d, b, h, hkv, s) of each fast instance at 2 and at 4 splits a
-#: (b, KV head): one block an SM splits 132 SMs over b x hkv, so 64
-#: (b, KV head) pairs give 2 splits and 32 give 4
-CLUSTER_CASES = [(dtype, d, b, hkv * g, hkv, 1088)
-                 for dtype, dims, g in ((torch.bfloat16, (16, 32, 64, 128, 256),
-                                         8),
-                                        (torch.float32, (16, 32, 64, 128), 8))
-                 for d in dims for b, hkv in ((16, 4), (8, 4))]
+#: (dtype, d, b, h, hkv, s, n_split) of each fast instance at 2 and at 4
+#: splits a (b, KV head): one block an SM splits 132 SMs over b x hkv, so
+#: 64 (b, KV head) pairs give 2 splits and 32 give 4; at bf16 D 256 the
+#: split count is the most whose clusters the card holds at once (an
+#: H100: 66 of 2, 39 of 3, 30 of 4, 17 of 6), so 32 pairs give 3, and
+#: RecurrentGemma-2B's serve cache (G 10, two n-tiles of 8 query rows)
+#: 6 of 16 pairs; the 2-split case's splits are longer than its ring
+CLUSTER_CASES = [*((dtype, d, b, hkv * g, hkv, 1088,
+                    2 if b * hkv == 64 else (3 if d == 256 else 4))
+                   for dtype, dims, g in (
+                       (torch.bfloat16, (16, 32, 64, 128, 256), 8),
+                       (torch.float32, (16, 32, 64, 128), 8))
+                   for d in dims for b, hkv in ((16, 4), (8, 4))),
+                 (torch.bfloat16, 256, *RG_SERVE_ATTN[:3],
+                  RG_SERVE_ATTN[4], 6)]
 CLUSTER_CALLS = 1000
 
 
-@pytest.mark.parametrize("dtype,d,b,h,hkv,s", CLUSTER_CASES,
+@pytest.mark.parametrize("dtype,d,b,h,hkv,s,n_split", CLUSTER_CASES,
                          ids=lambda v: str(v).replace("torch.", ""))
-def test_decode_attn_clusters_repeat_bitwise(card, dtype, d, b, h, hkv, s):
-    """Every block of a split cluster writes into the leader's shared
-    memory only after the whole cluster has started: 1,000 calls of each
-    fast instance at 2 and 4 splits, with length-0 rows and rows whose
-    length ends inside the first split, all give the first call's bits."""
+def test_decode_attn_clusters_repeat_bitwise(card, dtype, d, b, h, hkv, s,
+                                             n_split):
+    """Every block of a split cluster touches another's shared memory
+    only after the whole cluster has started: 1,000 calls of each fast
+    instance at 2 and 4 splits (bf16 D 256 at 2, 3 and RecurrentGemma's
+    6),
+    with length-0 rows and rows whose length ends inside the first
+    split, all give the first call's bits."""
     from repro_torch.kernels.decode_attn import decode_attention
-    from repro_torch.kernels.decode_attn.ops import (SUB_ROWS, plan_for,
-                                                     split_starts, warps)
+    from repro_torch.kernels.decode_attn.ops import (plan_for, split_starts,
+                                                     unit_rows)
     gen = torch.Generator(card).manual_seed(21)
     q = torch.randn((b, h, d), generator=gen, device=card).to(dtype)
     k, v = (torch.randn((b, s, hkv, d), generator=gen,
                         device=card).to(dtype) for _ in range(2))
     how = plan_for(q, k, v, hkv)
-    want = 2 if b * hkv == 64 else 4
-    assert how.instance != "generic" and how.n_split == want, how
-    unit = SUB_ROWS * warps(dtype, d)
+    assert how.instance != "generic" and how.n_split == n_split, how
+    unit = unit_rows(dtype, d)
     first = split_starts(s, how.n_split, unit)[1]
     pattern = [0, 1, 3, unit - 1, first - 1, 0, first // 2, s]
     lengths = torch.tensor([pattern[i % len(pattern)] for i in range(b)],

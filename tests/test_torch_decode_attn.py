@@ -231,9 +231,27 @@ def _strides(b, s, hkv, width):
     ("smoke D 16", (2, 4, 2, 16, 7, torch.bfloat16), ("bf16_d16", 1)),
     ("one unit", (1, 8, 1, 64, 64, torch.bfloat16), ("bf16_d64", 1)),
     ("a unit and one row", (1, 8, 1, 64, 65, torch.float32), ("f32_d64", 2)),
-    ("G 16, D 256", (1, 16, 1, 256, 300, torch.bfloat16), ("bf16_d256", 4)),
+    ("G 16, D 256", (1, 16, 1, 256, 300, torch.bfloat16), ("bf16_d256", 8)),
     ("recurrentgemma_2b serve", (16, 10, 1, 256, 1088, torch.bfloat16),
-     ("bf16_d256", 4)),
+     ("bf16_d256", 6)),
+    ("D 256, one tile", (16, 10, 1, 256, 16, torch.bfloat16),
+     ("bf16_d256", 1)),
+    ("D 256, a tile and one row", (16, 10, 1, 256, 17, torch.bfloat16),
+     ("bf16_d256", 2)),
+    ("D 256, a short cache", (16, 10, 1, 256, 40, torch.bfloat16),
+     ("bf16_d256", 3)),
+    ("D 256, a prompt's first rows", (16, 10, 1, 256, 100, torch.bfloat16),
+     ("bf16_d256", 6)),
+    ("D 256, 32 heads", (8, 40, 4, 256, 1088, torch.bfloat16),
+     ("bf16_d256", 3)),
+    ("D 256, 15 heads", (15, 10, 1, 256, 1088, torch.bfloat16),
+     ("bf16_d256", 8)),
+    ("D 256, 64 heads", (16, 40, 4, 256, 1088, torch.bfloat16),
+     ("bf16_d256", 2)),
+    ("D 256, a full wave of heads", (132, 10, 1, 256, 1088, torch.bfloat16),
+     ("bf16_d256", 1)),
+    ("D 256, more heads than SMs", (200, 10, 1, 256, 1088, torch.bfloat16),
+     ("bf16_d256", 1)),
     ("mixtral_8x7b serve", (16, 32, 8, 128, 96, torch.bfloat16),
      ("bf16_d128", 1)),
     ("a long cache, one head", (1, 8, 1, 128, 4096, torch.bfloat16),
@@ -291,6 +309,67 @@ def test_plan_gives_every_dense_config_a_fast_instance(arch):
     assert got.n_split == max(1, min(units, 8, 132 // (b * cfg.n_kv_heads)))
 
 
+@pytest.mark.parametrize("b,hkv", [(1, 1), (2, 2), (16, 1), (16, 4),
+                                   (33, 1), (66, 2), (132, 1), (512, 1)])
+@pytest.mark.parametrize("s", [1, 16, 17, 300, 1088, 4096, 32768])
+def test_every_d256_plan_fits_shared_memory(b, hkv, s):
+    """A mirror of the bf16 D 256 instance's shared-memory sum
+    (``D256Smem`` in the source: the ring, q, the block's partial, the
+    mbarriers) at every plan :func:`plan` returns for D 256: at most the
+    232,448 bytes a block may have, whatever the split count, which
+    stays within a cluster and a split a tile, and whose clusters the
+    card holds all at once."""
+    from repro_torch.kernels.decode_attn import ops
+    st = _strides(b, s, hkv, 256)
+    for g in (1, 8, 10, 16):
+        how = ops.plan(b, hkv * g, hkv, 256, s, st, st, torch.bfloat16)
+        assert how.instance == "bf16_d256"
+        assert 1 <= how.n_split <= min(ops.MAX_SPLITS, -(-s // 16))
+        assert b * hkv <= ops.H100_D256_CLUSTERS[how.n_split - 1] \
+            or how.n_split == 1
+        if how.n_split < min(ops.MAX_SPLITS, -(-s // 16)):
+            assert b * hkv > ops.H100_D256_CLUSTERS[how.n_split]
+    assert ops.d256_smem_bytes() == 159936 <= ops.SMEM_MAX == 232448
+
+
+def test_d256_constants_agree_with_the_source():
+    """The bf16 D 256 instance's warps, ring stages, most splits, tile
+    rows, tile and row layouts in ``csrc/decode_attn.cu`` are the wrapper's,
+    and the shared-memory sum the wrapper mirrors is the source's."""
+    import re
+    from pathlib import Path
+    from repro_torch.kernels.decode_attn import ops
+    src = (Path(ops.__file__).resolve().parents[1] / "csrc"
+           / "decode_attn.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert const("kD256Warps") == ops.D256_WARPS
+    assert const("kD256Stages") == ops.D256_STAGES
+    assert const("kMaxSplits") == ops.MAX_SPLITS
+    assert const("kSub") == ops.SUB_ROWS
+    assert const("kD256") == 256
+    # one tile a unit of the splits at bf16 D 256
+    assert "(d == kD256 ? kSub :" in src
+    row = 256 + int(re.search(r"kRow = kD256 \+ (\d+);", src)[1])
+    acc_row = 256 + int(re.search(r"kAccRow = kD256 \+ (\d+);", src)[1])
+    g, stages, sub = const("kMaxG"), const("kD256Stages"), const("kSub")
+    assert "kRed = sizeof(float) * 4 * 2 * kD256Warps * 2 * 32;" in src
+    assert "return 4 * ((kD256 / 4 + n - 1) / n);" in src      # d256_slice
+    splits = const("kMaxSplits")
+    inbox = 2 * splits * g + max(n * g * 4 * -(-64 // n)
+                                 for n in range(2, splits + 1))
+    assert "kTile = sizeof(__nv_bfloat16) * 2 * kSub * kD256;" in src
+    assert "kAlign = 1024;" in src
+    assert ops.d256_smem_bytes() == (1024 + stages * 2 * sub * 256 * 2
+                                     + g * row * 2 + 4 * g * (2 + acc_row)
+                                     + 8 * (stages + 2)
+                                     + 16 * 2 * const("kD256Warps") * 2 * 32
+                                     + 4 * inbox)
+    assert re.search(r"static_assert\(D256Smem::kBytes <= (\d+),",
+                     src)[1] == str(ops.SMEM_MAX)
+
+
 def test_plan_never_reads_lengths():
     """The plan's inputs are shapes, strides, dtype and alignment: no
     lengths, so the wrapper never reads a device value back."""
@@ -315,7 +394,28 @@ def test_splits_share_the_units_evenly():
 
 
 def test_split_edge_lengths_hit_the_split_edges():
-    from repro_torch.kernels.checks import split_edge_lengths
+    from repro_torch.kernels.checks import edge_parts, split_edge_lengths
     got = split_edge_lengths(16, 1088, 2, 128).tolist()
     assert got[:10] == [0, 1, 1088, 1087, 511, 512, 513, 127, 128, 129]
     assert split_edge_lengths(3, 64, 1, 64).tolist() == [0, 1, 64]
+    assert edge_parts(16, 1088, 2, 128) == 1
+
+
+def test_split_edge_lengths_reach_every_edge_of_the_d256_serve_plan():
+    """RecurrentGemma's serve cache at bf16 D 256: 8 splits in units of
+    one 16-row tile, 28 edges, so two calls of 16 rows; between them
+    they hold every split's first row, one less and one more."""
+    from repro_torch.kernels.checks import edge_parts, split_edge_lengths
+    from repro_torch.kernels.decode_attn.ops import (split_starts,
+                                                     unit_rows)
+    unit = unit_rows(torch.bfloat16, 256)
+    assert unit == 16
+    starts = split_starts(1088, 8, unit)
+    assert starts == [0, 128, 272, 400, 544, 672, 816, 944, 1088]
+    parts = edge_parts(16, 1088, 8, unit)
+    assert parts == 2
+    got = {x for p in range(parts)
+           for x in split_edge_lengths(16, 1088, 8, unit, p).tolist()}
+    want = {0, 1, 1087, 1088, 15, 16, 17,
+            *(x for st in starts[1:-1] for x in (st - 1, st, st + 1))}
+    assert got == want
