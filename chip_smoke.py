@@ -32,7 +32,14 @@ launch counts include the replays' and the warm-up's:
    reference's five test shapes, the configs' other head shapes (G 1,
    6, 7; D 16, 64, 128), a strided cache, an unaligned one (the
    generic instance) and length-0 rows, each call launching the
-   instance its plan names;
+   instance its plan names; and the tracer's mark, stage_mark
+   (``kernels.checks.check_stage_mark``), on a ring of the tracer's
+   shape, its calibration probe's and a ragged one, through more ticks
+   than the ring holds rows: the tags, the row count and the cells
+   written bitwise those of its plain version on a CPU copy, the times
+   in the marks' order, bad slots and rings refused; its launches
+   counted from 0 over the check join the kernels line with one mark's
+   device time (``check_marks``, ``time_stage_mark``);
 3. drive the single-device stream tick at full width -- D = 16 features,
    W = 64, S = 32, 65,536 rows a tick, a 2^22-row ring, the two rules
    and the tanh(h @ p) x8 core stand-in of ``benchmarks/streaming.py``
@@ -1235,6 +1242,38 @@ def _tick_shape(kernel: str, tag: str, fn, nbytes: int, a_tick: int,
     return out
 
 
+def check_marks(device) -> dict:
+    """Phase 2's stage_mark check (``checks.check_stage_mark``), the
+    kernel's launches counted from 0 over it."""
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.stage_mark import stage_mark
+    stage_mark.launches = 0
+    err = checks.check_stage_mark(device)
+    return {"max_abs_err": err, "launches": stage_mark.launches}
+
+
+def time_stage_mark(device, marks: dict) -> dict:
+    """The kernels line's stage_mark entry: one mark's device and wall
+    time into a ring of the tracer's shape, beside the launches of phase
+    2's check (``marks``).  A mark is one thread's two loads and one
+    store, so its launch bounds it; no plain version or library call
+    does its work on the card."""
+    from repro_torch.kernels.stage_mark import stage_mark
+    from repro_torch.obs.trace import RING_TICKS, RING_WIDTH
+    ring = torch.zeros((RING_TICKS + 1, RING_WIDTH), dtype=torch.int64,
+                       device=device)
+    ms = _timed(lambda: stage_mark(ring, 1), 200, "stage_mark",
+                kernel="stage_mark_kernel")
+    print(f"kernel stage_mark a call: {_us(ms)}, bound by its launch (one "
+          f"thread), launches {marks['launches']} (phase 2's check)")
+    return {"name": "stage_mark", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/stage_mark.cu",
+            "replaces": None, "launches": marks["launches"],
+            "max_abs_err": marks["max_abs_err"], "ms": ms[0],
+            "wall_ms": ms[1], "plain_ms": None, "bound_ms": None,
+            "bound_by": "launch", "library_ms": None}
+
+
 def time_kernels(sz: Sizes, device, results, errs):
     """window_reduce at each of the staged tick's five calls and
     fused_tick at the fused tick's call, each through the instance its
@@ -1572,6 +1611,12 @@ def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
     print(f"phase 2 kernels: bitwise equal to their plain versions, "
           f"decode_attn within {checks.DECODE_ATTN_TOL} (max abs err "
           f"{errs})")
+    marks = check_marks(device)
+    print(f"phase 2 stage_mark: tags, row counts and cells written equal "
+          f"to the plain version's on {len(checks.STAGE_MARK_RINGS)} rings "
+          f"{[(t + 1, w) for t, w, _ in checks.STAGE_MARK_RINGS]}, times in "
+          f"the marks' order, bad slots and rings refused; launches "
+          f"{marks['launches']}")
 
     results = run_paths(sz, device, assert_bitwise, assert_close)
     adm = run_admission(sz, device)
@@ -1623,6 +1668,7 @@ def run(sz: Sizes = FULL, ar_sz: ARSizes = AR_FULL,
     kernels = {"kernels": time_kernels(sz, device, results, errs)
                + time_ar_kernels(ar_sz, device, ar, errs)
                + [time_serve_kernel(sv, errs)]}
+    kernels["kernels"].append(time_stage_mark(device, marks))
     profile_ticks(sz, device)
     profile_ar(ar_sz, ar)
     profile_serve(sv)

@@ -12,7 +12,9 @@ one.  The AR checks take the
 routing step's batch (hilbert) and the data plane's two match shapes
 (armatch) and add ragged ones.  The decode check takes the serve
 step's cache shape, with lengths on the split edges, the reference's
-test shapes and the configurations' other head shapes.  On a CUDA device
+test shapes and the configurations' other head shapes.  The stage_mark
+check marks rings of the tracer's shape and of its calibration probe's
+through more ticks than they hold rows.  On a CUDA device
 each kernel call is also held against the same call on the CPU, and
 must raise its wrapper's launch count by one.  Every check returns the
 largest finite absolute difference it saw between a kernel and what it
@@ -34,10 +36,13 @@ from repro_torch.kernels.decode_attn.ops import (plan_for, split_starts,
                                                  unit_rows)
 from repro_torch.kernels.fused_tick import fused_tick, fused_tick_ref
 from repro_torch.kernels.hilbert import hilbert_xy2d, hilbert_xy2d_ref
+from repro_torch.kernels.stage_mark import stage_mark, stage_mark_ref
+from repro_torch.kernels.stage_mark.ops import _lib as stage_mark_lib
 from repro_torch.kernels.window_reduce import (sliding_reduce,
                                                sliding_reduce_ref,
                                                window_reduce)
 from repro_torch.kernels.window_reduce.ops import _IDENT
+from repro_torch.obs.trace import RING_TICKS, RING_WIDTH
 from repro_torch.testing import assert_bitwise
 
 #: (t, d, window, stride, partial) besides the full-width block
@@ -380,6 +385,138 @@ def check_armatch(device, shapes=()) -> float:
             raise AssertionError(f"{what}: {int(k.sum())} matches, the "
                                  "inputs test nothing")
     return err
+
+
+# ---- the tracer's mark ----------------------------------------------------
+
+#: (ticks, width, the row count it starts from) of the rings the
+#: stage_mark check marks: the tracer's ring, its calibration probe's,
+#: and a ragged one whose count starts past 2^32
+STAGE_MARK_RINGS = ((RING_TICKS, RING_WIDTH, 0), (1, 2, 0),
+                    (3, 7, (1 << 33) + 1))
+#: whole ticks marked past a ring's rows, so that its count wraps
+STAGE_MARK_WRAP = 3
+
+
+def _tick_slots(i: int, width: int) -> list[int]:
+    """Tick ``i``'s slots in launch order: a few from 1 up, then its
+    last (tagged) mark at the row's last or last but one column."""
+    n = i % min(4, width - 1)
+    last = width - 1 - i % 2
+    return [*range(1, n + 1), last if last > n else n + 1]
+
+
+def _mark_plan(ticks: int, width: int) -> list[tuple[int, int]]:
+    """(slot, tag) of every mark, in launch order: ``ticks`` +
+    :data:`STAGE_MARK_WRAP` whole ticks, each tagged 1 to 5 at its last
+    mark, then two untagged marks of a tick left open."""
+    plan = []
+    for i in range(ticks + STAGE_MARK_WRAP):
+        slots = _tick_slots(i, width)
+        plan += [(s, 0) for s in slots[:-1]] + [(slots[-1], 1 + i % 5)]
+    return plan + [(s, 0) for s in range(1, min(3, width))]
+
+
+def _marks_expected(ticks: int, width: int, start: int, plan):
+    """What ``plan`` leaves in a ring, by the kernel's rule and apart
+    from the times: the tags column, the count, and for each cell the
+    index in ``plan`` of its last write (-1 where none)."""
+    tags = np.zeros(ticks, np.int64)
+    last = np.full((ticks, width), -1)
+    count = start
+    for k, (slot, tag) in enumerate(plan):
+        row = count % ticks
+        last[row, slot] = k
+        if tag:
+            tags[row] = tag
+            count += 1
+    return tags, count, last
+
+
+def _marked_ring(ring: torch.Tensor, plan, mark, counter=None, what=""):
+    for slot, tag in plan:
+        if counter is None:
+            mark(ring, slot, tag)
+        else:
+            _counted(lambda: mark(ring, slot, tag), counter, ring, what)
+    return ring.cpu().numpy()
+
+
+def _stage_mark_rejects(ring: torch.Tensor, what: str) -> None:
+    """A slot outside 1..width-1 and a ring of another type or shape are
+    refused by the wrapper, and on the card by the kernel's entry point,
+    with nothing launched and the ring unchanged."""
+    before, launched = ring.clone(), stage_mark.launches
+    ticks, width = ring.shape[0] - 1, ring.shape[1]
+    bad = [(ring, 0), (ring, width), (ring.to(torch.int32), 1),
+           (ring.reshape(-1), 1), (ring[:1], 1), (ring.t(), 1)]
+    for r, slot in bad:
+        try:
+            stage_mark(r, slot, 1)
+        except ValueError:
+            continue
+        raise AssertionError(f"{what}: a mark at slot {slot} of a "
+                             f"{r.dtype} {tuple(r.shape)} ring was taken")
+    if ring.is_cuda:
+        lib = stage_mark_lib()
+        stream = torch.cuda.current_stream(ring.device).cuda_stream
+        for t, slot in ((ticks, 0), (ticks, width), (0, 1)):
+            err = lib.stage_mark_i64(ring.data_ptr(), t, width, slot, 1,
+                                     stream)
+            if err == 0:
+                raise AssertionError(f"{what}: the kernel's entry took "
+                                     f"slot {slot} of {t} x {width}")
+        torch.cuda.synchronize(ring.device)
+    if stage_mark.launches != launched:
+        raise AssertionError(f"{what}: a refused mark was counted")
+    assert_bitwise(ring, before, f"{what}: a refused mark wrote the ring")
+
+
+def check_stage_mark(device, rings=STAGE_MARK_RINGS) -> float:
+    """The ``stage_mark`` kernel against ``stage_mark_ref`` on a CPU
+    copy and against the kernel's rule (:func:`_marks_expected`), for
+    each ``(ticks, width, start)`` of ``rings``: the same marks, past
+    the ring's rows, then bitwise the same tags column, row count and
+    cells written.  The times differ (``%globaltimer`` against the
+    host's clock) and are held to their order instead: by the index of
+    each cell's last write they never fall.  Each mark launches once on
+    the card; bad slots and rings are refused (:func:`_stage_mark_rejects`).
+    Returns 0.0: nothing else of the two rings is compared."""
+    dev = torch.device(device)
+    for ticks, width, start in rings:
+        what = f"stage_mark [{ticks + 1} x {width}] from {start}"
+        plan = _mark_plan(ticks, width)
+        fresh = []
+        for d in (dev, torch.device("cpu")):
+            ring = torch.zeros((ticks + 1, width), dtype=torch.int64,
+                               device=d)
+            ring[ticks, 0] = start
+            fresh.append(ring)
+        _stage_mark_rejects(fresh[0], what)
+        k = _marked_ring(fresh[0], plan, stage_mark, stage_mark, what)
+        p = _marked_ring(fresh[1], plan, stage_mark_ref)
+        tags, count, last = _marks_expected(ticks, width, start, plan)
+        want_count = np.zeros(width, np.int64)
+        want_count[0] = count
+        for side, ring in (("kernel", k), ("plain version", p)):
+            if not np.array_equal(ring[ticks], want_count):
+                raise AssertionError(f"{what}: the {side}'s count row "
+                                     f"{ring[ticks, :4]}, want {count}")
+            if not np.array_equal(ring[:ticks, 0], tags):
+                raise AssertionError(f"{what}: the {side}'s tags differ "
+                                     "from the rule's")
+            written = ring[:ticks, 1:] != 0
+            if not np.array_equal(written, last[:, 1:] >= 0):
+                raise AssertionError(f"{what}: the {side} wrote other "
+                                     "cells than the rule's")
+            cells = last[:, 1:][written]
+            times = ring[:ticks, 1:][written][np.argsort(cells)]
+            if (np.diff(times) < 0).any():
+                raise AssertionError(f"{what}: the {side}'s times fall "
+                                     "between marks made in order")
+        if dev.type == "cuda":
+            _stage_mark_rejects(fresh[0], f"{what} after the marks")
+    return 0.0
 
 
 # ---- the serving kernel ---------------------------------------------------

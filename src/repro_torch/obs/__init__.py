@@ -1,9 +1,9 @@
 """Fleet-wide observability: tracing, events, latency lineage, SLOs,
 cost accounting, exporters (port of ``repro.obs``).
 
-* ``obs.trace`` -- host span tracer (Chrome-trace export) whose spans
-  are also ``torch.profiler`` ranges; ``DEVICE_STAGES`` names the
-  tick's stages.
+* ``obs.trace`` -- span tracer (Chrome-trace export) whose spans are
+  also ``torch.profiler`` ranges, with device stage marks inside
+  captured ticks; ``DEVICE_STAGES`` names the tick's stages.
 * ``obs.events`` -- the control plane's typed JSONL event log.
 * ``obs.latency`` -- bucketed latency histograms and the event-time
   lineage banks, updated on the device inside the tick.
@@ -11,8 +11,7 @@ cost accounting, exporters (port of ``repro.obs``).
   burn-rate evaluation over the lineage banks.
 * ``obs.costmodel`` -- FLOPs and bytes of one tick a stage, counted as
   it runs, and the roofline against declared peaks.
-* ``obs.export`` -- stable-schema metrics snapshots and the
-  ``BENCH_<suite>.json`` writer.
+* ``obs.export`` -- stable-schema metrics snapshots.
 """
 from repro_torch.obs.costmodel import (  # noqa: F401
     analyze,
@@ -20,13 +19,7 @@ from repro_torch.obs.costmodel import (  # noqa: F401
     stage_table,
 )
 from repro_torch.obs.events import EVENT_KINDS, EventLog  # noqa: F401
-from repro_torch.obs.export import (  # noqa: F401
-    BENCH_SCHEMA_VERSION,
-    bench_payload,
-    metrics_snapshot,
-    parse_derived,
-    write_bench,
-)
+from repro_torch.obs.export import metrics_snapshot  # noqa: F401
 from repro_torch.obs.latency import (  # noqa: F401
     DEFAULT_EDGES,
     LINEAGE_STAGES,

@@ -58,6 +58,18 @@ run on the CPU as on the card:
   as views of the clone, so the next replay never overwrites what an
   earlier call returned.  Outputs written in place come back as the
   static buffer itself (the caller's ring or caches).
+* **Tracing.**  ``set_tracer`` installs an ``obs.trace.Tracer``.  A
+  call opens ``step.copy_in``: the arguments' signature found and, on a
+  replay, the copy-in (its args: the tensors and bytes copied, the
+  copies the version rule did not skip).  A replay then opens
+  ``step.launch`` (``graph.replay()``; on the CPU the eager body) and
+  ``step.copy_out`` (the slab's clone, unpack and the outputs' tree).
+  A tracer with device marks also marks the captured body's start and
+  end (``step.graph``) and its stages inside the graph; the executors
+  give such a tracer a signature of its own (its ``marks_key``), and
+  the entry keeps the tracer whose ring its graph writes.  The warm-up
+  ahead of a capture counts the marks a tick takes and widens the
+  tracer's ring to them first (``Tracer.sizing``).
 * **Launch accounting.**  The kernels' wrappers count launches in
   Python when they are called, and a replay calls no Python.  The
   capture records each counter's change (``launches``,
@@ -77,6 +89,8 @@ import gc
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from repro_torch.obs.trace import NULL_TRACER
 
 
 class Scalar(NamedTuple):
@@ -108,12 +122,13 @@ def disabled() -> bool:
 # -- the kernels' launch counters ----------------------------------------------
 
 def _counters() -> tuple:
-    """(wrapper, counter names) of the five kernel wrappers, and the
+    """(wrapper, counter names) of the six kernel wrappers, and the
     bytes the collectives sent (``launch.mesh.COLLECTIVES``)."""
     from repro_torch.kernels.armatch import armatch
     from repro_torch.kernels.decode_attn import decode_attention
     from repro_torch.kernels.fused_tick import fused_tick
     from repro_torch.kernels.hilbert import hilbert_xy2d
+    from repro_torch.kernels.stage_mark import stage_mark
     from repro_torch.kernels.window_reduce import window_reduce
     from repro_torch.launch.mesh import COLLECTIVES
     return ((window_reduce, ("launches", "simple_launches")),
@@ -121,6 +136,7 @@ def _counters() -> tuple:
             (hilbert_xy2d, ("launches",)),
             (armatch, ("launches", "simple_launches")),
             (decode_attention, ("launches", "generic_launches")),
+            (stage_mark, ("launches",)),
             (COLLECTIVES, ("sent_bytes",)))
 
 
@@ -279,6 +295,7 @@ class _Entry:
         self.slab = None
         self.delta = None
         self.pool_bytes = 0
+        self.tracer = None          # the tracer whose ring the graph marks
 
 
 class Step:
@@ -298,6 +315,13 @@ class Step:
         self._entries: dict = {}
         self._traces = 0
         self._compiles = 0
+        self.tracer = NULL_TRACER
+
+    def set_tracer(self, tracer) -> None:
+        """Install an ``obs.trace.Tracer`` (see the module docstring); a
+        marking one makes its ring on the step's device."""
+        tracer.bind(self.device)
+        self.tracer = tracer
 
     @property
     def trace_count(self) -> int:
@@ -322,20 +346,25 @@ class Step:
 
     # -- calls ---------------------------------------------------------------
     def __call__(self, *args, static_key=()):
-        leaves, treedef, key = flatten(args)
         if disabled():
+            leaves, treedef, _ = flatten(args)
             return self.fn(*unflatten(
                 treedef, [self._materialize(x) for x in leaves]))
-        key = (key, static_key)
-        e = self._entries.get(key)
+        with self.tracer.span("step.copy_in") as info:
+            leaves, treedef, key = flatten(args)
+            key = (key, static_key)
+            e = self._entries.get(key)
+            if e is not None:
+                self._copy_in(e, leaves, info)
         if e is None:
             self._traces += 1
             eager = [self._materialize(x) for x in leaves]
-            outs = self.fn(*unflatten(treedef, eager))
+            with self.tracer.sizing():
+                outs = self.fn(*unflatten(treedef, eager))
             e = self._build(args, treedef, eager, leaves, outs, True)
             self._compile(key, e)
             return outs
-        return self._replay(e, leaves)
+        return self._replay(e)
 
     def prepare(self, *args, static_key=()) -> "Step":
         """Build and capture the signature of ``args`` ahead of time, on
@@ -356,7 +385,8 @@ class Step:
             for i in range(starts[d], starts[d + 1]):
                 if isinstance(warm[i], torch.Tensor):
                     warm[i] = warm[i].clone()
-        outs = self.fn(*unflatten(treedef, warm))
+        with self.tracer.sizing():
+            outs = self.fn(*unflatten(treedef, warm))
         e = self._build(args, treedef, warm, leaves, outs, False)
         del outs, warm
         self._compile(key, e)
@@ -448,22 +478,23 @@ class Step:
     def _body(self, e: _Entry) -> torch.Tensor:
         """The captured region: ``fn`` on the static buffers, its
         outputs packed into the output slab, the carried ones written
-        back into the carry slab."""
-        outs = self.fn(*unflatten(e.treedef, e.statics))
-        out_leaves = flatten(outs)[0]
-        packed = [None] * len(e.slots)
-        for o, src in zip(out_leaves, e.out_src):
-            if src[0] == "arg":
-                if not _aliases(o, e.statics[src[1]]):
-                    raise RuntimeError(
-                        f"{self.name}: a donated tensor the warm-up wrote "
-                        "in place is not written in place on the static "
-                        "buffers")
-            elif src[0] == "slot":
-                packed[src[1]] = o
-        slab = pack(packed, e.slots, e.nbytes, e.pad)
-        if e.carry_bytes:
-            e.carry_slab.copy_(slab[:e.carry_bytes])
+        back into the carry slab; marked by a tracer with device marks."""
+        with self.tracer.tick_marks():
+            outs = self.fn(*unflatten(e.treedef, e.statics))
+            out_leaves = flatten(outs)[0]
+            packed = [None] * len(e.slots)
+            for o, src in zip(out_leaves, e.out_src):
+                if src[0] == "arg":
+                    if not _aliases(o, e.statics[src[1]]):
+                        raise RuntimeError(
+                            f"{self.name}: a donated tensor the warm-up "
+                            "wrote in place is not written in place on the "
+                            "static buffers")
+                elif src[0] == "slot":
+                    packed[src[1]] = o
+            slab = pack(packed, e.slots, e.nbytes, e.pad)
+            if e.carry_bytes:
+                e.carry_slab.copy_(slab[:e.carry_bytes])
         return slab
 
     def _compile(self, key, e: _Entry) -> None:
@@ -493,11 +524,16 @@ class Step:
             add_counters(tuple(-d for d in e.delta))
             e.graph = graph
             e.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+            e.tracer = self.tracer
         self._compiles += 1
         self._entries[key] = e
 
     # -- replay --------------------------------------------------------------
-    def _replay(self, e: _Entry, leaves):
+    def _copy_in(self, e: _Entry, leaves, info: dict | None) -> None:
+        """The arguments into the signature's static buffers; ``info``
+        (an open span's args, or None) gets the tensors and bytes
+        copied."""
+        copied = None if info is None else []
         for i, (kind, x) in enumerate(zip(e.kinds, leaves)):
             if kind is None:
                 continue
@@ -515,19 +551,30 @@ class Step:
                     and _version(x) == h[1]:
                 continue
             s.copy_(x)
-        if e.graph is not None:
-            e.graph.replay()
-            add_counters(e.delta)
-            slab = e.slab.clone()
-        else:
-            slab = self._body(e)
-        views = unpack(slab, e.slots)
-        out = [e.statics[src[1]] if src[0] == "arg"
-               else views[src[1]] if src[0] == "slot" else src[1]
-               for src in e.out_src]
-        for ai, j in e.carry_out:
-            e.handed[ai] = (views[j], _version(views[j]))
-        return unflatten(e.out_def, out)
+            if copied is not None:
+                copied.append(x)
+        if copied is not None:
+            info.update(tensors=len(copied), bytes=sum(
+                x.numel() * x.element_size() for x in copied))
+
+    def _replay(self, e: _Entry):
+        tr = self.tracer
+        with tr.span("step.launch"):
+            if e.graph is not None:
+                e.graph.replay()
+                add_counters(e.delta)
+            else:
+                slab = self._body(e)
+        with tr.span("step.copy_out"):
+            if e.graph is not None:
+                slab = e.slab.clone()
+            views = unpack(slab, e.slots)
+            out = [e.statics[src[1]] if src[0] == "arg"
+                   else views[src[1]] if src[0] == "slot" else src[1]
+                   for src in e.out_src]
+            for ai, j in e.carry_out:
+                e.handed[ai] = (views[j], _version(views[j]))
+            return unflatten(e.out_def, out)
 
 
 def _starts(top: tuple) -> list[int]:

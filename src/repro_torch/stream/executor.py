@@ -16,11 +16,17 @@ The reference jits it once and counts its traces; here the tick is a
 ``_compile_count`` the CUDA graphs captured), its first call eager, on
 the card captured then and replayed on every later call.  The budget,
 the ingest mode, ``now`` and the fed wall time are operands filled in
-before each replay, never values frozen into the graph.  The stage
-spans of an enabled tracer (``obs:ingest``, ...) run in Python, so on
-the card they are recorded at the warm-up and at the capture only;
-``stream.dispatch`` marks every step.  ``step_cost`` runs the tick
-eagerly on a copy and counts no trace.
+before each replay, never values frozen into the graph.  An enabled
+tracer marks every step's ``stream.prepare`` and ``stream.dispatch``
+and, inside it, the step's ``step.copy_in``, ``step.launch`` and
+``step.copy_out``.  Its stage spans (``obs:ingest``, ...) run in
+Python, so on the card they are recorded at the warm-up and at the
+capture only, unless the tracer has device marks
+(``Tracer(device_marks=True)``): then the tick captures a graph of its
+own, with two one-thread marks a stage span that time the stages of
+every replay on the device (a microsecond of device time each).
+Without marks the graph is the one the tick always had.  ``step_cost``
+runs the tick eagerly on a copy and counts no trace.
 
 Cross-batch window continuity: the executor carries the trailing
 ``window - stride`` samples between steps, so every step emits exactly
@@ -492,8 +498,11 @@ class StreamExecutor:
         )
 
     def set_tracer(self, tracer) -> None:
-        """Install an ``obs.trace.Tracer``: an enabled one marks each
-        ``step()`` and its stages on a ``torch.profiler`` timeline."""
+        """Install an ``obs.trace.Tracer`` here and on the tick's step:
+        an enabled one marks each ``step()`` and its stages on a
+        ``torch.profiler`` timeline; one with device marks times the
+        stages of every captured tick (module docstring)."""
+        self._tick_step.set_tracer(tracer)
         self.tracer = tracer
 
     def latency_percentiles(self, qs=(50, 95, 99)) -> dict:
@@ -584,10 +593,11 @@ class StreamExecutor:
 
     def _static_key(self) -> tuple:
         """What the tick's shapes and code depend on besides its
-        operands: the config, the rule table and the compaction shape."""
+        operands: the config, the rule table, the compaction shape and
+        the tracer's marks (a marking tracer's graph writes its ring)."""
         table = self.engine.table()
         return (id(self.cfg), table if table is not None else id(self.engine),
-                self.pipeline.core_capacity)
+                self.pipeline.core_capacity, self.tracer.marks_key)
 
     # -- public API ---------------------------------------------------------
     def step(self, state: StreamState, items, ts,
@@ -610,26 +620,29 @@ class StreamExecutor:
         after a step that built a kernel or a tick signature
         (``warmup_excluded``).  A ring other than ``[capacity + 1,
         2 + D]`` raises."""
-        self._step_num += 1
-        feed = 0.0 if self._skip_feed else self.last_step_seconds
-        if self._skip_feed and self.last_step_seconds > 0.0:
-            self.warmup_excluded += 1
-        builds_before, compiles_before = build.builds, self._compile_count()
-        dev = self.device
-        items = torch.as_tensor(items, device=dev)
-        ts = torch.as_tensor(ts, device=dev)
-        _check_ring(state.rb.store, (self.cfg.capacity + 1,
-                                     META_COLS + items.shape[-1]))
-        t0 = time.perf_counter()
-        with self.tracer.step_annotation("stream_step", self._step_num), \
-                self.tracer.span("stream.dispatch", step=self._step_num):
-            out, state, self._lat_hist, self._lineage = self._tick_step(
-                state, self._lat_hist, self._lineage, items, ts,
+        with self.tracer.span("stream.prepare"):
+            self._step_num += 1
+            feed = 0.0 if self._skip_feed else self.last_step_seconds
+            if self._skip_feed and self.last_step_seconds > 0.0:
+                self.warmup_excluded += 1
+            builds_before = build.builds
+            compiles_before = self._compile_count()
+            dev = self.device
+            items = torch.as_tensor(items, device=dev)
+            ts = torch.as_tensor(ts, device=dev)
+            _check_ring(state.rb.store, (self.cfg.capacity + 1,
+                                         META_COLS + items.shape[-1]))
+            t0 = time.perf_counter()
+            operands = (
+                items, ts,
                 capture.Scalar(self._effective_budget(), torch.int32),
                 capture.Scalar(feed, torch.float32),
                 capture.Scalar(time.perf_counter() - self._t0,
                                torch.float32),
-                capture.Scalar(mode, torch.int32),
+                capture.Scalar(mode, torch.int32))
+        with self.tracer.span("stream.dispatch", step=self._step_num):
+            out, state, self._lat_hist, self._lineage = self._tick_step(
+                state, self._lat_hist, self._lineage, *operands,
                 static_key=self._static_key())
         self.last_step_seconds = time.perf_counter() - t0
         self._skip_feed = build.builds > builds_before \

@@ -65,9 +65,15 @@ time are operands copied into static buffers before each replay.  A new
 signature comes only from a ``remesh`` (which drops the old graphs), a
 budget grown past its slot ceiling, or a new producer batch shape: the
 bound ``FleetController.max_trace_count`` holds the count to.  An
-enabled tracer's stage spans run in Python, so on the card they come
-from the warm-up and the capture only; ``fleet.dispatch`` marks every
-tick.
+enabled tracer's host spans mark every tick's ``fleet.prepare``,
+``fleet.dispatch`` and, inside it, the step's ``step.copy_in``,
+``step.launch`` and ``step.copy_out``; its stage spans (``obs:*``) run
+in Python, so on the card they are recorded at the warm-up and the
+capture only.  A tracer with device marks (``Tracer(device_marks=
+True)``) times every tick's stages on the device: it captures a graph
+of its own, holding two one-thread marks a stage span (about 90 a tick
+of 8 shards, a microsecond of device time each); without marks the
+graph is the one the tick always had.
 """
 from __future__ import annotations
 
@@ -568,8 +574,11 @@ class FleetExecutor:
         return self._remeshes
 
     def set_tracer(self, tracer) -> None:
-        """Install an ``obs.trace.Tracer``: an enabled one marks each
-        tick and its stages on a ``torch.profiler`` timeline."""
+        """Install an ``obs.trace.Tracer`` here and on the tick's step:
+        an enabled one marks each tick and its stages on a
+        ``torch.profiler`` timeline; one with device marks times the
+        stages of every captured tick (module docstring)."""
+        self._tick_step.set_tracer(tracer)
         self.tracer = tracer
 
     def latency_percentiles(self, qs=(50, 95, 99)) -> dict:
@@ -684,16 +693,19 @@ class FleetExecutor:
         new_state, out, lineage = self._fleet_step(
             state, lineage, items, ts, offered, mode, healthy, active,
             budget, region_budget, now)
-        lat_hist = OL.histogram_update(lat_hist, last_dt)
+        with self.tracer.span("obs:latency"):
+            lat_hist = OL.histogram_update(lat_hist, last_dt)
         return out, new_state, lat_hist, lineage
 
     def _static_key(self) -> tuple:
         """What the tick's shapes and code depend on besides its
         operands: the config (a remesh replaces it), both slot ceilings,
-        the rule table."""
+        the rule table, and the tracer's marks (a marking tracer's graph
+        writes its ring)."""
         table = self.engine.table()
         return (id(self.cfg), self._slots, self._fog_slots,
-                table if table is not None else id(self.engine))
+                table if table is not None else id(self.engine),
+                self.tracer.marks_key)
 
     def _fleet_step(self, state: FleetState, lineage: torch.Tensor,
                     items: torch.Tensor, ts: torch.Tensor,
@@ -746,6 +758,12 @@ class FleetExecutor:
         # a departed shard never escalates
         core_live = _stack(partials, "escalated") & active[:, None]
         w_birth = _stack(ings, "w_birth")
+        # the exchange's sub-stages (hop 1, the fog compaction, hop 2,
+        # the core, the way back) are opened by a marking tracer only: a
+        # profiler puts each device op under the innermost open range,
+        # and the benchmark's eager stage reading sums the exchange under
+        # obs:exchange_core.  A debt: once that reading sums a span's
+        # subtree, every enabled tracer opens them and the branch goes
         with tr.span("obs:exchange_core"):
             core_out, core_feats, processed, stats, taps = \
                 F.federate_escalations_tiered(
@@ -756,7 +774,8 @@ class FleetExecutor:
                     edge_capacity=cfg.route_capacity,
                     cross_capacity=max(1, -(-self._fog_slots
                                             // cfg.num_core)),
-                    core_slots=self._slots, birth=w_birth, ranks=ranks)
+                    core_slots=self._slots, birth=w_birth, ranks=ranks,
+                    tracer=tr if tr.device_marks else NULL_TRACER)
         with tr.span("obs:core_commit"):
             # the commit is row-wise: all shards' windows in one batch
             n = core_live.shape[1]
@@ -860,62 +879,65 @@ class FleetExecutor:
         cfg, dev = self.cfg, self.device
         if not self.member:
             return state, None
-        if replay is not None and mode is not None:
-            raise ValueError("pass either replay (bool shorthand) or "
-                             "mode (MODE_* codes), not both")
-        if replay is not None:
-            mode = np.where(np.asarray(replay, bool),
-                            SI.MODE_REPLAY, SI.MODE_LIVE).astype(np.int32)
-        if items.shape[0] != self.local_shards:
-            raise ValueError(f"items hold {items.shape[0]} shards' batches; "
-                             f"this executor holds {self.local_shards}")
-        if mode is None:
-            mode = np.zeros(self.local_shards, np.int32)
-        else:
-            mode = np.asarray(mode.cpu() if isinstance(mode, torch.Tensor)
-                              else mode, np.int32)
-            if mode.any() and items.shape[1] > cfg.stream.micro_batch:
+        with self.tracer.span("fleet.prepare"):
+            if replay is not None and mode is not None:
+                raise ValueError("pass either replay (bool shorthand) or "
+                                 "mode (MODE_* codes), not both")
+            if replay is not None:
+                mode = np.where(np.asarray(replay, bool), SI.MODE_REPLAY,
+                                SI.MODE_LIVE).astype(np.int32)
+            if items.shape[0] != self.local_shards:
                 raise ValueError(
-                    f"replay/backfill needs a per-tick-drained ring: "
-                    f"offer size {items.shape[1]} > micro_batch "
-                    f"{cfg.stream.micro_batch} leaves reprocessed "
-                    "rows queued past their lateness-exempt tick")
-        items = torch.as_tensor(items, device=dev)
-        ts = torch.as_tensor(ts, device=dev)
-        offered = torch.ones(items.shape[:2], dtype=torch.bool, device=dev) \
-            if offered is None else torch.as_tensor(offered, device=dev) \
-            .to(torch.bool)
-        _check_ring(state.shard.rb.store, (cfg.stream.capacity + 1,
-                                           META_COLS + items.shape[-1]))
-        self._step_num += 1
-        feed = 0.0 if self._skip_feed else self.last_step_seconds
-        if self._skip_feed and self.last_step_seconds > 0.0:
-            self.warmup_excluded += 1
-        builds_before, compiles_before = build.builds, self._compile_count()
-        t0 = time.perf_counter()
-        with self.tracer.step_annotation("fleet_tick", self._step_num):
-            with self.tracer.span("fleet.dispatch", step=self._step_num):
-                # the masks and budgets are small cached constants
-                # (device_constant), copied into the tick's static
-                # buffers before a replay
-                out, state, self._lat_hist, self._lineage = self._tick_step(
-                    state, self._lat_hist, self._lineage, items, ts, offered,
-                    device_constant(tuple(mode.tolist()), torch.int32, dev),
-                    device_constant(tuple(self._rows(self._healthy).tolist()),
-                                    torch.bool, dev),
-                    device_constant(tuple(self._rows(self._active).tolist()),
-                                    torch.bool, dev),
-                    capture.Scalar(self._budget, torch.int32),
-                    device_constant(tuple(self._region_budget.tolist()),
-                                    torch.int32, dev),
-                    capture.Scalar(time.perf_counter() - self._t0,
-                                   torch.float32),
-                    capture.Scalar(feed, torch.float32),
-                    static_key=self._static_key())
-            if self.measure_steps and dev.type == "cuda":
-                with self.tracer.span("fleet.device_execute",
-                                      step=self._step_num):
-                    torch.cuda.synchronize(dev)
+                    f"items hold {items.shape[0]} shards' batches; this "
+                    f"executor holds {self.local_shards}")
+            if mode is None:
+                mode = np.zeros(self.local_shards, np.int32)
+            else:
+                mode = np.asarray(mode.cpu() if isinstance(mode, torch.Tensor)
+                                  else mode, np.int32)
+                if mode.any() and items.shape[1] > cfg.stream.micro_batch:
+                    raise ValueError(
+                        f"replay/backfill needs a per-tick-drained ring: "
+                        f"offer size {items.shape[1]} > micro_batch "
+                        f"{cfg.stream.micro_batch} leaves reprocessed "
+                        "rows queued past their lateness-exempt tick")
+            items = torch.as_tensor(items, device=dev)
+            ts = torch.as_tensor(ts, device=dev)
+            offered = torch.ones(items.shape[:2], dtype=torch.bool,
+                                 device=dev) if offered is None \
+                else torch.as_tensor(offered, device=dev).to(torch.bool)
+            _check_ring(state.shard.rb.store, (cfg.stream.capacity + 1,
+                                               META_COLS + items.shape[-1]))
+            self._step_num += 1
+            feed = 0.0 if self._skip_feed else self.last_step_seconds
+            if self._skip_feed and self.last_step_seconds > 0.0:
+                self.warmup_excluded += 1
+            builds_before = build.builds
+            compiles_before = self._compile_count()
+            t0 = time.perf_counter()
+            # the masks and budgets are small cached constants
+            # (device_constant), copied into the tick's static buffers
+            # before a replay
+            operands = (
+                items, ts, offered,
+                device_constant(tuple(mode.tolist()), torch.int32, dev),
+                device_constant(tuple(self._rows(self._healthy).tolist()),
+                                torch.bool, dev),
+                device_constant(tuple(self._rows(self._active).tolist()),
+                                torch.bool, dev),
+                capture.Scalar(self._budget, torch.int32),
+                device_constant(tuple(self._region_budget.tolist()),
+                                torch.int32, dev),
+                capture.Scalar(time.perf_counter() - self._t0, torch.float32),
+                capture.Scalar(feed, torch.float32))
+        with self.tracer.span("fleet.dispatch", step=self._step_num):
+            out, state, self._lat_hist, self._lineage = self._tick_step(
+                state, self._lat_hist, self._lineage, *operands,
+                static_key=self._static_key())
+        if self.measure_steps and dev.type == "cuda":
+            with self.tracer.span("fleet.device_execute",
+                                  step=self._step_num):
+                torch.cuda.synchronize(dev)
         self.last_step_seconds = time.perf_counter() - t0
         self._skip_feed = build.builds > builds_before \
             or self._compile_count() > compiles_before

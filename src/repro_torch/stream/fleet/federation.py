@@ -61,6 +61,7 @@ import torch.distributed as dist
 
 from repro_torch.core import routing as RT
 from repro_torch.launch import mesh as M
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.stream.fleet import routing as FR
 from repro_torch.stream.fleet.routing import (fog_recv_occupancy,
                                               region_survivor_counts)
@@ -462,7 +463,7 @@ def federate_escalations_tiered(
         *, num_regions: int, edges_per_region: int, num_core: int,
         region_budget, core_budget, edge_capacity: int, cross_capacity: int,
         core_slots: int, birth: torch.Tensor | None = None,
-        ranks: Ranks | None = None):
+        ranks: Ranks | None = None, tracer=NULL_TRACER):
     """Two-hop escalation exchange over the ``(region, edge)`` shards:
     fog pre-aggregation within each region, then only region survivors
     cross to the core ranks (region 0, edge columns ``0..num_core-1``).
@@ -492,7 +493,10 @@ def federate_escalations_tiered(
     grows a fifth element, :class:`LineageTaps`.  ``ranks``: the
     tensors are this rank's ``[S / N, ...]`` rows (the budgets are the
     fleet's, the same on every rank); the counts are all-gathered and
-    both hops are all-to-alls (see the module docstring).
+    both hops are all-to-alls (see the module docstring).  ``tracer``
+    opens the reference's sub-stage spans (``obs:all_to_all_out``,
+    ``obs:fog_compact``, ``obs:all_to_all_region``, ``obs:core_compute``,
+    ``obs:all_to_all_back``).
 
     Returns (``[S, N, R]`` core outputs, ``[S, N, F]`` core features,
     ``[S, N]`` bool processed, :class:`TieredStats`[, taps])."""
@@ -536,48 +540,52 @@ def federate_escalations_tiered(
     roff = torch.cumsum(rs_all, 0, dtype=torch.int32) - rs_all
 
     # hop 1, within each region, to fog column g % num_core
-    plan1, _ = RT.escalation_plan(surv, roff[regs][:, None] + off_e, ee,
+    with tracer.span("obs:all_to_all_out"):
+        plan1, _ = RT.escalation_plan(surv, roff[regs][:, None] + off_e, ee,
+                                      num_core, edge_capacity)
+        send1 = RT.scatter_to_buckets(rec, plan1, ee + 1,
+                                      edge_capacity)[:, :, :ee]
+        recv1 = _swap(send1, ranks)                # [Rl, m, E_src, cap1, RW]
+        colidx = torch.arange(lay.first_col, lay.first_col + m,
+                              dtype=torch.int32, device=dev)
+        occ1 = fog_recv_occupancy(surv_counts[regs][:, None, :],
+                                  colidx[:, None], roff[regs][:, None, None],
                                   num_core, edge_capacity)
-    send1 = RT.scatter_to_buckets(rec, plan1, ee + 1, edge_capacity)[:, :, :ee]
-    recv1 = _swap(send1, ranks)                    # [Rl, m, E_src, cap1, RW]
-    colidx = torch.arange(lay.first_col, lay.first_col + m,
-                          dtype=torch.int32, device=dev)
-    occ1 = fog_recv_occupancy(surv_counts[regs][:, None, :], colidx[:, None],
-                              roff[regs][:, None, None], num_core,
-                              edge_capacity)
-    occ1 = occ1.reshape(rl, m, ee * edge_capacity)
+        occ1 = occ1.reshape(rl, m, ee * edge_capacity)
 
     # each fog column compacts its survivors (ascending global slot)
-    plan2 = RT.make_plan(torch.where(occ1, 0, 1).to(torch.int32), 2,
-                         cross_capacity)
-    compact = RT.scatter_to_buckets(
-        recv1.reshape(rl, m, ee * edge_capacity, rw), plan2, 2,
-        cross_capacity)[:, :, 0]                        # [Rl, m, cap2, RW]
+    with tracer.span("obs:fog_compact"):
+        plan2 = RT.make_plan(torch.where(occ1, 0, 1).to(torch.int32), 2,
+                             cross_capacity)
+        compact = RT.scatter_to_buckets(
+            recv1.reshape(rl, m, ee * edge_capacity, rw), plan2, 2,
+            cross_capacity)[:, :, 0]                    # [Rl, m, cap2, RW]
 
     # hop 2, across regions: every region's compact batch goes to
-    # region 0, whose fog columns are the core ranks
-    core_in = _to_region0(compact, ranks)             # [m, R * cap2, RW]
-
-    # the cloud side: validity and the core budget from the survivor
-    # totals, at region 0 only
-    under2, occ2, _ = RT.escalation_recv_slots(rs_all, colidx, num_core,
-                                               cross_capacity, core_budget)
-    c_core = max(1, -(-core_slots // num_core))
-    payload, processed_n = _run_core_ranks(
-        core_fn, core_in, under2.reshape(m, rr * cross_capacity),
-        _core_cols(lay, num_core), c_core)
-    w = payload.shape[-1]
+    # region 0, whose fog columns are the core ranks; there, validity
+    # and the core budget from the survivor totals, at region 0 only
+    with tracer.span("obs:all_to_all_region"):
+        core_in = _to_region0(compact, ranks)         # [m, R * cap2, RW]
+        under2, occ2, _ = RT.escalation_recv_slots(
+            rs_all, colidx, num_core, cross_capacity, core_budget)
+    with tracer.span("obs:core_compute"):
+        c_core = max(1, -(-core_slots // num_core))
+        payload, processed_n = _run_core_ranks(
+            core_fn, core_in, under2.reshape(m, rr * cross_capacity),
+            _core_cols(lay, num_core), c_core)
+        w = payload.shape[-1]
 
     # the way back: cloud -> fog column -> origin shard, un-compacting
     # with the same plans (bucket 0 of plan2 holds the occupied slots)
-    resp_region = _from_region0(payload, rl, ranks)    # [Rl, m, cap2, w]
-    flat_back = torch.where(
-        occ1[..., None],
-        RT.gather_from_buckets(resp_region[:, :, None], plan2),
-        0)                                            # [Rl, m, E*cap1, w]
-    back1 = _swap(flat_back.reshape(rl, m, ee, edge_capacity, w), ranks)
-    resp = RT.gather_from_buckets(back1, plan1).reshape(s, n, w)
-    processed = (resp[..., -1] > 0.5) & plan1.keep.reshape(s, n)
+    with tracer.span("obs:all_to_all_back"):
+        resp_region = _from_region0(payload, rl, ranks)  # [Rl, m, cap2, w]
+        flat_back = torch.where(
+            occ1[..., None],
+            RT.gather_from_buckets(resp_region[:, :, None], plan2),
+            0)                                        # [Rl, m, E*cap1, w]
+        back1 = _swap(flat_back.reshape(rl, m, ee, edge_capacity, w), ranks)
+        resp = RT.gather_from_buckets(back1, plan1).reshape(s, n, w)
+        processed = (resp[..., -1] > 0.5) & plan1.keep.reshape(s, n)
 
     fleet_surv = rs_all.sum(dtype=torch.int32)
     stats = TieredStats(

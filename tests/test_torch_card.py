@@ -5,14 +5,17 @@ ragged shapes, NaN rows and empty windows; the AR data plane's routing
 batch (hilbert) and its two match shapes (armatch) plus ragged ones;
 the Yi-6B and RecurrentGemma-2B serve steps' decode attention
 (decode_attn, to a stated tolerance, float32 and bfloat16) plus the
-reference's test shapes.  Then decode_attn's split clusters (1,000 calls
+reference's test shapes; the tracer's stage marks (stage_mark: the
+ring's tags, row count and cells written, the times in order).  Then
+decode_attn's split clusters (1,000 calls
 of each fast instance at 2 and 4 splits, bf16 D 256 at 2, 3 and
 RecurrentGemma-2B's 6, with length-0 rows, each bitwise the first), and
 the compile-once steps (``runtime.capture``) graphed against
 ``capture.disable()``, bitwise: the stream tick staged and fused, the
 fleet tick with masks and budgets changed after the
 capture, and the decode step the registry captures ahead of time; the
-replays count the launches eager makes.  Needs a CUDA card and
+replays count the launches eager makes.  The fleet tick captured with
+the tracer's device marks against the tick captured without.  Needs a CUDA card and
 ``nvcc``; skips without a card.  Imports no JAX, so it runs on the
 machine with the card: ``PYTHONPATH=src python -m pytest -q
 --noconftest tests/test_torch_card.py`` (``tests/conftest.py`` imports
@@ -61,6 +64,9 @@ class TestOnCard:
 
     def test_armatch_kernel(self, card):
         assert checks.check_armatch(card, AR_MATCHES) == 0.0
+
+    def test_stage_mark_kernel(self, card):
+        assert checks.check_stage_mark(card) == 0.0
 
     def test_decode_attn_kernel(self, card):
         assert checks.check_decode_attn(card, SERVE_ATTN,
@@ -281,6 +287,70 @@ def test_graphed_fleet_tick_equals_eager(card, monkeypatch):
         _same(a, b, f"fleet tick {i}")
     _same(gs, es, "final fleet state")
     assert gx.trace_count == 1 == gx._compile_count()
+
+
+def test_marked_graphed_fleet_tick_equals_unmarked(card, monkeypatch):
+    """The fused fleet tick captured with a tracer that marks the device
+    (``kernels/stage_mark``) against the same tick captured without:
+    every output and the final state bitwise over 10 ticks; a ring row
+    a replayed tick, its marks in order within the step's body; the
+    replays count the marks eager would launch; a calibration narrower
+    than 100 us."""
+    import numpy as np
+    from repro_torch.core import pipeline as P
+    from repro_torch.core import rules as R
+    from repro_torch.kernels.stage_mark import stage_mark
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.stream import StreamConfig
+    from repro_torch.stream.fleet import FleetConfig, FleetExecutor
+    from repro_torch.stream.fleet import executor as FX
+    scfg = StreamConfig(micro_batch=2048, window=64, stride=32,
+                        capacity=1 << 14, lateness=64.0, fused=True)
+    engine = R.RuleEngine([R.threshold_rule("hot", 0, ">=", 0.25,
+                                            R.C_SEND_CORE)])
+    runs = []
+    for marks in (False, True):
+        monkeypatch.setattr(FX, "time", _Clock())
+        fx = FleetExecutor(
+            FleetConfig(stream=scfg, num_shards=8, num_regions=2, num_core=2,
+                        core_budget=64, fog_budget=48),
+            engine, P.two_tier_pipeline(
+                lambda p, b: (b, b[:, :5]),
+                lambda p, b: (torch.tanh(b * 1.5), b[:, :5]), engine),
+            device=card)
+        tr = Tracer(device_marks=True) if marks else None
+        if tr is not None:
+            fx.set_tracer(tr)
+        st = fx.init_state(16)
+        rng = np.random.default_rng(3)
+        before = stage_mark.launches
+        outs = []
+        with torch.no_grad():
+            for t in range(10):
+                items = torch.from_numpy(rng.standard_normal(
+                    (8, 2048, 16)).astype(np.float32)).to(card)
+                ts = torch.arange(2048, dtype=torch.float32,
+                                  device=card).repeat(8, 1) + t * 2048
+                st, out = fx.step(st, items, ts)
+                outs.append(out)
+        torch.cuda.synchronize()
+        runs.append((fx, st, outs, tr, stage_mark.launches - before))
+    (px, ps, po, _, pl), (mx, ms, mo, tr, ml) = runs
+    for i, (a, b) in enumerate(zip(mo, po)):
+        _same(a, b, f"fleet tick {i}")
+    _same(ms, ps, "final fleet state")
+    assert px.trace_count == mx.trace_count == 1
+    ds = tr.device_stages()
+    assert ds["ticks"] == 9 and pl == 0
+    group, = ds["openings"]
+    assert ml == 9 * (2 + 2 * len(group["spans"]))
+    g0, g1 = ds["graph"][:, 0], ds["graph"][:, 1]
+    opens = [a for _, _, a, _ in group["spans"]]
+    assert all(np.all(x <= y) for x, y in zip(opens, opens[1:]))
+    for name, _, a, b in group["spans"]:
+        assert np.all((g0 <= a) & (a <= b) & (b <= g1)), name
+    assert np.all(g1 > g0) and np.all(g0[1:] >= g1[:-1])
+    assert tr.calibrate()["error_ns"] < 1e5
 
 
 def test_graphed_decode_step_equals_eager(card):

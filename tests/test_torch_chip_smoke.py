@@ -682,6 +682,28 @@ def test_train_sizes_are_yi_6b_at_full_width(smoke):
     assert fl["model"] == fl["params"] + fl["attention"] + fl["unembed"]
 
 
+def test_stage_mark_phase_runs_and_checks_itself(smoke, monkeypatch,
+                                                 capsys):
+    """Phase 2's stage_mark check on the CPU's plain version (no launch
+    counted there) and the kernels line's stage_mark entry, its timing
+    stubbed; ``run`` makes both."""
+    import inspect
+    src = inspect.getsource(smoke.run)
+    assert "marks = check_marks(device)" in src
+    assert "time_stage_mark(device, marks)" in src
+    assert smoke.check_marks("cpu") == {"max_abs_err": 0.0, "launches": 0}
+
+    def timed(fn, reps, tag, kernel=None, flush=None):
+        assert kernel == "stage_mark_kernel"
+        fn()
+        return 2e-3, 5e-3
+    monkeypatch.setattr(smoke, "_timed", timed)
+    row = smoke.time_stage_mark("cpu", {"max_abs_err": 0.0, "launches": 7})
+    assert row["name"] == "stage_mark" and row["launches"] == 7
+    assert (row["ms"], row["wall_ms"]) == (2e-3, 5e-3)
+    assert "kernel stage_mark a call" in capsys.readouterr().out
+
+
 def test_main_prints_the_kernels_line_then_the_result_line(smoke,
                                                            monkeypatch,
                                                            capsys):
@@ -767,8 +789,8 @@ def test_graph_phase_fails_when_graphed_and_eager_differ(smoke, monkeypatch):
     from repro_torch.runtime import capture
     real = capture.Step._replay
 
-    def off(self, e, leaves):
-        out = real(self, e, leaves)
+    def off(self, e):
+        out = real(self, e)
         out[0].aggregates.add_(1.0)
         return out
     monkeypatch.setattr(capture.Step, "_replay", off)

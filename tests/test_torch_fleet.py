@@ -30,6 +30,7 @@ import pytest
 from repro_torch import convert
 from repro_torch.core import pipeline as tpipe
 from repro_torch.core import rules as trules
+from repro_torch.obs.trace import Tracer
 from repro_torch.stream import StreamConfig, StreamExecutor
 from repro_torch.stream.fleet import FleetConfig, FleetExecutor
 from repro_torch.stream.fleet import executor as TFX
@@ -348,6 +349,43 @@ def test_fleet_arc_matches_the_jax_fleet(ref, clock, arc):
     _NS["run_arc"](spec, _Port, got, arc,
                    ticks=list(enumerate(spec["ticks"])))
     _compare(ref, got, arc)
+
+
+class _MarkedPort(_Port):
+    """The port's side with a tracer that marks the device installed."""
+
+    @staticmethod
+    def make(spec, fleet=None):
+        ex = _Port.make(spec, fleet)
+        ex.set_tracer(Tracer(device_marks=True))
+        return ex
+
+
+@pytest.mark.parametrize("arc", ["regions", "degraded", "remesh"])
+def test_marked_fleet_arc_matches_the_jax_fleet(ref, monkeypatch, arc):
+    """Device marks change nothing a tick computes: the arc with a
+    marking tracer is the JAX fleet's, as above, and bitwise the arc
+    without one, core outputs included; the tracer's ring holds a row
+    for each tick that replayed (every tick but a signature's first)."""
+    spec = _NS["arcs"]()[arc]
+    runs = []
+    for api in (_Port, _MarkedPort):
+        monkeypatch.setattr(TFX, "time", _NS["Clock"]())
+        got = {}
+        ex, _ = _NS["run_arc"](spec, api, got, arc,
+                               ticks=list(enumerate(spec["ticks"])))
+        runs.append((got, ex))
+    (plain, _), (marked, ex) = runs
+    _compare(ref, marked, arc)
+    assert plain.keys() == marked.keys()
+    for k in plain:
+        if "/metrics" in k:
+            assert str(marked[k]) == str(plain[k]), k
+        else:
+            assert_bitwise(marked[k], plain[k], k)
+    ds = ex.tracer.device_stages()
+    assert ds["ticks"] == len(spec["ticks"]) - ex.trace_count
+    assert "obs:all_to_all_region" in ds["stages"]
 
 
 def test_arcs_exercise_what_they_name(ref):

@@ -147,6 +147,38 @@ def test_port_equals_jax_executor_bitwise(fused):
     _assert_tree(convert.state_to_numpy(ts_), _jax_state(js))
 
 
+@pytest.mark.parametrize("fused", [False, True], ids=["staged", "fused"])
+def test_marked_tick_equals_jax_and_the_unmarked(fused, monkeypatch):
+    """A tracer with device marks changes no bit of a tick: the marked
+    port against the JAX executor every tick, as above, and its
+    outputs, state and lineage bitwise the unmarked port's on the same
+    clock; the ring holds a row for each replayed tick."""
+    jx, tx = _pair(fused=fused)
+    tr = Tracer(device_marks=True)
+    tx.set_tracer(tr)
+    js, ts_ = jx.init_state(D), tx.init_state(D)
+    feed = _feed()
+    marked = []
+    for i, (items, ts) in enumerate(feed):
+        js, jo = jx.step(js, jnp.asarray(items), jnp.asarray(ts))
+        ts_, to = tx.step(ts_, items, ts)
+        _assert_out(to, jo, f"tick {i}")
+        marked.append(to)
+    _assert_tree(convert.state_to_numpy(ts_), _jax_state(js))
+    monkeypatch.setattr(TX, "time", _Clock())
+    _, plain = _pair(fused=fused)
+    ps = plain.init_state(D)
+    for i, (items, ts) in enumerate(feed):
+        ps, po = plain.step(ps, items, ts)
+        for f in po._fields:
+            assert_bitwise(getattr(marked[i], f), getattr(po, f),
+                           f"tick {i} {f}")
+    _assert_tree(convert.state_to_numpy(ts_), convert.state_to_numpy(ps))
+    assert_bitwise(tx._lineage, plain._lineage, "lineage bank")
+    assert tx.trace_count == plain.trace_count == 1
+    assert tr.device_stages()["ticks"] == len(feed) - 1
+
+
 def test_run_overlap_equals_direct_and_int8_completes():
     """(c): overlapped ingest staging changes timing only -- bitwise the
     direct run; int8 staging is lossy but delivers every batch."""
@@ -299,8 +331,8 @@ def test_enabled_tracer_marks_the_tick_in_a_profile():
             state, _ = tx.step(state, items, ts)
         names.append({e.name for e in prof.events()})
     assert not {"stream.dispatch", "obs:window"} & names[0]
-    assert {"stream.dispatch", f"stream_step#{tx._step_num}",
-            "obs:window", "obs:pipeline"} <= names[1]
+    assert {"stream.prepare", "stream.dispatch", "obs:window",
+            "obs:pipeline"} <= names[1]
 
 
 def test_stream_config_validation():
