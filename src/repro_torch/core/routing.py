@@ -21,6 +21,7 @@ side, as the reference's do, and exchange through
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -41,14 +42,29 @@ class DispatchPlan(NamedTuple):
 def make_plan(dest: torch.Tensor, num_dest: int,
               capacity: int) -> DispatchPlan:
     """Deterministic first-come-first-kept bucketing (cumsum positions)
-    of ``dest [..., N]``: each leading index is planned on its own."""
+    of ``dest [..., N]``: each leading index is planned on its own.
+
+    An item's position is the count of earlier items of its bucket, as
+    the reference's dim-0 ``cumsum`` of an ``[N, D]`` one-hot gives it.
+    Here the one-hot is bucket-major, ``[B, D, N]`` for ``B`` leading
+    rows, and scanned once flat: a 1-D scan runs across the whole card,
+    where a scan over an outer dim walks each column's N items in turn.
+    A ``(b, d)`` segment's running count is the flat one less the items
+    of the segments before it."""
     dest = dest.to(torch.int32)
-    onehot = torch.nn.functional.one_hot(dest.long(), num_dest) \
-        .to(torch.int32)                                     # [..., N, D]
-    position = torch.cumsum(onehot, -2, dtype=torch.int32) * onehot
-    pos = position.sum(-1, dtype=torch.int32) - 1           # [..., N]
+    lead, n = dest.shape[:-1], dest.shape[-1]
+    flat = dest.reshape(math.prod(lead), n).long()           # [B, N]
+    bucket = torch.arange(num_dest, device=dest.device)
+    onehot = (flat[:, None] == bucket[:, None]).to(torch.int32)  # [B, D, N]
+    total = onehot.sum(-1, dtype=torch.int32)                # [B, D]
+    run = torch.cumsum(onehot.reshape(-1), 0, dtype=torch.int32)
+    before = torch.cumsum(total.reshape(-1), 0, dtype=torch.int32) \
+        - total.reshape(-1)                                  # [B * D]
+    own = torch.take_along_dim(run.reshape(onehot.shape), flat[:, None], 1)
+    base = torch.take_along_dim(before.reshape(total.shape), flat, 1)
+    pos = (own[:, 0] - base - 1).reshape(dest.shape)         # [..., N]
     keep = pos < capacity
-    total = onehot.sum(-2, dtype=torch.int32)                # [..., D]
+    total = total.reshape(lead + (num_dest,))                # [..., D]
     counts = torch.clamp(total, max=capacity)
     return DispatchPlan(dest, pos, keep, total - counts, counts)
 

@@ -15,7 +15,9 @@ the compile-once steps (``runtime.capture``) graphed against
 fleet tick with masks and budgets changed after the
 capture, and the decode step the registry captures ahead of time; the
 replays count the launches eager makes.  The fleet tick captured with
-the tracer's device marks against the tick captured without.  Needs a CUDA card and
+the tracer's device marks against the tick captured without.  The
+dispatch plans at the fleet tick's and the AR step's shapes against the
+CPU, and scanned flat.  Needs a CUDA card and
 ``nvcc``; skips without a card.  Imports no JAX, so it runs on the
 machine with the card: ``PYTHONPATH=src python -m pytest -q
 --noconftest tests/test_torch_card.py`` (``tests/conftest.py`` imports
@@ -130,6 +132,46 @@ def test_decode_attn_clusters_repeat_bitwise(card, dtype, d, b, h, hkv, s,
     assert torch.isfinite(first_out.float()).all()
     zero = [i for i in range(b) if pattern[i % len(pattern)] == 0]
     assert (first_out[zero] == 0).all()
+
+
+# -- the dispatch plans: one flat scan ----------------------------------------
+
+#: (shape, buckets, capacity) of the fleet tick's plans (hop 1's 8
+#: shards x 2,048 candidates to 4 core ranks and the shed bucket, the fog
+#: compaction of 8 x 4,096 received slots, the core's two compactions of
+#: 768) and the AR step's 65,536 posts to 256 ranks
+PLAN_SHAPES = (((2, 4, 2048), 5, 1024), ((2, 4, 4096), 2, 384),
+               ((768,), 2, 512), ((65536,), 256, 1024))
+
+
+def test_dispatch_plans_equal_the_cpu_and_scan_flat(card):
+    """``core.routing.make_plan`` on the card at the fleet tick's and the
+    AR step's shapes equals the CPU's plan bitwise (each shape's first
+    bucket overfull, so capacity binds), and no kernel it launches scans
+    an outer dim."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import routing as R
+    gen = torch.Generator().manual_seed(32)
+    dests = [((torch.rand(shape, generator=gen) ** 3) * nd).to(torch.int32)
+             for shape, nd, _ in PLAN_SHAPES]
+    cards = [d.to(card) for d in dests]
+    for d, (_, nd, cap) in zip(cards, PLAN_SHAPES):    # warm-up
+        R.make_plan(d, nd, cap)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        plans = [R.make_plan(d, nd, cap)
+                 for d, (_, nd, cap) in zip(cards, PLAN_SHAPES)]
+        torch.cuda.synchronize()
+    for d, p, (shape, nd, cap) in zip(dests, plans, PLAN_SHAPES):
+        want = R.make_plan(d, nd, cap)
+        assert int(want.overflow.sum()) > 0, shape
+        for f, x, y in zip(want._fields, p, want):
+            assert x.dtype == y.dtype and x.shape == y.shape, (shape, f)
+            assert torch.equal(x.cpu(), y), f"{shape} {f} differs"
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert kernels, "the profiler saw no kernel"
+    assert not [k for k in kernels if "scan_outer_dim" in k], kernels
 
 
 # -- the compile-once step: graphed against capture.disable() -------------------

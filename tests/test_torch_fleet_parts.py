@@ -149,19 +149,58 @@ def test_ingest_replay_and_mode_are_exclusive():
 
 # -- core.routing: batched plans and the exchange helpers --------------------
 
-@pytest.mark.parametrize("seed", range(4))
-def test_make_plan_and_buckets_with_a_leading_dim(seed):
+#: (shape, buckets, capacity, draw) of a plan: the first is the small
+#: batch of four rows; then the fleet's plans (hop 1's escalation plan
+#: of 8 shards' 2,048 candidates to 4 ranks and the shed bucket, the fog
+#: compaction of each region rank's 4,096 received slots, the core's
+#: compaction of 768 slots), an AR-like plan of 4,096 posts to 256
+#: ranks, and the edge cases: every item in one bucket, an empty bucket,
+#: capacity 1, one item a row.  ``draw`` picks the destinations:
+#: uniform, skewed (each row's bucket shares drawn from a Dirichlet, so
+#: some rows overflow), all in bucket 2, or none in the last bucket.
+PLAN_CASES = {
+    "small": ((4, 20), 5, 3, "uniform"),
+    "fleet_hop1": ((2, 4, 2048), 5, 1024, "skewed"),
+    "fleet_fog": ((2, 4, 4096), 2, 384, "skewed"),
+    "fleet_core": ((768,), 2, 512, "skewed"),
+    "ar_posts": ((4096,), 256, 16, "uniform"),
+    "one_bucket": ((4, 20), 5, 3, "one"),
+    "empty_bucket": ((4, 20), 5, 3, "empty"),
+    "capacity_1": ((3, 16), 4, 1, "uniform"),
+    "n_1": ((4, 1), 3, 1, "uniform"),
+}
+
+
+def _plan_dest(rng, shape, nd, draw):
+    if draw == "uniform":
+        return rng.integers(0, nd, shape).astype(np.int32)
+    if draw == "skewed":
+        rows = [rng.choice(nd, shape[-1], p=rng.dirichlet(np.ones(nd)))
+                for _ in range(int(np.prod(shape[:-1])))]
+        return np.stack(rows).reshape(shape).astype(np.int32)
+    if draw == "one":
+        return np.full(shape, 2, np.int32)
+    return rng.integers(0, nd - 1, shape).astype(np.int32)
+
+
+@pytest.mark.parametrize("case,seed",
+                         [pytest.param("small", s, id=str(s))
+                          for s in range(4)]
+                         + [(c, s) for c in list(PLAN_CASES)[1:]
+                            for s in range(2)])
+def test_make_plan_and_buckets_with_a_leading_dim(case, seed):
     """A batched plan, scatter and gather equal the reference's, one
-    leading row at a time."""
+    leading row at a time, at the fleet's and an AR-like plan's shapes
+    and at the edge cases."""
+    shape, nd, cap, draw = PLAN_CASES[case]
     rng = np.random.default_rng(seed)
-    nd, cap = 5, 3
-    dest = rng.integers(0, nd, (4, 20)).astype(np.int32)
-    items = rng.standard_normal((4, 20, 2)).astype(np.float32)
-    items[0, 0] = -0.0                  # the add's zero rounds it to +0
+    dest = _plan_dest(rng, shape, nd, draw)
+    items = rng.standard_normal(shape + (2,)).astype(np.float32)
+    items[(0,) * len(shape)] = -0.0     # the add's zero rounds it to +0
     plan = TR.make_plan(_t(dest), nd, cap)
     buckets = TR.scatter_to_buckets(_t(items), plan, nd, cap)
     back = TR.gather_from_buckets(buckets, plan)
-    for b in range(4):
+    for b in np.ndindex(shape[:-1]):
         jp = JR.make_plan(jnp.asarray(dest[b]), nd, cap)
         for f in JR.DispatchPlan._fields:
             assert_bitwise(getattr(plan, f)[b], getattr(jp, f), f"{b} {f}")
