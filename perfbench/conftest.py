@@ -1,6 +1,6 @@
 """The harness's own tests run its cells on the CPU at a size a test run
-holds: every width as configured, the batch, ring, windows' budgets and
-pool cut (``shrink``)."""
+holds: every width as configured, each system's sizes cut by its
+``small`` (``shrink``)."""
 from __future__ import annotations
 
 import time
@@ -47,17 +47,9 @@ def cell(name: str) -> dict:
 def shrink(cell: dict) -> dict:
     """``cell`` at a CPU test's size, in place (a module-level function:
     the ranks' processes import it)."""
-    cfg, tr = dict(cell["config"]), dict(cell["traffic"])
-    if cfg["system"] == "stream":
-        cfg.update(micro_batch=1024, capacity=8192, dedupe_window=2048,
-                   core_capacity=8)
-    else:
-        cfg.update(micro_batch=512, capacity=4096, core_budget=16,
-                   fog_budget=12)
-    cfg.update(check_one_in=3, warmup_ticks=2)
-    tr.update(pool_ticks=6, hot_run=2,
-              nan_rows=min(tr["nan_rows"], 4))
-    cell["config"], cell["traffic"] = cfg, tr
+    cfg, tr = cell["system"].small(cell["config"], cell["traffic"])
+    cell["config"] = dict(cfg, check_one_in=3, warmup_ticks=2)
+    cell["traffic"] = tr
     return cell
 
 

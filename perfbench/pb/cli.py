@@ -30,11 +30,21 @@ def parse(argv) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def verdict(numbers: dict, limits: dict) -> tuple[bool, list]:
+    """Each compared number beside its limit; ``correct`` when every
+    number keeps its limit (``ticks_checked`` is a floor)."""
+    rows, ok = [], True
+    for k, v in numbers.items():
+        lim = limits[k]
+        good = v >= lim if k == "ticks_checked" else v <= lim
+        ok &= bool(good)
+        rows.append((k, v, lim))
+    return ok, rows
+
+
 def result(cell: dict, run: dict, trace: bool, kind: str) -> dict:
-    """The run's result line (without ``checks``)."""
-    from perfbench.reference import compare as RC
-    limits = cell["config"]["limits"]
-    correct, rows = RC.verdict(run["numbers"], limits)
+    """The run's result line (with ``checks`` last)."""
+    correct, rows = verdict(run["numbers"], cell["config"]["limits"])
     metrics = {}
     for m in (cell["per_layer"] if trace else cell["end_to_end"]):
         v = cell["readers"][m["name"]].read(run, cell)

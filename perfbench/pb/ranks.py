@@ -75,14 +75,16 @@ def foreign_modules() -> list:
 def measure(root: Path, name: str, n: int, seed: int, seconds: float,
             trace: bool, t_start: float, device: str = "cuda",
             resize=None, patch=None) -> dict:
-    """Every rank's run, merged: rank 0's window and trace, the fullest
-    card's peak, the slowest rank's ticks, the ranks' checks.
+    """Every rank's run, merged (``merge``, the numbers by the system's
+    ``merge_numbers``).
     ``resize(cell)``: a module-level function that shrinks the cell in
     place, ``patch``: one that breaks the program (the harness's own
     tests on the CPU)."""
     import faulthandler
 
+    from perfbench.pb import spec
     from repro_torch.launch import mesh as M
+    system = spec.cell(root, name)["system"]
     faulthandler.dump_traceback_later(WATCHDOG_S + TEARDOWN_S + 30,
                                       exit=True)
     try:
@@ -90,13 +92,14 @@ def measure(root: Path, name: str, n: int, seed: int, seconds: float,
                        trace, t_start, resize, patch)
     finally:
         faulthandler.cancel_dump_traceback_later()
-    return merge(runs, trace)
+    return merge(runs, trace, system.merge_numbers)
 
 
-def merge(runs: list, trace: bool) -> dict:
+def merge(runs: list, trace: bool, merge_numbers) -> dict:
     """The ranks' runs as one: rank 0's window and trace, the fullest
     card's peak, the slowest rank's ticks, the ranks' mean busy and
-    traced seconds and collective bytes, every rank's checks."""
+    traced seconds and collective bytes, every rank's checks (merged by
+    the system's ``merge_numbers``)."""
     run = dict(runs[0])
     run["peak_bytes"] = max(r["peak_bytes"] for r in runs)
     run["rank_tick_s"] = np.max([r["tick_s"] for r in runs], axis=0).tolist()
@@ -105,11 +108,6 @@ def merge(runs: list, trace: bool) -> dict:
     if trace:
         run["traced_s"] = tuple(float(np.mean([r["graphed"][k] for r in runs]))
                                 for k in ("busy_s", "window_s"))
-    nums = [r["numbers"] for r in runs]
-    run["numbers"] = dict(
-        window_mismatches=sum(x["window_mismatches"] for x in nums),
-        counter_mismatches=sum(x["counter_mismatches"] for x in nums),
-        core_gap=max(x["core_gap"] for x in nums),
-        ticks_checked=min(x["ticks_checked"] for x in nums))
+    run["numbers"] = merge_numbers([r["numbers"] for r in runs])
     run["foreign"] = sorted({m for r in runs for m in r["foreign"]})
     return run

@@ -2,10 +2,10 @@
 
 ``BENCHMARK.json`` names the cells, the metrics and the bounds.  A
 cell's configuration is the file its entry names (its ``system`` names
-``<paths[0]>/systems/<system>.py``, the program's entry it drives), its
-traffic ``<paths[0]>/traffic/<traffic>.json`` (read by the one
-generator, ``pb/feed.py``), and each metric's reader
-``<paths[0]>/metrics/<name>.py``.  Adding a cell, a configuration, a
+``<paths[0]>/systems/<system>.py``: the program's entry it drives, its
+feed, reference and check, as ``systems/__init__.py`` sets out), its
+traffic ``<paths[0]>/traffic/<traffic>.json`` (read by that system's
+feed), and each metric's reader ``<paths[0]>/metrics/<name>.py``.  Adding a cell, a configuration, a
 traffic mix or a metric adds files and entries; nothing here changes.
 """
 from __future__ import annotations

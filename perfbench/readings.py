@@ -24,17 +24,18 @@ def main(argv) -> int:
     args = ap.parse_args(argv)
     import torch
 
-    from perfbench.pb import runner, spec
+    from perfbench.pb import spec
     from perfbench.pb.feed import Feed, Sampler
     from perfbench.reference import compare as RC
     from perfbench.reference import stream as RS
+    from perfbench.systems import stream as ST
     cell = spec.cell(ROOT, args.workload)
     cfg = cell["config"]
     torch.backends.cuda.matmul.allow_tf32 = False
-    shards = cfg.get("num_regions", 1) * cfg.get("edges_per_region", 1)
+    shards = ST.all_shards(cfg)
     for seed in args.seeds:
         t0 = time.perf_counter()
-        p = torch.as_tensor(runner.core_weights(cfg, seed), device="cuda")
+        p = torch.as_tensor(ST.core_weights(cfg, seed), device="cuda")
         feed = Feed(cell["traffic"], cfg, range(shards), seed, "cuda")
         ref = RS.Stream(cfg, p.double(), "cuda")
         sampled = Sampler(seed, cfg["check_one_in"])

@@ -127,18 +127,6 @@ def final_diffs(final: dict, ref_final: dict, shards: slice) -> dict:
     return out
 
 
-def verdict(numbers: dict, limits: dict) -> tuple[bool, list]:
-    """Each compared number beside its limit; ``correct`` when every
-    number keeps its limit (``ticks_checked`` is a floor)."""
-    rows, ok = [], True
-    for k, v in numbers.items():
-        lim = limits[k]
-        good = v >= lim if k == "ticks_checked" else v <= lim
-        ok &= bool(good)
-        rows.append((k, v, lim))
-    return ok, rows
-
-
 def tf32(x: torch.Tensor) -> torch.Tensor:
     """``x`` float32 rounded to TF32 (10 mantissa bits, to nearest, ties
     to even), as the tensor cores read a float32 operand."""

@@ -2,8 +2,8 @@
 edge fleet, ``repro_torch.stream.fleet.FleetExecutor``, on one card
 (every shard a row of one card's tensors) or laid over ranks (one
 process a card, each holding its consecutive run of the shards; the
-exchanges are the program's collectives).  See ``stream.py`` for what a
-system module gives."""
+exchanges are the program's collectives).  Its weights, feed, reference,
+check and traced stretches are the stream's (``stream.py``)."""
 from __future__ import annotations
 
 import torch
@@ -67,5 +67,14 @@ class Fleet:
         self.ex = self.state = None
 
 
-def build(cfg: dict, p: torch.Tensor, device, ranks=None):
-    return Fleet(cfg, p, device, ranks)
+def build(cfg: dict, params, device, ranks=None):
+    return Fleet(cfg, torch.as_tensor(params, device=device), device, ranks)
+
+
+params, feed, check = ST.params, ST.feed, ST.check
+merge_numbers, stretches = ST.merge_numbers, ST.stretches
+
+
+def small(cfg: dict, traffic: dict) -> tuple[dict, dict]:
+    return (dict(cfg, micro_batch=512, capacity=4096, core_budget=16,
+                 fog_budget=12), ST.small_traffic(traffic))

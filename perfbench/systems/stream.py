@@ -1,16 +1,109 @@
 """The system under test for a ``"system": "stream"`` configuration: one
 edge gateway, ``repro_torch.stream.StreamExecutor``, built from the
-configuration file as it states it.
-
-Every system module gives ``build(cfg, p, device, ranks) -> System``;
-a ``System`` offers a tick with ``step(items [S, B, D], ts [S, B])``
-(no synchronize), reads its counters with ``counters()`` and a tick's
-outputs with ``outputs(out)`` (both on the host, in the reference's
-names), and frees itself with ``close()``.
+configuration file as it states it.  It gives what ``systems/__init__.py``
+asks of a system module: the core's weights, the stream feed
+(``pb/feed.py``), the plain stream reference (``reference/stream.py``)
+with its comparison (``reference/compare.py``), and the two traced
+stretches of a stream (eager stage spans, then the program's own marks);
+``fleet.py`` shares all of them.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from perfbench.pb import devtrace, progtrace
+from perfbench.pb.feed import Feed, sub_seed
+from perfbench.reference import compare as RC
+from perfbench.reference import stream as RS
+
+
+def core_weights(cfg: dict, seed: int) -> np.ndarray:
+    """The core's ``[5 + D, 5 + D]`` float32 weights, from the seed."""
+    w = 5 + cfg["features"]
+    rng = np.random.default_rng(sub_seed(seed, 2))
+    return (rng.standard_normal((w, w)) * cfg["core_weight_scale"]) \
+        .astype(np.float32)
+
+
+params = core_weights
+
+
+def all_shards(cfg: dict) -> int:
+    return cfg.get("num_regions", 1) * cfg.get("edges_per_region", 1)
+
+
+class StreamFeed:
+    """The stream feed as the runner takes it: tick ``t``'s ``(items,
+    ts)`` for the program's shards, and the rows a tick offers over every
+    shard of the run (ranks included)."""
+
+    def __init__(self, traffic: dict, cfg: dict, shards, seed: int, device):
+        self.pool = Feed(traffic, cfg, shards, seed, device)
+        self.items_per_tick = cfg["micro_batch"] * all_shards(cfg)
+
+    def tick(self, t: int) -> tuple:
+        return self.pool.tick(t)
+
+
+feed = StreamFeed
+
+
+def check(cfg: dict, params, traffic: dict, seed: int, device, ticks: dict,
+          final: dict, n_ticks: int, shards: range) -> tuple[dict, dict]:
+    """The plain reference (float64 core) over every shard's feed, made
+    again from the seed, held against the program's ``shards``."""
+    ref = RS.Stream(cfg, torch.as_tensor(params, device=device)
+                    .to(torch.float64), device)
+    whole = Feed(traffic, cfg, range(all_shards(cfg)), seed, device)
+    ref_ticks = ref.run(whole, n_ticks, set(ticks))
+    mine = slice(shards.start, shards.stop)
+    return (RC.compare(ticks, final, ref_ticks, ref.counters(), mine),
+            RC.final_diffs(final, ref.counters(), mine))
+
+
+def merge_numbers(nums: list) -> dict:
+    """The ranks' compared numbers: mismatches summed, the widest gap,
+    the fewest ticks checked."""
+    return dict(
+        window_mismatches=sum(x["window_mismatches"] for x in nums),
+        counter_mismatches=sum(x["counter_mismatches"] for x in nums),
+        core_gap=max(x["core_gap"] for x in nums),
+        ticks_checked=min(x["ticks_checked"] for x in nums))
+
+
+def eager_stages(tk, cfg: dict, device, scratch) -> dict:
+    """``eager_ticks`` eager ticks with the program's tracer on: device
+    time by stage span (``devtrace.stages``)."""
+    from repro_torch.obs.trace import NULL_TRACER, Tracer
+    tk.system.set_tracer(Tracer())
+
+    def eager():
+        with tk.system.eager():
+            for _ in range(cfg["eager_ticks"]):
+                tk.tick()
+    st = devtrace.stages(devtrace.capture(eager, scratch))
+    tk.system.set_tracer(NULL_TRACER)
+    return dict(stages=st, eager_ticks=cfg["eager_ticks"])
+
+
+def program_marks(tk, cfg: dict, device, scratch) -> dict:
+    """The program's own marked graphed ticks (``pb/progtrace.py``)."""
+    return {"program": progtrace.stretch(tk)}
+
+
+stretches = [eager_stages, program_marks]
+
+
+def small_traffic(traffic: dict) -> dict:
+    return dict(traffic, pool_ticks=6, hot_run=2,
+                nan_rows=min(traffic["nan_rows"], 4))
+
+
+def small(cfg: dict, traffic: dict) -> tuple[dict, dict]:
+    return (dict(cfg, micro_batch=1024, capacity=8192, dedupe_window=2048,
+                 core_capacity=8), small_traffic(traffic))
+
 
 #: the configuration's consequence names -> the program's codes
 CODE_NAMES = ("none", "store_edge", "send_core", "trigger_topology",
@@ -101,8 +194,8 @@ class Gateway:
         self.ex = self.state = None
 
 
-def build(cfg: dict, p: torch.Tensor, device, ranks=None):
+def build(cfg: dict, params, device, ranks=None):
     if ranks is not None:
         raise ValueError("a gateway runs on one card")
-    return Gateway(cfg, p, device)
+    return Gateway(cfg, torch.as_tensor(params, device=device), device)
 

@@ -12,7 +12,7 @@ import time
 import pytest
 
 from perfbench.conftest import ROOT, SEED, cell, run_small, shrink
-from perfbench.reference import compare as RC
+from perfbench.pb.cli import verdict
 
 
 @contextlib.contextmanager
@@ -85,7 +85,7 @@ def exchange_left_out():
 
 
 def _correct(run: dict, name: str) -> bool:
-    ok, _ = RC.verdict(run["numbers"], cell(name)["config"]["limits"])
+    ok, _ = verdict(run["numbers"], cell(name)["config"]["limits"])
     return ok
 
 

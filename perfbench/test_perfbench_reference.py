@@ -7,9 +7,10 @@ import torch
 
 from perfbench.conftest import SEED, cell, run_small, shrink
 from perfbench.pb import feed as F
-from perfbench.pb import runner
+from perfbench.pb.cli import verdict
 from perfbench.reference import compare as RC
 from perfbench.reference import stream as RS
+from perfbench.systems import stream as ST
 
 
 def _reference(name: str, ticks: int, seed: int = SEED):
@@ -17,7 +18,7 @@ def _reference(name: str, ticks: int, seed: int = SEED):
     cfg = c["config"]
     shards = cfg.get("num_regions", 1) * cfg.get("edges_per_region", 1)
     feed = F.Feed(c["traffic"], cfg, range(shards), seed, "cpu")
-    p = torch.as_tensor(runner.core_weights(cfg, seed)).double()
+    p = torch.as_tensor(ST.core_weights(cfg, seed)).double()
     ref = RS.Stream(cfg, p, "cpu")
     done = ref.run(feed, ticks, set(range(ticks)))
     return c, feed, ref, done
@@ -82,7 +83,7 @@ def test_program_matches_reference_on_cpu():
         assert nums["window_mismatches"] == 0, (name, nums)
         assert nums["counter_mismatches"] == 0, (name, nums)
         assert nums["ticks_checked"] >= 2
-        ok, _ = RC.verdict(nums, cell(name)["config"]["limits"])
+        ok, _ = verdict(nums, cell(name)["config"]["limits"])
         assert ok, (name, nums)
 
 
@@ -128,7 +129,7 @@ def test_fresh_row_taken_for_a_resend_reads_incorrect(monkeypatch):
         return items, rel
     monkeypatch.setattr(F, "_shard_pool", planted)
     run = run_small(c)
-    ok, _ = RC.verdict(run["numbers"], c["config"]["limits"])
+    ok, _ = verdict(run["numbers"], c["config"]["limits"])
     assert not ok, run["numbers"]
     got, want = run["counter_diffs"]["items_deduped"]
     assert got[0] == want[0] + 1, (got, want)
@@ -141,7 +142,7 @@ def test_tf32_control_fails_the_core_limit():
     for name in ("gateway.redeliver", "fleet_8x2.hotcold"):
         c, feed, ref, done = _reference(name, 8, SEED + 3)
         cfg = c["config"]
-        p32 = torch.as_tensor(runner.core_weights(cfg, SEED + 3))
+        p32 = torch.as_tensor(ST.core_weights(cfg, SEED + 3))
         nums = RC.control_numbers(cfg, done, p32)
         assert nums["window_mismatches"] == 0
         limit = cfg["limits"]["core_gap"]

@@ -12,7 +12,7 @@ import pytest
 
 from perfbench.conftest import bench_with_set_aside, cell, run_small
 from perfbench.pb import spec as S
-from perfbench.reference import compare as RC
+from perfbench.pb.cli import verdict
 
 ROOT = Path(__file__).resolve().parents[1]
 KEYS = {"command", "paths", "run_seconds", "configs", "workloads",
@@ -153,7 +153,7 @@ def test_dropped_in_config_traffic_and_metric(tmp_path):
     assert "rows_per_tick" not in {m["name"] for m in old["per_layer"]}
     # and the harness runs the new cell, reads the new metric, checks it
     run = run_small(c)
-    ok, _ = RC.verdict(run["numbers"], c["config"]["limits"])
+    ok, _ = verdict(run["numbers"], c["config"]["limits"])
     assert ok, run["numbers"]
     assert c["readers"]["rows_per_tick"].read(run, c) \
         == c["config"]["micro_batch"]
