@@ -29,7 +29,14 @@ system only through what its module gives:
   under the profiler): each ``(ticker, cfg, device, scratch) -> dict``,
   merged into the run for the readers;
 - ``small(cfg, traffic) -> (cfg, traffic)``: the sizes a CPU test run
-  holds, every width as configured.
+  holds, every width as configured;
+- ``sample_trace(cfg) -> (record, expected)``: a made-up stand-in for
+  what only the card gives a ``--trace 1`` run of this system: the
+  entries its ``stretches`` add to the run, and under ``graphed`` a
+  ``kernels`` dict of its kernels' durations (added to the runner's
+  own); ``expected`` maps each per-layer metric whose value a CPU test
+  pins to that value.  Like ``small``, it serves the harness's own
+  tests only.
 
 A ``System`` offers a tick with ``step(*args)`` (no synchronize), reads
 its counters with ``counters()`` and a tick's outputs with

@@ -73,6 +73,7 @@ def build(cfg: dict, params, device, ranks=None):
 
 params, feed, check = ST.params, ST.feed, ST.check
 merge_numbers, stretches = ST.merge_numbers, ST.stretches
+sample_trace = ST.sample_trace
 
 
 def small(cfg: dict, traffic: dict) -> tuple[dict, dict]:

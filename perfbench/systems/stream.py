@@ -4,15 +4,15 @@ configuration file as it states it.  It gives what ``systems/__init__.py``
 asks of a system module: the core's weights, the stream feed
 (``pb/feed.py``), the plain stream reference (``reference/stream.py``)
 with its comparison (``reference/compare.py``), and the two traced
-stretches of a stream (eager stage spans, then the program's own marks);
-``fleet.py`` shares all of them.
+stretches of a stream (eager stage spans, then the program's own marks)
+with a sample of what they record; ``fleet.py`` shares all of them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from perfbench.pb import devtrace, progtrace
+from perfbench.pb import devtrace, progtrace, yardstick
 from perfbench.pb.feed import Feed, sub_seed
 from perfbench.reference import compare as RC
 from perfbench.reference import stream as RS
@@ -93,6 +93,39 @@ def program_marks(tk, cfg: dict, device, scratch) -> dict:
 
 
 stretches = [eager_stages, program_marks]
+
+
+def sample_trace(cfg: dict) -> tuple[dict, dict]:
+    """Made-up card readings of a stream's traced run: the window
+    kernel's calls at four times its least time, the eager stages, and a
+    ``progtrace.stretch`` record of 4 marked ticks (device marks in ns,
+    host spans in s); and what the readers read from them."""
+    bound = yardstick.fused_tick_bound_s(cfg)
+    n = 4
+    program = dict(
+        openings=[{"ticks": list(range(n)), "spans": [
+            ("obs:fleet_watermark", 0, [0] * n, [50_000] * n),
+            ("obs:ingest", 0, [60_000] * n, [560_000] * n),
+            ("obs:window", 1, [70_000] * n, [90_000] * n),
+            ("obs:exchange_core", 0, [600_000] * n, [1_600_000] * n)]}],
+        stages={"obs:fleet_watermark": [50_000] * n,
+                "obs:exchange_core": [1_000_000] * n,
+                "obs:core_commit": [200_000] * n},
+        host={"fleet.prepare": [1e-4] * n, "step.copy_in": [2e-4] * n,
+              "step.launch": [3e-4] * n, "step.copy_out": [4e-4] * n},
+        host_start={"step.launch": [float(t) for t in range(n)]},
+        graph_host_s=[[t + 2.5e-4, t + 3e-3] for t in range(n)])
+    record = dict(
+        graphed=dict(kernels={"fused_tick_kernel_span": [bound * 4] * 16}),
+        eager_ticks=2,
+        stages={"obs:admission": 1e-3, "obs:pipeline": 6e-4,
+                "obs:fleet_watermark": 1e-4, "obs:exchange_core": 2e-3,
+                "obs:core_commit": 4e-4},
+        program=program)
+    return record, {"fused_tick_roofline": 25.0,
+                    "edge_stages_graphed_ms": 0.5,
+                    "exchange_graphed_ms": 1.25, "launch_wait_ms": 0.25,
+                    "step_launch_host_ms": 0.3, "step_prepare_host_ms": 0.7}
 
 
 def small_traffic(traffic: dict) -> dict:

@@ -3,15 +3,22 @@ a toy system, its configuration, traffic and plain reference are files
 of a benchmark of its own, found by name (``spec.cell``), run on the CPU
 (``runner.measure``) and judged (``cli.result``) with no harness file
 edited.  A sound run reads ``correct`` true, one whose step is off by
-one reads false.  And the harness's own modules name no stream
-concept."""
+one reads false.  Dropped into a copy of this benchmark with a traced
+stretch and a per-layer reader of its own, its cell passes every test
+that runs over each cell or each system module.  And the harness's own
+modules name no stream concept."""
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
+import os
 import re
 import shutil
+import subprocess
+import sys
 import time
+import xml.etree.ElementTree as ET
 
 import pytest
 
@@ -20,8 +27,11 @@ from perfbench.pb import cli, spec
 
 #: the toy: each step adds a tick's seeded integer vector and a seeded
 #: offset into an int64 accumulator on the device; the plain reference
-#: sums the same feed, made again from the seed, on the host
+#: sums the same feed, made again from the seed, on the host; its traced
+#: stretch times a few more ticks on the host
 TOY = '''
+import time
+
 import numpy as np
 import torch
 
@@ -94,11 +104,32 @@ def merge_numbers(nums):
                 ticks_checked=min(x["ticks_checked"] for x in nums))
 
 
-stretches = []
+def timed_ticks(tk, cfg, device, scratch):
+    a = time.perf_counter()
+    for _ in range(cfg["trace_ticks"]):
+        tk.tick()
+    tk.sync()
+    return {"toy": {"ticks": cfg["trace_ticks"],
+                    "seconds": time.perf_counter() - a}}
+
+
+stretches = [timed_ticks]
+
+
+def sample_trace(cfg):
+    return {"toy": {"ticks": 4, "seconds": 2e-3}}, {"toy_tick_ms": 0.5}
 
 
 def small(cfg, traffic):
     return dict(cfg, width=1024), traffic
+'''
+
+#: the toy's own per-layer reader: host milliseconds a tick of its
+#: stretch
+TOY_READER = '''
+def read(run, cell):
+    t = run.get("toy")
+    return None if not t else t["seconds"] / t["ticks"] * 1e3
 '''
 
 CONFIG = {"system": "toy", "source": "a test", "width": 1 << 16,
@@ -204,20 +235,94 @@ STREAM_WORDS = ("micro_batch", "num_regions", "Feed(", "reference.stream",
                 "core_weights")
 
 
+#: what the result test, which runs every cell, names neither: the
+#: stream's window kernel, its spans and the frozen yardstick
+RESULT_WORDS = ("fused_tick", "obs:", "yardstick")
+
+
 @pytest.mark.parametrize("path", ["pb/runner.py", "pb/cli.py", "pb/ranks.py",
-                                  "conftest.py"])
+                                  "conftest.py", "test_perfbench_result.py"])
 def test_harness_names_no_stream_concept(path):
     text = (ROOT / "perfbench" / path).read_text()
-    found = [w for w in STREAM_WORDS if re.search(re.escape(w), text)]
+    words = STREAM_WORDS + (RESULT_WORDS if path.startswith("test_") else ())
+    found = [w for w in words if re.search(re.escape(w), text)]
     assert not found, (path, found)
 
 
-@pytest.mark.parametrize("name", ["stream", "fleet"])
+SYSTEMS = sorted(p.stem for p in (ROOT / "perfbench/systems").glob("*.py")
+                 if p.stem != "__init__")
+
+
+@pytest.mark.parametrize("name", SYSTEMS)
 def test_system_modules_give_the_contract(name):
     """Every system module gives each name ``systems/__init__.py``
     documents."""
     mod = spec._module(ROOT / "perfbench", "systems", name)
     for attr in ("params", "build", "feed", "check", "merge_numbers",
-                 "small"):
+                 "small", "sample_trace"):
         assert callable(getattr(mod, attr)), attr
     assert all(callable(s) for s in mod.stretches)
+
+
+#: the harness tests that run over every cell or every system module
+PER_CELL = ("perfbench/test_perfbench_result.py",
+            "perfbench/test_perfbench_spec.py::test_cell_parts_found_by_name",
+            "perfbench/test_perfbench_contract.py"
+            "::test_system_modules_give_the_contract")
+TOY_CASES = {"test_line_has_every_listed_metric[False-toy.ints]",
+             "test_line_has_every_listed_metric[True-toy.ints]",
+             "test_cell_parts_found_by_name[toy.ints]",
+             "test_system_modules_give_the_contract[toy]"}
+
+
+def _digests(root) -> dict:
+    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes())
+            .hexdigest() for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def test_dropped_in_system(tmp_path):
+    """A cell of a system that is not a stream, with a traced stretch and
+    a per-layer reader of its own, is new files and entries: in a copy
+    of the benchmark the tests that run over every cell or every system
+    module pass for it, and no file of the copy is edited."""
+    root = tmp_path / "bench"
+    shutil.copytree(ROOT / "perfbench", root / "perfbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
+    before = _digests(root / "perfbench")
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    here = root / "perfbench"
+    (here / "systems/toy.py").write_text(TOY)
+    (here / "configs/toy.json").write_text(json.dumps(CONFIG))
+    (here / "traffic/ints.json").write_text(json.dumps(TRAFFIC))
+    (here / "metrics/toy_tick_ms.py").write_text(TOY_READER)
+    grown = dict(bench)
+    grown["configs"] = bench["configs"] + [{
+        "name": "toy", "source": "a test",
+        "file": "perfbench/configs/toy.json", "reduced": [], "why": "a test"}]
+    grown["workloads"] = bench["workloads"] + [{
+        "name": "toy.ints", "config": "toy", "traffic": "ints", "chips": 1,
+        "why": "a test"}]
+    grown["per_layer"] = bench["per_layer"] + [{
+        "name": "toy_tick_ms", "unit": "ms", "better": "lower",
+        "source": "host_clock", "layer": "toy step", "moves": "items_per_s",
+        "workloads": ["toy.ints"]}]
+    (root / "BENCHMARK.json").write_text(json.dumps(grown, indent=1))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               PYTHONDONTWRITEBYTECODE="1")
+    junit = tmp_path / "junit.xml"
+    r = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "-p", "no:randomly", "-k", "toy", f"--junitxml={junit}",
+         *PER_CELL], cwd=root, env=env, capture_output=True, text=True,
+        timeout=180)
+    assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-2000:]
+    cases = ET.parse(junit).getroot().iter("testcase")
+    ran = {c.get("name"): [x.tag for x in c
+                           if x.tag in ("skipped", "failure", "error")]
+           for c in cases}
+    assert set(ran) == TOY_CASES, ran
+    assert not any(ran.values()), ran
+    after = _digests(root / "perfbench")
+    assert {k: after.get(k) for k in before} == before
+    assert json.loads((root / "BENCHMARK.json").read_text()) == grown

@@ -1,8 +1,9 @@
 """What the benchmark loads: nothing whose top-level module name,
 compared whole, is ``jax``, ``jaxlib``, ``flax`` or the JAX package
-``repro`` (the port, ``repro_torch``, begins with that name), and the
-reference not the port either.  Each check runs in a fresh interpreter:
-the test process itself may hold JAX."""
+``repro`` (the port, ``repro_torch``, begins with that name), and no
+module of the reference, each imported alone, the port either.  Each
+check runs in a fresh interpreter: the test process itself may hold
+JAX."""
 from __future__ import annotations
 
 import json
@@ -10,6 +11,8 @@ import os
 import shutil
 import subprocess
 import sys
+
+import pytest
 
 from perfbench.conftest import ROOT
 
@@ -33,19 +36,23 @@ print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
 REFERENCE = """
-import json, sys
+import importlib, json, sys
 sys.path[:0] = [{root!r}]
-from perfbench.reference import compare, stream
+importlib.import_module("perfbench.reference.{name}")
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
+REFERENCES = sorted(p.stem for p in (ROOT / "perfbench/reference")
+                    .glob("*.py") if p.stem != "__init__")
 
-def _top_names(code: str) -> set:
+
+def _top_names(code: str, **fields) -> set:
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     out = subprocess.run(
         [sys.executable, "-c", code.format(root=str(ROOT),
-                                           src=str(ROOT / "src"))],
+                                           src=str(ROOT / "src"),
+                                           **fields)],
         check=True, capture_output=True, text=True, env=env, timeout=300)
     return set(json.loads(out.stdout.strip().splitlines()[-1]))
 
@@ -56,8 +63,9 @@ def test_harness_loads_no_jax():
     assert not names & FOREIGN, names & FOREIGN
 
 
-def test_reference_loads_neither_jax_nor_the_port():
-    names = _top_names(REFERENCE)
+@pytest.mark.parametrize("name", REFERENCES)
+def test_reference_loads_neither_jax_nor_the_port(name):
+    names = _top_names(REFERENCE, name=name)
     assert "torch" in names
     assert not names & (FOREIGN | {"repro_torch"}), names
 

@@ -2,8 +2,9 @@
 end without ``--trace``, per layer with it), the keys the contract
 names are there and ``checks`` comes last; across ranks the ranks'
 runs merge into one.  The trace's numbers here are made up (the
-profiler's, the eager stages' and the program's marks and host spans):
-what is tested is the harness's arithmetic, not a device."""
+profiler's here, the rest from the cell's system's ``sample_trace``),
+and no system is named: what is tested is the harness's arithmetic, not
+a device."""
 from __future__ import annotations
 
 import json
@@ -12,48 +13,33 @@ import pytest
 
 from perfbench.conftest import bench_with_set_aside, cell, run_small
 from perfbench.pb import cli, ranks
-from perfbench.pb import yardstick
 
 CELLS = [w["name"] for w in bench_with_set_aside()["workloads"]]
 
 
-#: what the readers of ``_program``'s record read from it
-PROGRAM = {"edge_stages_graphed_ms": 0.5, "exchange_graphed_ms": 1.25,
-           "launch_wait_ms": 0.25, "step_launch_host_ms": 0.3,
-           "step_prepare_host_ms": 0.7}
-
-
-def _program(n: int = 4) -> dict:
-    """A ``progtrace.stretch`` record of ``n`` ticks: device marks in ns,
-    host spans in s."""
-    return dict(
-        openings=[{"ticks": list(range(n)), "spans": [
-            ("obs:fleet_watermark", 0, [0] * n, [50_000] * n),
-            ("obs:ingest", 0, [60_000] * n, [560_000] * n),
-            ("obs:window", 1, [70_000] * n, [90_000] * n),
-            ("obs:exchange_core", 0, [600_000] * n, [1_600_000] * n)]}],
-        stages={"obs:fleet_watermark": [50_000] * n,
-                "obs:exchange_core": [1_000_000] * n,
-                "obs:core_commit": [200_000] * n},
-        host={"fleet.prepare": [1e-4] * n, "step.copy_in": [2e-4] * n,
-              "step.launch": [3e-4] * n, "step.copy_out": [4e-4] * n},
-        host_start={"step.launch": [float(t) for t in range(n)]},
-        graph_host_s=[[t + 2.5e-4, t + 3e-3] for t in range(n)])
+#: the runner's own traced stretch, as it reads for any system: its
+#: graphed ticks' window, busy time, ops, a kernel, device ops and gaps
+GRAPHED = dict(window_s=0.1, ops=16 * 400,
+               kernels={"reduce_kernel": [1e-5] * 32},
+               device_ops=[("reduce_kernel", 3.2e-4)],
+               idle_gaps=[("cudaGraphLaunch", 0.03)])
 
 
 def _traced(run: dict, cell: dict, busy: float = 0.06) -> dict:
-    bound = yardstick.fused_tick_bound_s(cell["config"])
-    run.update(
-        graphed=dict(window_s=0.1, busy_s=busy, ops=16 * 400,
-                     kernels={"fused_tick_kernel_span": [bound * 4] * 16,
-                              "reduce_kernel": [1e-5] * 32},
-                     device_ops=[("reduce_kernel", 3.2e-4)],
-                     idle_gaps=[("cudaGraphLaunch", 0.03)]),
-        traced_ticks=16, eager_ticks=2,
-        stages={"obs:admission": 1e-3, "obs:pipeline": 6e-4,
-                "obs:fleet_watermark": 1e-4, "obs:exchange_core": 2e-3,
-                "obs:core_commit": 4e-4},
-        program=_program(), kind="test", foreign=[])
+    """``run`` with a made-up trace: the runner's graphed stretch, then
+    what the cell's system's ``sample_trace`` says its stretches add;
+    its kernels join the runner's, nothing else is overwritten."""
+    record, _ = cell["system"].sample_trace(cell["config"])
+    record = dict(record)
+    own = record.pop("graphed", {})
+    assert set(own) <= {"kernels"}, own
+    kernels = dict(GRAPHED["kernels"])
+    assert not set(own.get("kernels", {})) & set(kernels)
+    kernels.update(own.get("kernels", {}))
+    run.update(graphed=dict(GRAPHED, busy_s=busy, kernels=kernels),
+               traced_ticks=16, kind="test", foreign=[])
+    assert not set(record) & set(run), set(record) & set(run)
+    run.update(record)
     return run
 
 
@@ -82,9 +68,8 @@ def test_line_has_every_listed_metric(name, trace):
         assert 0 < dev["busy_s"] <= dev["window_s"]
         assert len(line["breakdown"]["device_ops"]) <= 10
         got = {k: v["value"] for k, v in line["metrics"].items()}
-        if "fused_tick_roofline" in got:
-            assert got["fused_tick_roofline"] == pytest.approx(25.0)
-        for k, v in PROGRAM.items():
+        _, expected = c["system"].sample_trace(c["config"])
+        for k, v in expected.items():
             if k in got:
                 assert got[k] == pytest.approx(v), k
         idle = line["metrics"]["device_idle_share"]["value"]
